@@ -1,0 +1,427 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's main path on one NVIDIA GPU and check it.
+
+Run from the repository root, on a machine with a CUDA card and nvcc:
+
+    python3 chip_smoke.py
+
+Phases, each printing one JSON line; any failure raises and the script
+exits non-zero (it also does so, printing no result, without CUDA):
+
+  0. device: the card, ``nvidia-smi`` name and power limit; TF32 off.
+  1. build: nvcc builds ``diffnet_tpu_torch/csrc/poisson2d.cu`` (sm_90a).
+  2. kernels: K1 (stiffness action and masked residual), K2 (resmin loss
+     and gradient) and K3 (Ritz energy) against their plain torch versions
+     at 33^2 (anisotropic h), 40^2, 24x49 (K1 only) and 512^2 x 32, and the
+     time of each at 512^2 x 32 beside its plain version's (CUDA events
+     around 10 back-to-back calls, median of 20 runs).
+  3. gradients: the K1 du/dnu and K3 du VJPs against autograd through the
+     plain versions, at 65^2.
+  4-6. the main path through ``Trainer.fit`` (launch counts set to 0 first):
+     A. the README quick start, 64^2 MMS resmin with LBFGS; rel L2 vs the
+        exact solution must be <= 2.6e-4 (the JAX package gives 2.046e-4);
+     B. 512^2 x 32 resmin with the single-launch loss+grad kernel, Adam,
+        10 steps from a seeded random field; the loss must fall, K2 must
+        launch once a step, and the first loss must match the unfused path;
+     C. 512^2 x 32 energy with the fused energy kernel, Adam, 10 steps.
+  Then the kernel table line and, last, ``{"ok": true, "device": ...}``.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+from diffnet_tpu_torch.core import fem
+from diffnet_tpu_torch.core.quadrature import make_basis
+from diffnet_tpu_torch.data import RectangleManufactured
+from diffnet_tpu_torch.models import DirectField
+from diffnet_tpu_torch.ops import _build
+from diffnet_tpu_torch.ops import poisson_energy as k3
+from diffnet_tpu_torch.ops import poisson_loss_grad as k2
+from diffnet_tpu_torch.ops import poisson_residual as k1
+from diffnet_tpu_torch.pde import Poisson2D
+from diffnet_tpu_torch.train import Trainer
+
+SOURCE = "diffnet_tpu_torch/csrc/poisson2d.cu"
+KERNELS = {   # name -> (module, the TPU kernel it replaces)
+    "poisson_stiffness_action": (k1, "diffnet_tpu/ops/poisson_residual.py:291"),
+    "poisson_resmin_loss_grad": (k2, "diffnet_tpu/ops/poisson_loss_grad.py:98"),
+    "poisson_energy": (k3, "diffnet_tpu/ops/poisson_energy.py:151"),
+}
+# Tolerances, kernel against plain version (float32, sums in other orders):
+FIELD_ATOL = 2e-6      # K1 fields, times max(1, max |ref|): O(1) stencils
+GRAD_RTOL = 1e-5       # K2 gradient, of its largest entry (entries ~O(10))
+SCALAR_RTOL = 1e-5     # K2 loss, K3 energy
+VJP_ATOL = 2e-6        # gradients at 65^2, times max(1, max |ref|)
+L2_LIMIT = 2.6e-4      # slice A final rel L2
+FIRST_LOSS_RTOL = 1e-4  # slice B: kernel vs unfused first loss, 8.4M squares
+
+
+def emit(obj: dict) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def fail(msg: str):
+    raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def exact(x, y):
+    return np.sin(np.pi * x) * np.sin(np.pi * y)
+
+
+def forcing(x, y):
+    return 2 * np.pi**2 * np.sin(np.pi * x) * np.sin(np.pi * y)
+
+
+def reset_counts() -> None:
+    for mod, _ in KERNELS.values():
+        mod.launches = 0
+
+
+def counts() -> dict[str, int]:
+    return {name: mod.launches for name, (mod, _) in KERNELS.items()}
+
+
+def basis_for(ny: int, nx: int, aniso: bool, dev) -> fem.BasisTables:
+    h = ((0.7 / (nx - 1), 1.9 / (ny - 1)) if aniso
+         else (1.0 / (nx - 1), 1.0 / (ny - 1)))
+    return fem.BasisTables(make_basis(2, 1, h=h)).to(dev)
+
+
+def cuda_ms(fns: dict, reps: int = 20, inner: int = 10,
+            warmup: int = 3) -> dict[str, float]:
+    """Median over `reps` runs of the CUDA-event time of `inner` back-to-back
+    calls, per call, for each callable; the callables take turns. Back to
+    back, the host's launch work overlaps the device's, so the time is the
+    device's."""
+    for fn in fns.values():
+        for _ in range(warmup):
+            fn()
+    torch.cuda.synchronize()
+    times = {k: [] for k in fns}
+    for _ in range(reps):
+        for k, fn in fns.items():
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(inner):
+                fn()
+            end.record()
+            end.synchronize()
+            times[k].append(start.elapsed_time(end) / inner)
+    return {k: statistics.median(v) for k, v in times.items()}
+
+
+def phase_device(dev) -> str:
+    if not torch.cuda.is_available():
+        fail("CUDA is not available; the port's kernels need an NVIDIA GPU")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    emit({"phase": "device", "kind": torch.cuda.get_device_name(dev),
+          "count": torch.cuda.device_count(), "nvidia_smi": smi,
+          "torch": torch.__version__, "cuda": torch.version.cuda})
+    return smi
+
+
+def phase_build() -> None:
+    t0 = time.perf_counter()
+    so, log = _build.build()
+    _build.load_library()
+    ptxas = [ln.strip() for ln in log.splitlines()
+             if "registers" in ln or "spill" in ln]
+    emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
+          "library": so.name, "ptxas": ptxas})
+
+
+def phase_kernels(dev) -> dict:
+    """Each kernel against its plain version; times at 512^2 x 32."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    errs = {name: 0.0 for name in KERNELS}
+    times = {}
+    for B, ny, nx, aniso in ((2, 33, 33, True), (2, 40, 40, False),
+                             (2, 24, 49, False), (32, 512, 512, False)):
+        tb = basis_for(ny, nx, aniso, dev)
+        u, nu, Nf, f = (torch.rand((B, ny, nx), generator=g, device=dev)
+                        for _ in range(4))
+        nu = nu + 0.5
+        bc = torch.zeros((ny, nx), device=dev)
+        bc[[0, -1], :] = 1
+        bc[:, [0, -1]] = 1
+        row = {"phase": "kernels", "shape": [B, ny, nx],
+               "tolerance": {"K1_atol": FIELD_ATOL, "K2_grad_rtol": GRAD_RTOL,
+                             "scalar_rtol": SCALAR_RTOL}}
+
+        K = k1.stiffness_action(u, nu, tb)
+        Kp = k1.stiffness_action_plain(u, nu, tb)
+        R = k1.poisson_residual_fused(u, nu, Nf, bc, tb)
+        Rp = torch.where(bc > 0.5, torch.zeros_like(Kp), Kp - Nf)
+        torch.cuda.synchronize()
+        for name, a, b in (("K1", K, Kp), ("K1_residual", R, Rp)):
+            err = float((a - b).abs().max())
+            ref = float(b.abs().max())
+            row[name] = {"max_abs_err": err, "rel_err": err / ref}
+            errs["poisson_stiffness_action"] = max(
+                errs["poisson_stiffness_action"], err)
+            if err > FIELD_ATOL * max(1.0, ref):
+                fail(f"{name} at {row['shape']}: max abs err {err}")
+        if ny == nx:
+            loss, grad = k2.resmin_loss_grad(u, nu, Nf, bc, tb)
+            loss_p, grad_p = k2.resmin_loss_grad_plain(u, nu, Nf, bc, tb)
+            E = k3.energy(u, nu, f, tb)
+            E_p = k3.energy_plain(u, nu, f, tb)
+            torch.cuda.synchronize()
+            gerr = float((grad - grad_p).abs().max())
+            gref = float(grad_p.abs().max())
+            lerr = abs(float(loss) - float(loss_p))
+            eerr = abs(float(E) - float(E_p))
+            row["K2"] = {"loss": float(loss), "loss_rel_err":
+                         lerr / abs(float(loss_p)), "grad_max_abs_err": gerr,
+                         "grad_rel_err": gerr / gref}
+            row["K3"] = {"energy": float(E), "rel_err": eerr / abs(float(E_p))}
+            errs["poisson_resmin_loss_grad"] = max(
+                errs["poisson_resmin_loss_grad"], gerr)
+            errs["poisson_energy"] = max(errs["poisson_energy"], eerr)
+            if gerr > GRAD_RTOL * gref or lerr > SCALAR_RTOL * abs(
+                    float(loss_p)):
+                fail(f"K2 at {row['shape']}: {row['K2']}")
+            if eerr > SCALAR_RTOL * abs(float(E_p)):
+                fail(f"K3 at {row['shape']}: {row['K3']}")
+        if B == 32:
+            t = cuda_ms({
+                "K1_plain": lambda: k1.stiffness_action_plain(u, nu, tb),
+                "K1": lambda: k1.stiffness_action(u, nu, tb),
+                "K2_plain": lambda: k2.resmin_loss_grad_plain(u, nu, Nf, bc,
+                                                              tb),
+                "K2": lambda: k2.resmin_loss_grad(u, nu, Nf, bc, tb),
+                "K3_plain": lambda: k3.energy_plain(u, nu, f, tb),
+                "K3": lambda: k3.energy(u, nu, f, tb),
+            })
+            times = {"poisson_stiffness_action": (t["K1"], t["K1_plain"]),
+                     "poisson_resmin_loss_grad": (t["K2"], t["K2_plain"]),
+                     "poisson_energy": (t["K3"], t["K3_plain"])}
+            row["ms"] = t
+            gb = 1e-9 * B * ny * nx * 4
+            row["kernel_GBps"] = {"K1": 3 * gb / (t["K1"] * 1e-3),
+                                  "K2": 5 * gb / (t["K2"] * 1e-3),
+                                  "K3": 3 * gb / (t["K3"] * 1e-3)}
+        emit(row)
+    return {"errs": errs, "times": times}
+
+
+def phase_gradients(dev) -> None:
+    g = torch.Generator(device=dev).manual_seed(1)
+    n = 65
+    tb = basis_for(n, n, True, dev)
+    u, nu, f, w = (torch.rand((2, n, n), generator=g, device=dev)
+                   for _ in range(4))
+    nu = nu + 0.5
+    bc = (torch.rand((n, n), generator=g, device=dev) > 0.8).float()
+    out = {"phase": "gradients", "shape": [2, n, n], "atol": VJP_ATOL}
+
+    def grads(fn, *xs):
+        xs = [x.clone().requires_grad_(True) for x in xs]
+        fn(*xs).backward()
+        return [x.grad for x in xs]
+
+    pairs = {
+        "K1_du_dnu": (grads(lambda u, nu: (k1.poisson_stiffness_action(
+            u, nu, tb) * w).sum(), u, nu),
+            grads(lambda u, nu: (k1.stiffness_action_plain(u, nu, tb)
+                                 * w).sum(), u, nu)),
+        "K3_du": (grads(lambda u: k3.poisson_energy_fused(u, nu, f, tb), u),
+                  grads(lambda u: k3.energy_plain(u, nu, f, tb), u)),
+        "K2_du": (grads(lambda u: k2.poisson_resmin_loss_fused(
+            u, nu, f, bc, tb), u),
+            grads(lambda u: k2.resmin_loss_grad_plain(u, nu, f, bc, tb)[0],
+                  u)),
+    }
+    torch.cuda.synchronize()
+    for name, (got, ref) in pairs.items():
+        err = max(float((a - b).abs().max()) for a, b in zip(got, ref))
+        scale = max(1.0, max(float(b.abs().max()) for b in ref))
+        out[name] = {"max_abs_err": err, "rel_err": err / scale}
+        if err > VJP_ATOL * scale:
+            fail(f"{name}: max abs err {err} (scale {scale})")
+    emit(out)
+
+
+def slice_a(dev) -> dict:
+    n = 64
+    ds = RectangleManufactured(n)
+    ds.n_samples = 1
+    m = Poisson2D(DirectField((n, n), init=np.zeros((n, n))), ds,
+                  domain_size=n, batch_size=1, loss_type="resmin",
+                  exact_solution=exact, forcing=forcing, mms_dirichlet=True,
+                  fused_kernels=True)
+    before = counts()
+    t0 = time.perf_counter()
+    Trainer(max_epochs=80, optimizer="lbfgs", lbfgs_max_iter=10,
+            device=dev).fit(m)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    with torch.no_grad():
+        u = m.network()[0]
+        eL2, _, uex = m.calc_l2_err(u)
+    rel = float(eL2 / uex)
+    launches = {k: v - before[k] for k, v in counts().items()}
+    out = {"phase": "slice_A", "grid": [n, n], "final_rel_l2": rel,
+           "limit": L2_LIMIT, "jax_reference": 2.046e-4, "seconds": dt,
+           "launches": launches}
+    emit(out)
+    if not (tuple(u.shape) == (n, n) and bool(torch.isfinite(u).all())):
+        fail("slice A: the solution is not a finite 64x64 field")
+    if not rel <= L2_LIMIT:
+        fail(f"slice A: rel L2 {rel} > {L2_LIMIT}")
+    if launches["poisson_stiffness_action"] <= 0:
+        fail("slice A: K1 never launched")
+    return launches
+
+
+def _field_module(n, bs, loss_type, **kw):
+    ds = RectangleManufactured(n)
+    ds.n_samples = 10 * bs
+    init = np.random.default_rng(0).random((n, n)).astype(np.float32)
+    return Poisson2D(DirectField((n, n), init=init), ds, domain_size=n,
+                     batch_size=bs, loss_type=loss_type,
+                     exact_solution=exact, forcing=forcing,
+                     mms_dirichlet=True, **kw)
+
+
+def _train_10(m, dev) -> tuple[Trainer, float]:
+    tr = Trainer(max_epochs=1, optimizer="adam", learning_rate=1e-3,
+                 device=dev)
+    t0 = time.perf_counter()
+    tr.fit(m)
+    torch.cuda.synchronize()
+    return tr, time.perf_counter() - t0
+
+
+def _check_losses(name, losses):
+    if len(losses) != 10 or not all(math.isfinite(v) for v in losses):
+        fail(f"{name}: losses {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"{name}: the loss did not fall: {losses}")
+
+
+def slice_b(dev) -> dict:
+    n, bs = 512, 32
+    m = _field_module(n, bs, "resmin", fused_kernels=True,
+                      fused_loss_grad=True)
+    ref = _field_module(n, bs, "resmin").to(dev)   # unfused, same start
+    inputs, frc = m.dataset[0]
+    batch = tuple(torch.from_numpy(np.broadcast_to(a, (bs,) + a.shape)
+                                   .copy()).to(dev) for a in (inputs, frc))
+    with torch.no_grad():
+        first_ref = float(ref.training_loss(batch))
+    del ref, batch
+    before = counts()
+    tr, dt = _train_10(m, dev)
+    launches = {k: v - before[k] for k, v in counts().items()}
+    losses = tr.step_losses
+    out = {"phase": "slice_B", "grid": [n, n], "batch": bs,
+           "losses": losses, "first_loss_unfused": first_ref,
+           "seconds": dt, "fit_steps_per_s": 10 / dt, "launches": launches}
+    emit(out)
+    _check_losses("slice B", losses)
+    if launches["poisson_resmin_loss_grad"] != 10:
+        fail(f"slice B: K2 launched {launches} times, not once a step")
+    if abs(losses[0] - first_ref) > FIRST_LOSS_RTOL * abs(first_ref):
+        fail(f"slice B: first loss {losses[0]} vs unfused {first_ref}")
+    return launches
+
+
+def slice_c(dev) -> dict:
+    n, bs = 512, 32
+    m = _field_module(n, bs, "energy", fused_kernels=True)
+    before = counts()
+    tr, dt = _train_10(m, dev)
+    launches = {k: v - before[k] for k, v in counts().items()}
+    out = {"phase": "slice_C", "grid": [n, n], "batch": bs,
+           "losses": tr.step_losses, "seconds": dt,
+           "fit_steps_per_s": 10 / dt, "launches": launches}
+    emit(out)
+    _check_losses("slice C", tr.step_losses)
+    if launches["poisson_energy"] < 10 or \
+            launches["poisson_stiffness_action"] < 10:
+        fail(f"slice C: launches {launches}")
+    return launches
+
+
+def resident_steps_per_s(dev) -> dict:
+    """Steps/s of the two 512^2 x 32 training steps with the batch already
+    on the card (no loader): Adam on the fused losses."""
+    out = {}
+    for name, loss_type, kw in (
+            ("resmin_fused_loss_grad", "resmin",
+             {"fused_kernels": True, "fused_loss_grad": True}),
+            ("resmin_unfused", "resmin", {}),
+            ("energy_fused", "energy", {"fused_kernels": True})):
+        m = _field_module(512, 32, loss_type, **kw).to(dev)
+        inputs, frc = m.dataset[0]
+        batch = tuple(torch.from_numpy(np.broadcast_to(a, (32,) + a.shape)
+                                       .copy()).to(dev) for a in (inputs, frc))
+        opt = torch.optim.Adam(m.parameters(), lr=1e-3)
+
+        def step():
+            opt.zero_grad(set_to_none=True)
+            m.training_loss(batch).backward()
+            opt.step()
+
+        for _ in range(3):
+            step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            step()
+        torch.cuda.synchronize()
+        out[name] = 20 / (time.perf_counter() - t0)
+    return out
+
+
+def main() -> int:
+    dev = torch.device("cuda:0")
+    phase_device(dev)
+    phase_build()
+    k = phase_kernels(dev)
+    phase_gradients(dev)
+
+    reset_counts()           # the main path starts here
+    la = slice_a(dev)
+    lb = slice_b(dev)
+    lc = slice_c(dev)
+    total = counts()         # ... and ends here
+    emit({"phase": "main_path_launches", "total": total,
+          "slice_A": la, "slice_B": lb, "slice_C": lc})
+    for name, n in total.items():
+        if n <= 0:
+            fail(f"{name} was never launched on the main path")
+
+    emit({"phase": "resident_steps_per_s",
+          "steps_per_s": resident_steps_per_s(dev)})
+    emit({"kernels": [
+        {"name": name, "route": "cuda", "source": SOURCE,
+         "replaces": replaces, "launches": total[name],
+         "max_abs_err": k["errs"][name], "ms": k["times"][name][0],
+         "plain_ms": k["times"][name][1]}
+        for name, (_, replaces) in KERNELS.items()]})
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,11 @@
+"""diffnet_tpu_torch: the PyTorch / CUDA port of diffnet_tpu.
+
+It sits beside the JAX package and imports torch and numpy only, never jax
+or ``diffnet_tpu``. Subpackages keep the JAX package's names: ``core``
+(basis tables, FEM evaluation and assembly), ``ops`` (hand-written CUDA
+kernels for Hopper, each with its plain torch version), ``pde``
+(``Poisson2D``), ``models`` (``DirectField``), ``data`` (datasets and the
+loader) and ``train`` (``Trainer``).
+"""
+
+__version__ = "0.1.0"

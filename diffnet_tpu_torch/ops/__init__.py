@@ -1,0 +1,14 @@
+"""Hand-written CUDA kernels for Hopper, each with its plain torch version.
+
+Every op module holds the kernel's wrapper (the kernel for CUDA tensors,
+the plain version for CPU tensors), the plain version, a
+``torch.autograd.Function`` and a ``launches`` count. The kernels live in
+``diffnet_tpu_torch/csrc/`` and are built at first use (``_build.py``).
+"""
+
+from .poisson_energy import poisson_energy_fused
+from .poisson_loss_grad import poisson_resmin_loss_fused
+from .poisson_residual import poisson_residual_fused, poisson_stiffness_action
+
+__all__ = ["poisson_stiffness_action", "poisson_residual_fused",
+           "poisson_resmin_loss_fused", "poisson_energy_fused"]

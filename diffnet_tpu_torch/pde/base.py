@@ -1,0 +1,182 @@
+"""PDE module base classes (port of ``diffnet_tpu/pde/base.py``).
+
+A :class:`PDEModule` is an ``nn.Module`` that owns the network (for example
+:class:`~diffnet_tpu_torch.models.field.DirectField`), the FEM tables as
+buffers, and the loss:
+
+    u, inputs, forcing = module(batch)        # network forward
+    l = module.loss(u, inputs, forcing)       # the PDE-defining loss
+    module.training_loss(batch)               # mean of loss(forward(batch))
+
+The Trainer (:mod:`diffnet_tpu_torch.train`) owns the update loop.
+
+Layout, as in the JAX package: batches are channels-last ``[B, y, x, C]``,
+fields ``[B, y, x]``, Gauss-point arrays ``[..., nelY, nelX, ngp]``.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Sequence
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..core import fem
+from ..core.quadrature import make_basis
+
+__all__ = ["PDEModule", "FEM2DModule"]
+
+
+class PDEModule(nn.Module):
+    """Base PDE module. Keyword arguments as in the JAX package: ``nsd``,
+    ``batch_size``, ``learning_rate``, ``domain_size(s)``,
+    ``domain_length(s)``."""
+
+    def __init__(self, network: nn.Module | None = None, dataset=None,
+                 **kwargs):
+        super().__init__()
+        self.network = network
+        self.dataset = dataset
+        self.kwargs = kwargs
+        self.nsd = kwargs.get("nsd", 2)
+        self.batch_size = kwargs.get("batch_size", 64)
+        self.learning_rate = kwargs.get("learning_rate", 3e-4)
+        self.domain_length = kwargs.get("domain_length", 1.0)
+        self.domain_size = kwargs.get("domain_size", 64)
+        lengths = kwargs.get("domain_lengths", (self.domain_length,) * 3)
+        sizes = kwargs.get("domain_sizes", (self.domain_size,) * 3)
+        self.domain_lengths_nd = tuple(lengths)
+        self.domain_sizes_nd = tuple(int(s) for s in sizes)
+        self.domain_lengthX, self.domain_lengthY = lengths[0], lengths[1]
+        self.domain_sizeX, self.domain_sizeY = sizes[0], sizes[1]
+
+    def loss(self, u, inputs_tensor, forcing_tensor):
+        raise NotImplementedError
+
+    def forward(self, batch):
+        """``u = network(inputs)``; returns ``(u, inputs, forcing)``."""
+        inputs_tensor, forcing_tensor = batch
+        return self.network(inputs_tensor), inputs_tensor, forcing_tensor
+
+    def training_loss(self, batch) -> torch.Tensor:
+        """Mean of ``loss(forward(batch))``: what the Trainer minimises."""
+        u, inputs_tensor, forcing_tensor = self(batch)
+        return torch.mean(self.loss(u, inputs_tensor, forcing_tensor))
+
+    @staticmethod
+    def apply_dirichlet(u, mask, value):
+        """``where(mask > 0.5, value, u)``: immersed/Dirichlet masking."""
+        if not isinstance(value, torch.Tensor):
+            value = float(value)
+        return torch.where(mask > 0.5, value, u)
+
+    def apply_bcs(self, u, inputs_tensor):
+        """The BC-substituted solution field; identity by default."""
+        return u
+
+
+class _FEMMixin:
+    """Shared FEM setup: element counts, spacings, the basis tables (as the
+    ``basis`` submodule), Gauss-point and nodal coordinates."""
+
+    def _setup_fem(self, **kwargs):
+        self.fem_basis_deg = kwargs.get("fem_basis_deg", 1)
+        deg = self.fem_basis_deg
+        for name, size in (("X", self.domain_sizeX),
+                           ("Y", self.domain_sizeY)):
+            if (size - 1) % deg:
+                raise ValueError(
+                    f"domain_size{name}={size} incompatible with "
+                    f"fem_basis_deg={deg}: need (size-1) % deg == 0")
+        self.nbf_1d = deg + 1
+        self.nbf_total = self.nbf_1d**self.nsd
+        self.nelemX = int((self.domain_sizeX - 1) / deg)
+        self.nelemY = int((self.domain_sizeY - 1) / deg)
+        self.hx = self.domain_lengthX / self.nelemX
+        self.hy = self.domain_lengthY / self.nelemY
+        self.nelem = self.nelemX
+        self.h = self.hx
+        self.basis = fem.BasisTables(make_basis(
+            self.nsd, deg, h=(self.hx, self.hy), ngp_1d=kwargs.get("ngp_1d")))
+        fem_basis = self.basis.basis
+        self.ngp_1d = fem_basis.ngp_1d
+        self.ngp_total = fem_basis.ngp_total
+        self.gpw = fem_basis.gpw          # [ngp_total] (numpy)
+        self.jxw = fem_basis.jxw          # [ngp_total] (numpy)
+        self.node_shape = (self.domain_sizeY, self.domain_sizeX)
+        self.xgp, self.ygp = fem.gp_coords(fem_basis, self.node_shape)
+        self.xx, self.yy = np.meshgrid(
+            np.linspace(0, self.domain_lengthX, self.domain_sizeX),
+            np.linspace(0, self.domain_lengthY, self.domain_sizeY))
+
+    def gp_all(self, u, quantities: Sequence[str]):
+        """Several derivative quantities of `u` in one contraction:
+        ``[..., y, x]`` -> dict of ``[..., nelY, nelX, ngp_total]``."""
+        return fem.gp_eval(u, self.basis, quantities)
+
+    def gauss_pt_evaluation(self, u):
+        return fem.gp_eval(u, self.basis, ("N",))["N"]
+
+    def gauss_pt_evaluation_der_x(self, u):
+        return fem.gp_eval(u, self.basis, ("dx",))["dx"]
+
+    def gauss_pt_evaluation_der_y(self, u):
+        return fem.gp_eval(u, self.basis, ("dy",))["dy"]
+
+    def gauss_pt_evaluation_der2_x(self, u):
+        return fem.gp_eval(u, self.basis, ("d2x",))["d2x"]
+
+    def gauss_pt_evaluation_der2_y(self, u):
+        return fem.gp_eval(u, self.basis, ("d2y",))["d2y"]
+
+    def gauss_pt_evaluation_der2_xy(self, u):
+        return fem.gp_eval(u, self.basis, ("d2xy",))["d2xy"]
+
+    def assemble(self, integrand_gp, quantity="N", apply_jxw=True):
+        """Galerkin-project a Gauss-point integrand onto the test functions
+        and scatter it into the nodal residual."""
+        return fem.galerkin_project(integrand_gp, self.basis, quantity,
+                                    self.node_shape, apply_jxw=apply_jxw)
+
+    def assemble_multi(self, integrands, apply_jxw=True):
+        """Assemble a sum of ``(gp_integrand, quantity)`` weak-form terms in
+        one contraction and one scatter."""
+        return fem.galerkin_project_multi(integrands, self.basis,
+                                          self.node_shape,
+                                          apply_jxw=apply_jxw)
+
+    def jxw_c(self, dtype=torch.float32) -> torch.Tensor:
+        """JxW ``[ngp_total]`` on the module's device."""
+        return self.basis.jxw(dtype)
+
+    def calc_l2_err(self, u_sol, exact_solution: Callable | None = None,
+                    verbose: bool = False):
+        """Quadrature L2 norms of (u_sol - exact), u_sol and exact;
+        `exact_solution` takes Gauss-point coordinate arrays (x, y).
+        Returns ``(eL2, uL2, u_exL2)`` as 0-dim tensors."""
+        ex = exact_solution or self.exact_solution
+        u_gp = self.gauss_pt_evaluation(u_sol)
+        u_ex_gp = torch.as_tensor(np.asarray(ex(self.xgp, self.ygp)),
+                                  dtype=u_sol.dtype, device=u_sol.device)
+        jxw = self.jxw_c(u_sol.dtype)
+
+        def norm(g):
+            return torch.sqrt(torch.sum(g**2 * jxw))
+
+        eL2, uL2, u_exL2 = norm(u_gp - u_ex_gp), norm(u_gp), norm(u_ex_gp)
+        if verbose:
+            print(f"||u_sol||, ||uex|| = {float(uL2)}, {float(u_exL2)}")
+            print(f"||e||_L2 = {float(eL2)}")
+        return eL2, uL2, u_exL2
+
+
+class FEM2DModule(_FEMMixin, PDEModule):
+    """2D FEM PDE base."""
+
+    def __init__(self, network=None, dataset=None, **kwargs):
+        kwargs.setdefault("nsd", 2)
+        super().__init__(network, dataset, **kwargs)
+        if self.nsd != 2:
+            raise ValueError(f"FEM2DModule needs nsd=2, got {self.nsd}")
+        self._setup_fem(**kwargs)

@@ -1,0 +1,225 @@
+"""2D Poisson / diffusion (port of ``diffnet_tpu/pde/poisson.py``).
+
+Losses, as in the JAX package:
+  * energy minimisation (Ritz), ``loss_type="energy"`` (the default);
+  * Galerkin residual minimisation, ``loss_type="resmin"``, in the
+    element-tensor stencil form (``residual_formulation="et"``, deg-1
+    default) or the Gauss-point pipeline (``"gp"``), with an optional dense
+    left preconditioner;
+  * strong-form collocation via FEM second derivatives,
+    ``loss_type="strong"`` (needs deg >= 2).
+
+``fused_kernels=True`` routes deg-1 energy and resmin through the CUDA
+kernels of :mod:`diffnet_tpu_torch.ops`, and ``fused_loss_grad=True`` the
+resmin loss through the single-launch loss-and-gradient kernel.
+
+Every loss takes ``(u, inputs, forcing)`` where ``inputs`` stacks
+channels-last masks ``[..., (nu, bc1, bc2)]``: bc1 nodes take
+``bc1_value``, bc2 nodes ``bc2_value`` (or ``u_bc`` when given).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..core import fem
+from ..ops.poisson_energy import poisson_energy_fused
+from ..ops.poisson_loss_grad import poisson_resmin_loss_fused
+from ..ops.poisson_residual import poisson_residual_fused
+from .base import FEM2DModule
+
+__all__ = [
+    "poisson_energy_loss",
+    "poisson_resmin_residual",
+    "poisson_resmin_residual_et",
+    "poisson_strong_form_loss",
+    "Poisson2D",
+]
+
+
+def _squeeze_field(u):
+    """Accept ``[B, ..., 1]`` network outputs and ``[B, ...]`` fields."""
+    if u.shape[-1] == 1 and u.ndim >= 3:
+        return u[..., 0]
+    return u
+
+
+def _buffer(x):
+    """A module constant as a float32 tensor (None stays None)."""
+    if x is None:
+        return None
+    return torch.as_tensor(np.asarray(x, np.float32))
+
+
+def poisson_energy_loss(module, u, nu, f, w):
+    """Ritz energy: ``sum_gp w (0.5 nu |grad u|^2 - u f)`` per element, then
+    the mean over elements and batch."""
+    gp = module.gp_all(u, ("N", "dx", "dy"))
+    nu_gp = module.gauss_pt_evaluation(nu)
+    f_gp = module.gauss_pt_evaluation(f)
+    grad2 = gp["dx"] ** 2 + gp["dy"] ** 2
+    res = w * (0.5 * nu_gp * grad2 - gp["N"] * f_gp)
+    return torch.mean(torch.sum(res, dim=-1))
+
+
+def poisson_resmin_residual(module, u, nu_gp, f_gp, bc_mask):
+    """Assembled Galerkin residual ``R_i = ∫ nu grad N_i . grad u - ∫ N_i f``
+    with the Dirichlet rows zeroed (Gauss-point pipeline)."""
+    gp = module.gp_all(u, ("dx", "dy"))
+    terms = [(nu_gp * gp[q], q) for q in ("dx", "dy")] + [(-f_gp, "N")]
+    R = module.assemble_multi(terms)
+    return torch.where(bc_mask > 0.5, torch.zeros_like(R), R)
+
+
+def poisson_resmin_residual_et(module, u, nu, f_gp, bc_mask):
+    """The same residual through the static element tensor (nodal nu, no
+    Gauss-point intermediates; the forcing projection folds into the same
+    stencil pass)."""
+    R = fem.element_action(u, nu, module._poisson_et_tensor, module.basis,
+                           module.node_shape, gp_terms=[(-f_gp, "N")])
+    return torch.where(bc_mask > 0.5, torch.zeros_like(R), R)
+
+
+def poisson_strong_form_loss(module, u, nu_gp, f_gp, w):
+    """Collocation on the strong form: ``mean_elem sum_gp w (nu lap u +
+    f)^2`` (needs deg >= 2)."""
+    gp = module.gp_all(u, ("d2x", "d2y"))
+    lap = gp["d2x"] + gp["d2y"]
+    res = w * (nu_gp * lap + f_gp) ** 2
+    return torch.mean(torch.sum(res, dim=-1))
+
+
+class Poisson2D(FEM2DModule):
+    """2D Poisson with energy / resmin / strong loss (see module docstring).
+
+    MMS convenience: ``exact_solution(x, y)`` and ``forcing(x, y)``
+    callables precompute ``f_gp`` at the Gauss points and, with
+    ``mms_dirichlet=True``, the Dirichlet data ``u_bc`` at the nodes."""
+
+    def __init__(self, network=None, dataset=None, **kwargs):
+        super().__init__(network, dataset, **kwargs)
+        self.loss_type = kwargs.get("loss_type", "energy")
+        default_form = "et" if self.basis.deg == 1 else "gp"
+        self.residual_formulation = kwargs.get("residual_formulation",
+                                               default_form)
+        if self.residual_formulation not in ("et", "gp"):
+            raise ValueError(
+                f"residual_formulation must be 'et' or 'gp', got "
+                f"{self.residual_formulation!r}")
+        if self.residual_formulation == "et":
+            self._poisson_et_tensor = fem.element_tensor(self.basis.basis,
+                                                         ("dx", "dy"))
+        self.energy_weighting = kwargs.get("energy_weighting", "jxw")
+        self.fused_kernels = bool(kwargs.get("fused_kernels", False))
+        self.fused_loss_grad = bool(kwargs.get("fused_loss_grad", False))
+        if self.fused_loss_grad and not (
+                self.fused_kernels and self.loss_type == "resmin"
+                and kwargs.get("precond", None) is None):
+            raise ValueError(
+                "fused_loss_grad requires fused_kernels=True, nsd=2, "
+                "loss_type='resmin' and no precond")
+        if self.fused_kernels:
+            if not (self.basis.deg == 1 and self.ngp_1d == 2
+                    and self.loss_type in ("energy", "resmin")):
+                raise ValueError(
+                    "fused_kernels supports deg-1 2-GP 2D energy/resmin "
+                    "only")
+            if self.loss_type == "energy" and self.energy_weighting != "jxw":
+                raise ValueError(
+                    "fused_kernels energy path is jxw-weighted only")
+        self.bc1_value = kwargs.get("bc1_value", 1.0)
+        self.bc2_value = kwargs.get("bc2_value", 0.0)
+        self.exact_solution = kwargs.get("exact_solution", None)
+        forcing = kwargs.get("forcing", None)
+        u_bc = kwargs.get("u_bc", None)
+        if kwargs.get("mms_dirichlet", False) and self.exact_solution:
+            u_bc = self.exact_solution(self.xx, self.yy)
+        # Dirichlet field on bc2 nodes (instead of bc2_value), the Gauss-
+        # point forcing, and a dense left preconditioner [N, N] on vec(R)
+        self.register_buffer("u_bc", _buffer(u_bc), persistent=False)
+        self.register_buffer(
+            "f_gp", _buffer(None if forcing is None
+                            else forcing(self.xgp, self.ygp)),
+            persistent=False)
+        self.register_buffer("precond", _buffer(kwargs.get("precond")),
+                             persistent=False)
+
+    def _weights(self, dtype):
+        if self.energy_weighting == "gpw":
+            return self.basis.gpw(dtype)
+        return self.basis.jxw(dtype)
+
+    def _substitute_bcs(self, u, bc1, bc2):
+        if self.u_bc is not None:
+            return torch.where(bc2 > 0.5, self.u_bc.to(u.dtype), u)
+        u = self.apply_dirichlet(u, bc1, self.bc1_value)
+        return self.apply_dirichlet(u, bc2, self.bc2_value)
+
+    def _f_gp(self, f, dtype):
+        if self.f_gp is not None:
+            return self.f_gp.to(dtype)
+        return self.gauss_pt_evaluation(f)
+
+    def apply_bcs(self, u, inputs_tensor):
+        return self._substitute_bcs(_squeeze_field(u), inputs_tensor[..., 1],
+                                    inputs_tensor[..., 2])
+
+    def residual_for_field(self, u, inputs_tensor, forcing_tensor):
+        """Assembled Galerkin residual R(u) of a nodal field: Dirichlet data
+        substituted into u, the weak-form assembly, then the rows of all
+        substituted nodes (bc1 and bc2) zeroed. Affine in u."""
+        u = _squeeze_field(u)
+        nu = inputs_tensor[..., 0]
+        bc1 = inputs_tensor[..., 1]
+        bc2 = inputs_tensor[..., 2]
+        u = self._substitute_bcs(u, bc1, bc2)
+        bc_mask = bc2 if self.u_bc is not None else torch.maximum(bc1, bc2)
+        f_gp = self._f_gp(_squeeze_field(forcing_tensor), u.dtype)
+        if self.fused_kernels and self.loss_type == "resmin":
+            Nf = fem.galerkin_project(f_gp, self.basis, "N", u.shape[-2:])
+            return poisson_residual_fused(u, nu.contiguous(), Nf, bc_mask,
+                                          self.basis)
+        if self.residual_formulation == "et":
+            return poisson_resmin_residual_et(self, u, nu, f_gp, bc_mask)
+        return poisson_resmin_residual(
+            self, u, self.gauss_pt_evaluation(nu), f_gp, bc_mask)
+
+    def loss(self, u, inputs_tensor, forcing_tensor):
+        u = _squeeze_field(u)
+        nu = inputs_tensor[..., 0]
+        bc1 = inputs_tensor[..., 1]
+        bc2 = inputs_tensor[..., 2]
+        f = _squeeze_field(forcing_tensor)
+        u = self._substitute_bcs(u, bc1, bc2)
+
+        if self.loss_type == "energy":
+            if self.fused_kernels:
+                return poisson_energy_fused(u, nu.contiguous(),
+                                            f.contiguous(), self.basis)
+            return poisson_energy_loss(self, u, nu, f,
+                                       self._weights(u.dtype))
+
+        f_gp = self._f_gp(f, u.dtype)
+        if self.loss_type == "resmin":
+            if self.fused_kernels:
+                Nf = fem.galerkin_project(f_gp, self.basis, "N",
+                                          u.shape[-2:]).contiguous()
+                if self.fused_loss_grad:
+                    return poisson_resmin_loss_fused(
+                        u, nu.contiguous(), Nf, bc2.contiguous(), self.basis)
+                R = poisson_residual_fused(u, nu.contiguous(), Nf, bc2,
+                                           self.basis)
+            elif self.residual_formulation == "et":
+                R = poisson_resmin_residual_et(self, u, nu, f_gp, bc2)
+            else:
+                R = poisson_resmin_residual(
+                    self, u, self.gauss_pt_evaluation(nu), f_gp, bc2)
+            if self.precond is not None:
+                R = R.reshape(R.shape[0], -1) @ self.precond.to(u.dtype).T
+            return torch.sum(R**2)
+        if self.loss_type == "strong":
+            return poisson_strong_form_loss(
+                self, u, self.gauss_pt_evaluation(nu), f_gp,
+                self._weights(u.dtype))
+        raise ValueError(f"unknown loss_type {self.loss_type!r}")

@@ -1,0 +1,159 @@
+"""The port's CUDA kernels against their plain torch versions, on the card.
+
+Every test here is marked ``cuda`` and skips without an NVIDIA GPU. The file
+imports torch and the port only (no JAX), so it also runs on a GPU machine
+without JAX, from the repository root:
+
+    python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
+
+Tolerances: the kernels sum in another order than torch. Fields at atol
+2e-6 times max(1, max |ref|) (O(1) float32 stencils), scalars at rtol 1e-5,
+the K2 gradient at 1e-5 of its largest entry, the VJPs as the fields.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from diffnet_tpu_torch.core import fem
+from diffnet_tpu_torch.core.quadrature import make_basis
+from diffnet_tpu_torch.data import RectangleManufactured
+from diffnet_tpu_torch.models import DirectField
+from diffnet_tpu_torch.ops import poisson_energy as k3
+from diffnet_tpu_torch.ops import poisson_loss_grad as k2
+from diffnet_tpu_torch.ops import poisson_residual as k1
+from diffnet_tpu_torch.pde import Poisson2D
+from diffnet_tpu_torch.train import Trainer
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _fields(shape, dev, n=4, seed=0):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    return [torch.rand(shape, generator=g).to(dev) for _ in range(n)]
+
+
+def _basis(ny, nx, dev, aniso=False):
+    h = ((0.7 / (nx - 1), 1.9 / (ny - 1)) if aniso
+         else (1 / (nx - 1), 1 / (ny - 1)))
+    return fem.BasisTables(make_basis(2, 1, h=h)).to(dev)
+
+
+def _field_close(a, b):
+    torch.testing.assert_close(a, b, rtol=0,
+                               atol=2e-6 * max(1.0, float(b.abs().max())))
+
+
+SHAPES = [((2, 33, 33), True), ((2, 40, 40), False), ((2, 24, 49), False),
+          ((3, 129, 257), False), ((1, 2, 2), False)]
+
+
+@pytest.mark.parametrize("shape,aniso", SHAPES)
+def test_stiffness_kernel_matches_plain(dev, shape, aniso):
+    tb = _basis(*shape[1:], dev, aniso)
+    u, nu, _, _ = _fields(shape, dev)
+    before = k1.launches
+    K = k1.stiffness_action(u, nu, tb)
+    torch.cuda.synchronize()
+    assert k1.launches == before + 1
+    _field_close(K, k1.stiffness_action_plain(u, nu, tb))
+
+
+@pytest.mark.parametrize("shape,aniso,plane", [
+    ((2, 33, 33), True, True), ((2, 40, 40), False, False),
+    ((2, 24, 49), False, True), ((3, 129, 257), False, False)])
+def test_loss_grad_kernel_matches_plain(dev, shape, aniso, plane):
+    tb = _basis(*shape[1:], dev, aniso)
+    u, nu, Nf, bc = _fields(shape, dev)
+    bc = (bc > 0.7).float()
+    if plane:   # Nf and bc shared by the batch
+        Nf, bc = Nf[0].contiguous(), bc[0].contiguous()
+    before = k2.launches
+    loss, grad = k2.resmin_loss_grad(u, nu, Nf, bc, tb)
+    torch.cuda.synchronize()
+    assert k2.launches == before + 1
+    loss_p, grad_p = k2.resmin_loss_grad_plain(u, nu, Nf, bc, tb)
+    torch.testing.assert_close(loss, loss_p, rtol=1e-5, atol=0)
+    torch.testing.assert_close(grad, grad_p, rtol=0,
+                               atol=1e-5 * float(grad_p.abs().max()))
+
+
+@pytest.mark.parametrize("shape,aniso", SHAPES)
+def test_energy_kernel_matches_plain(dev, shape, aniso):
+    tb = _basis(*shape[1:], dev, aniso)
+    u, nu, f, _ = _fields(shape, dev)
+    before = k3.launches
+    E = k3.energy(u, nu, f, tb)
+    torch.cuda.synchronize()
+    assert k3.launches == before + 1
+    torch.testing.assert_close(E, k3.energy_plain(u, nu, f, tb), rtol=1e-5,
+                               atol=0)
+
+
+def _grads(fn, *xs):
+    xs = [x.clone().requires_grad_(True) for x in xs]
+    fn(*xs).backward()
+    return [x.grad for x in xs]
+
+
+def test_vjps_match_autograd_through_plain(dev):
+    n = 65
+    tb = _basis(n, n, dev, aniso=True)
+    u, nu, f, w = _fields((2, n, n), dev)
+    bc = (f[0] > 0.8).float()
+    pairs = [
+        (_grads(lambda u, nu: (k1.poisson_stiffness_action(u, nu, tb)
+                               * w).sum(), u, nu),
+         _grads(lambda u, nu: (k1.stiffness_action_plain(u, nu, tb)
+                               * w).sum(), u, nu)),
+        (_grads(lambda u, nu, f: k3.poisson_energy_fused(u, nu, f, tb),
+                u, nu, f),
+         _grads(lambda u, nu, f: k3.energy_plain(u, nu, f, tb), u, nu, f)),
+        (_grads(lambda u, nu, Nf: k2.poisson_resmin_loss_fused(
+            u, nu, Nf, bc, tb), u, nu, f),
+         _grads(lambda u, nu, Nf: k2.resmin_loss_grad_plain(
+             u, nu, Nf, bc, tb)[0], u, nu, f)),
+    ]
+    for got, ref in pairs:
+        for a, b in zip(got, ref):
+            _field_close(a, b)
+
+
+def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
+    tb = _basis(9, 9, dev)
+    x = torch.zeros(2, 9, 9, device=dev)
+    with pytest.raises(TypeError, match="float32"):
+        k1.stiffness_action(x.half(), x.half(), tb)
+    with pytest.raises(ValueError, match="contiguous"):
+        k1.stiffness_action(x, x.transpose(1, 2), tb)
+    with pytest.raises(ValueError, match="device"):
+        k2.resmin_loss_grad(x, x, x.cpu(), x[0], tb)
+
+
+def test_fit_on_the_card_goes_through_the_kernels(dev):
+    n = 33
+    exact = RectangleManufactured.exact
+    ds = RectangleManufactured(n)
+    ds.n_samples = 1
+    m = Poisson2D(DirectField((n, n), init=np.zeros((n, n))), ds,
+                  domain_size=n, batch_size=1, loss_type="resmin",
+                  exact_solution=exact,
+                  forcing=lambda x, y: 2 * np.pi**2 * exact(x, y),
+                  mms_dirichlet=True, fused_kernels=True)
+    before = k1.launches
+    Trainer(max_epochs=20, optimizer="lbfgs", lbfgs_max_iter=10,
+            device=dev).fit(m)
+    assert k1.launches > before
+    assert m.network.field.device.type == "cuda"
+    with torch.no_grad():
+        eL2, _, uex = m.calc_l2_err(m.network()[0])
+    assert float(eL2 / uex) < 2e-3

@@ -1,0 +1,323 @@
+"""The port's kernel ops (diffnet_tpu_torch.ops) against the JAX package.
+
+On the CPU the port's wrappers run their plain torch versions; these are held
+to the JAX Pallas ops, run in interpret mode with the same monkeypatch as
+tests/test_pallas_kernel.py, and to the JAX XLA paths. Inputs come from
+``np.random.default_rng`` and go to both packages as the same numpy arrays.
+
+Tolerances: fields at atol=2e-6 (the JAX kernel tests' own tolerance for
+K(nu)u with O(1) inputs in float32); scalars at rtol=1e-5 (float32 sums over
+~1e3 terms in different orders); K2 gradients, whose entries reach O(10), at
+1e-4 of their largest entry, as the JAX K2 test holds them.
+
+The CUDA kernels themselves are checked against their plain versions on the
+card by tests/test_torch_cuda.py.
+"""
+
+import sys
+from functools import partial
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+
+import diffnet_tpu.ops.poisson_energy as jen
+import diffnet_tpu.ops.poisson_loss_grad as jlg
+import diffnet_tpu.ops.poisson_residual as jpr
+from diffnet_tpu.core import fem as jfem
+from diffnet_tpu.core.quadrature import make_basis as jmake_basis
+from diffnet_tpu_torch.core import fem
+from diffnet_tpu_torch.core.quadrature import make_basis
+from diffnet_tpu_torch.ops import poisson_energy as ten
+from diffnet_tpu_torch.ops import poisson_loss_grad as tlg
+from diffnet_tpu_torch.ops import poisson_residual as tpr
+
+
+@pytest.fixture(autouse=True)
+def _interpret_mode(monkeypatch):
+    monkeypatch.setattr(pl, "pallas_call",
+                        partial(pl.pallas_call, interpret=True))
+
+
+def _h(shape, aniso=False):
+    ny, nx = shape
+    if aniso:
+        return (0.7 / (nx - 1), 1.9 / (ny - 1))
+    return (1.0 / (nx - 1), 1.0 / (ny - 1))
+
+
+def _bases(shape, aniso=False):
+    h = _h(shape, aniso)
+    return jmake_basis(2, 1, h=h), fem.BasisTables(make_basis(2, 1, h=h))
+
+
+def _t(a, grad=False):
+    return torch.tensor(np.asarray(a), dtype=torch.float32,
+                        requires_grad=grad)
+
+
+def _np(t):
+    return t.detach().numpy()
+
+
+def _K_xla(u, nu, jb, shape):
+    gp = jfem.gp_eval(u, jb, ("dx", "dy"))
+    nug = jfem.gp_eval(nu, jb, ("N",))["N"]
+    return (jfem.galerkin_project(nug * gp["dx"], jb, "dx", shape)
+            + jfem.galerkin_project(nug * gp["dy"], jb, "dy", shape))
+
+
+def _wall_mask(shape):
+    bc = np.zeros(shape, np.float32)
+    bc[[0, -1], :] = 1
+    bc[:, [0, -1]] = 1
+    return bc
+
+
+K1_CASES = [((2, 33, 33), True), ((2, 40, 40), False), ((2, 24, 49), False)]
+
+
+# ---- K1: stiffness action ---------------------------------------------------
+
+@pytest.mark.parametrize("shape,aniso", K1_CASES)
+def test_stiffness_action_matches_jax(shape, aniso):
+    jb, tb = _bases(shape[1:], aniso)
+    rng = np.random.default_rng(0)
+    u, nu = (rng.random(shape, np.float32) for _ in range(2))
+    Kt = tpr.poisson_stiffness_action(_t(u), _t(nu), tb)
+    Kp = jpr.poisson_stiffness_action(jnp.asarray(u), jnp.asarray(nu), jb, 16)
+    Kx = _K_xla(jnp.asarray(u), jnp.asarray(nu), jb, shape[1:])
+    np.testing.assert_allclose(_np(Kt), np.asarray(Kp), atol=2e-6)
+    np.testing.assert_allclose(_np(Kt), np.asarray(Kx), atol=2e-6)
+
+
+@pytest.mark.parametrize("shape,aniso", K1_CASES)
+def test_stiffness_action_vjp_matches_jax(shape, aniso):
+    jb, tb = _bases(shape[1:], aniso)
+    rng = np.random.default_rng(1)
+    u, nu, g = (rng.random(shape, np.float32) for _ in range(3))
+    ju, jnu = jnp.asarray(u), jnp.asarray(nu)
+    gj = jax.grad(lambda u, nu: jnp.sum(
+        jpr.poisson_stiffness_action(u, nu, jb, 16) * g),
+        argnums=(0, 1))(ju, jnu)
+    tu, tnu = _t(u, True), _t(nu, True)
+    (tpr.poisson_stiffness_action(tu, tnu, tb) * _t(g)).sum().backward()
+    np.testing.assert_allclose(_np(tu.grad), np.asarray(gj[0]), atol=2e-6)
+    np.testing.assert_allclose(_np(tnu.grad), np.asarray(gj[1]), atol=2e-6)
+
+
+@pytest.mark.parametrize("batched_mask", [False, True])
+def test_residual_fused_matches_jax(batched_mask):
+    n = 33
+    jb, tb = _bases((n, n), aniso=True)
+    rng = np.random.default_rng(2)
+    u, nu, Nf = (rng.random((2, n, n), np.float32) for _ in range(3))
+    bc = _wall_mask((n, n))
+    if batched_mask:
+        bc = np.stack([bc, (rng.random((n, n)) > 0.7).astype(np.float32)])
+    Rj = jpr.poisson_residual_fused(jnp.asarray(u), jnp.asarray(nu),
+                                    jnp.asarray(Nf), jnp.asarray(bc), jb, 16)
+    Rt = tpr.poisson_residual_fused(_t(u), _t(nu), _t(Nf), _t(bc), tb)
+    np.testing.assert_allclose(_np(Rt), np.asarray(Rj), atol=2e-6)
+
+
+# ---- K2: resmin loss and gradient -------------------------------------------
+
+def _loss_xla(u, nu, Nf, bc, jb, shape):
+    R = jnp.where(bc > 0.5, 0.0, _K_xla(u, nu, jb, shape) - Nf)
+    return jnp.sum(R**2)
+
+
+@pytest.mark.parametrize("n,nf_plane", [(17, False), (33, False),
+                                        (33, True)])
+def test_loss_grad_matches_jax(n, nf_plane):
+    """Value and the u, nu and Nf cotangents against the JAX K2 op and the
+    XLA loss; anisotropic h; Nf per sample or one plane for the batch."""
+    jb, tb = _bases((n, n), aniso=True)
+    rng = np.random.default_rng(3)
+    u = rng.random((2, n, n), np.float32)
+    nu = rng.random((2, n, n), np.float32) + 0.5
+    Nf = rng.random((n, n) if nf_plane else (2, n, n), np.float32)
+    bc = _wall_mask((n, n))
+    args = [jnp.asarray(a) for a in (u, nu, Nf)]
+    lx, gx = jax.value_and_grad(
+        lambda u, nu, Nf: _loss_xla(u, nu, Nf, jnp.asarray(bc), jb, (n, n)),
+        argnums=(0, 1, 2))(*args)
+    tu, tnu, tNf = _t(u, True), _t(nu, True), _t(Nf, True)
+    lt = tlg.poisson_resmin_loss_fused(tu, tnu, tNf, _t(bc), tb)
+    lt.backward()
+    np.testing.assert_allclose(lt.item(), float(lx), rtol=1e-5)
+    for a, b in zip((tu.grad, tnu.grad, tNf.grad), gx):
+        np.testing.assert_allclose(_np(a), np.asarray(b),
+                                   atol=1e-4 * float(jnp.max(jnp.abs(b))))
+    if n == 17:   # the JAX K2 op (batched Nf only), slow in interpret mode
+        lp, gp = jax.value_and_grad(
+            lambda u, nu, Nf: jlg.poisson_resmin_loss_fused(
+                u, nu, Nf, jnp.asarray(bc), jb, 8),
+            argnums=(0, 1, 2))(*args)
+        np.testing.assert_allclose(lt.item(), float(lp), rtol=1e-5)
+        for a, b in zip((tu.grad, tnu.grad, tNf.grad), gp):
+            np.testing.assert_allclose(
+                _np(a), np.asarray(b), atol=1e-4 * float(jnp.max(jnp.abs(b))))
+
+
+def test_loss_grad_fractional_mask_follows_xla_et_path():
+    """A fractional bc: the port masks with where(bc > 0.5), as the XLA
+    resmin path does (poisson_resmin_residual_et), not with the JAX K2
+    kernel's multiplicative R*(1-bc)."""
+    from diffnet_tpu.data.single_instances import RectangleManufactured
+    from diffnet_tpu.models.field import DirectField as JDirectField
+    from diffnet_tpu.pde.poisson import (Poisson2D as JPoisson2D,
+                                         poisson_resmin_residual_et)
+
+    n = 17
+    m = JPoisson2D(JDirectField((n, n)), RectangleManufactured(n),
+                   domain_size=n, loss_type="resmin")
+    jb, tb = _bases((n, n))
+    rng = np.random.default_rng(4)
+    u = rng.random((2, n, n), np.float32)
+    nu = rng.random((2, n, n), np.float32) + 0.5
+    f_gp = rng.random((2, n - 1, n - 1, 4), np.float32)
+    bc = rng.random((2, n, n)).astype(np.float32)
+    R = poisson_resmin_residual_et(m, jnp.asarray(u), jnp.asarray(nu),
+                                   jnp.asarray(f_gp), jnp.asarray(bc))
+    lx, gx = jax.value_and_grad(
+        lambda u: jnp.sum(poisson_resmin_residual_et(
+            m, u, jnp.asarray(nu), jnp.asarray(f_gp), jnp.asarray(bc))**2))(
+        jnp.asarray(u))
+    Nf = fem.galerkin_project(_t(f_gp), tb, "N", (n, n))
+    tu = _t(u, True)
+    lt = tlg.poisson_resmin_loss_fused(tu, _t(nu), Nf, _t(bc), tb)
+    lt.backward()
+    np.testing.assert_allclose(lt.item(), float(jnp.sum(R**2)), rtol=1e-5)
+    np.testing.assert_allclose(lt.item(), float(lx), rtol=1e-5)
+    np.testing.assert_allclose(_np(tu.grad), np.asarray(gx),
+                               atol=1e-4 * float(jnp.max(jnp.abs(gx))))
+    # the JAX K2 kernel's multiplicative mask gives another loss here
+    lk = jlg.poisson_resmin_loss_fused(
+        jnp.asarray(u), jnp.asarray(nu), jnp.asarray(_np(Nf)),
+        jnp.asarray(bc), jb, 8)
+    assert abs(float(lk) - lt.item()) > 1e-3 * lt.item()
+
+
+# ---- K3: Ritz energy --------------------------------------------------------
+
+def _energy_xla(u, nu, f, jb):
+    gp = jfem.gp_eval(u, jb, ("N", "dx", "dy"))
+    nug = jfem.gp_eval(nu, jb, ("N",))["N"]
+    fg = jfem.gp_eval(f, jb, ("N",))["N"]
+    jxw = jnp.asarray(jb.jxw, u.dtype)
+    res = jxw * (0.5 * nug * (gp["dx"] ** 2 + gp["dy"] ** 2) - gp["N"] * fg)
+    return jnp.mean(jnp.sum(res, axis=-1))
+
+
+@pytest.mark.parametrize("shape,aniso", [((2, 33, 33), True),
+                                         ((2, 40, 40), False),
+                                         ((1, 65, 65), False)])
+def test_energy_and_vjp_match_jax(shape, aniso):
+    jb, tb = _bases(shape[1:], aniso)
+    rng = np.random.default_rng(5)
+    u, f = (rng.random(shape, np.float32) for _ in range(2))
+    nu = rng.random(shape, np.float32) + 0.5
+    args = [jnp.asarray(a) for a in (u, nu, f)]
+    Ep, gp = jax.value_and_grad(
+        lambda u, nu, f: jen.poisson_energy_fused(u, nu, f, jb, 16),
+        argnums=(0, 1, 2))(*args)
+    Ex = _energy_xla(*args, jb)
+    tu, tnu, tf = _t(u, True), _t(nu, True), _t(f, True)
+    Et = ten.poisson_energy_fused(tu, tnu, tf, tb)
+    Et.backward()
+    np.testing.assert_allclose(Et.item(), float(Ep), rtol=1e-5)
+    np.testing.assert_allclose(Et.item(), float(Ex), rtol=1e-5)
+    for a, b in zip((tu.grad, tnu.grad, tf.grad), gp):
+        np.testing.assert_allclose(_np(a), np.asarray(b), atol=2e-6)
+
+
+def test_energy_rectangular_matches_xla():
+    """The JAX kernel is square-only; the port's takes rectangles, held to
+    the XLA energy (mean over all elements)."""
+    shape = (2, 24, 49)
+    jb, tb = _bases(shape[1:])
+    rng = np.random.default_rng(6)
+    u, nu, f = (rng.random(shape, np.float32) for _ in range(3))
+    Ex = _energy_xla(*(jnp.asarray(a) for a in (u, nu, f)), jb)
+    Et = ten.poisson_energy_fused(_t(u), _t(nu), _t(f), tb)
+    np.testing.assert_allclose(Et.item(), float(Ex), rtol=1e-5)
+
+
+# ---- wrapper contracts ------------------------------------------------------
+
+@pytest.mark.parametrize("op", ["k1", "k2", "k3"])
+def test_wrappers_reject_what_the_kernels_do_not_take(op):
+    _, tb = _bases((9, 9))
+    x = torch.zeros(2, 9, 9)
+
+    def call(u, nu=None):
+        nu = x if nu is None else nu
+        if op == "k1":
+            return tpr.stiffness_action(u, nu, tb)
+        if op == "k2":
+            return tlg.resmin_loss_grad(u, nu, u, u[0], tb)
+        return ten.energy(u, nu, u, tb)
+
+    with pytest.raises(TypeError, match="float32"):
+        call(x.double(), x.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        call(x, torch.zeros(2, 9, 9).transpose(1, 2))
+    with pytest.raises(ValueError, match="shape"):
+        call(x, torch.zeros(1, 9, 9))
+    with pytest.raises(ValueError, match=r"\[B, ny, nx\]"):
+        call(torch.zeros(9, 9), torch.zeros(9, 9))
+    with pytest.raises(ValueError, match="not supported"):
+        call(x.to("meta"), x.to("meta"))
+
+
+def test_cpu_tensors_launch_no_kernel():
+    _, tb = _bases((9, 9))
+    x = torch.rand(1, 9, 9)
+    before = (tpr.launches, tlg.launches, ten.launches)
+    tpr.stiffness_action(x, x, tb)
+    tlg.resmin_loss_grad(x, x, x, x[0], tb)
+    ten.energy(x, x, x, tb)
+    assert (tpr.launches, tlg.launches, ten.launches) == before
+
+
+# ---- the build (nvcc itself runs only on a machine with the toolkit) --------
+
+def _fake_nvcc(monkeypatch, rc):
+    """Stand in for nvcc with the Python interpreter: the "flags" are a
+    program that writes the -o file, prints a ptxas line and exits with
+    `rc` (nothing is executed from a temporary directory)."""
+    from diffnet_tpu_torch.ops import _build
+
+    code = ("import sys; a = sys.argv; "
+            "open(a[a.index('-o') + 1], 'w').write('lib'); "
+            "print('ptxas info : Used 32 registers'); "
+            f"sys.exit({rc})")
+    monkeypatch.setattr(_build, "_nvcc", lambda: sys.executable)
+    monkeypatch.setattr(_build, "NVCC_FLAGS", ("-c", code))
+
+
+def test_build_compiles_once_per_source_and_renames_atomically(
+        tmp_path, monkeypatch):
+    from diffnet_tpu_torch.ops import _build
+
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "_build")
+    _fake_nvcc(monkeypatch, 0)
+    so, log = _build.build()
+    assert so.parent == tmp_path / "_build" and "registers" in log
+    assert [p.name for p in so.parent.iterdir()] == [so.name]  # no temp left
+    assert _build.build() == (so, "")   # built already: nothing compiled
+    src = tmp_path / "poisson2d.cu"
+    src.write_text(_build.SOURCE.read_text() + "// changed\n")
+    monkeypatch.setattr(_build, "SOURCE", src)
+    assert _build.library_path() != so  # a changed source builds anew
+
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "_build_fail")
+    _fake_nvcc(monkeypatch, 3)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        _build.build()
+    assert list((tmp_path / "_build_fail").iterdir()) == []

@@ -1,0 +1,203 @@
+"""The port's Trainer and loader against the JAX package's.
+
+Adam is held to the JAX Trainer step by step (losses and field at
+rtol=1e-5: the two Adam updates are the same formula in float32, and the
+gradients agree to ~1e-6 relative). LBFGS is held by the final L2 error
+only, within 10% of the JAX Trainer's: torch's strong-Wolfe line search is
+not optax's zoom search, so the iterates differ while the solution they
+reach agrees.
+"""
+
+import csv
+from functools import partial
+
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+
+from diffnet_tpu.data.loader import NumpyLoader as JNumpyLoader
+from diffnet_tpu.data.single_instances import (
+    RectangleManufactured as JRectangleManufactured)
+from diffnet_tpu.models.field import DirectField as JDirectField
+from diffnet_tpu.pde.poisson import Poisson2D as JPoisson2D
+from diffnet_tpu.train.trainer import Callback as JCallback
+from diffnet_tpu.train.trainer import Trainer as JTrainer
+from diffnet_tpu_torch.data import NumpyLoader, RectangleManufactured
+from diffnet_tpu_torch.models import DirectField
+from diffnet_tpu_torch.pde import Poisson2D
+from diffnet_tpu_torch.train import (Callback, EarlyStopping, Trainer,
+                                     load_params, load_state)
+
+
+@pytest.fixture(autouse=True)
+def _interpret_mode(monkeypatch):
+    monkeypatch.setattr(pl, "pallas_call",
+                        partial(pl.pallas_call, interpret=True))
+
+
+def _exact(x, y):
+    return np.sin(np.pi * x) * np.sin(np.pi * y)
+
+
+def _forcing(x, y):
+    return 2 * np.pi**2 * np.sin(np.pi * x) * np.sin(np.pi * y)
+
+
+class _Losses:
+    """Collects the per-epoch loss (one step per epoch here)."""
+
+    def __init__(self):
+        self.losses = []
+        self.metrics = []
+
+    def on_train_start(self, *a):
+        pass
+
+    def on_epoch_end(self, trainer, module, state, epoch, metrics):
+        self.losses.append(metrics["loss"])
+        self.metrics.append(metrics)
+
+    def on_train_end(self, *a):
+        pass
+
+
+class _JLosses(_Losses, JCallback):
+    pass
+
+
+class _TLosses(_Losses, Callback):
+    pass
+
+
+def _modules(n, init, n_samples=1, **kw):
+    jds, tds = JRectangleManufactured(n), RectangleManufactured(n)
+    jds.n_samples = tds.n_samples = n_samples
+    kw = dict(domain_size=n, batch_size=1, exact_solution=_exact,
+              forcing=_forcing, mms_dirichlet=True, **kw)
+    return (JPoisson2D(JDirectField((n, n), init=init), jds, **kw),
+            Poisson2D(DirectField((n, n), init=init), tds, **kw))
+
+
+@pytest.mark.parametrize("loss_type,fused", [("resmin", False),
+                                             ("resmin", True),
+                                             ("energy", True)])
+def test_adam_matches_jax_trainer(loss_type, fused):
+    n = 17
+    init = np.random.default_rng(0).random((n, n)).astype(np.float32)
+    jm, tm = _modules(n, init, loss_type=loss_type)
+    jcb, tcb = _JLosses(), _TLosses()
+    jst = JTrainer(max_epochs=5, optimizer="adam", learning_rate=1e-3,
+                   callbacks=[jcb]).fit(jm)
+    if fused:   # the port's kernel path (plain versions on the CPU)
+        tm = Poisson2D(DirectField((n, n), init=init), tm.dataset,
+                       **dict(tm.kwargs, fused_kernels=True))
+    tst = Trainer(max_epochs=5, optimizer="adam", learning_rate=1e-3,
+                  callbacks=[tcb]).fit(tm)
+    np.testing.assert_allclose(tcb.losses, jcb.losses, rtol=1e-5)
+    np.testing.assert_allclose(tst.params["field"].numpy(),
+                               np.asarray(jst.params["field"]), rtol=1e-5)
+    assert tst.step == 5
+
+
+def _rel_l2(m, u):
+    eL2, _, uex = m.calc_l2_err(u)
+    return float(eL2 / uex)
+
+
+def test_lbfgs_final_l2_matches_jax_trainer():
+    n = 33
+    jm, tm = _modules(n, np.zeros((n, n)), loss_type="resmin")
+    jst = JTrainer(max_epochs=40, optimizer="lbfgs",
+                   lbfgs_max_iter=10).fit(jm)
+    Trainer(max_epochs=40, optimizer="lbfgs", lbfgs_max_iter=10).fit(tm)
+    rel_j = _rel_l2(jm, jm.network.apply(jst.params)[0])
+    with torch.no_grad():
+        rel_t = _rel_l2(tm, tm.network()[0])
+    assert abs(rel_t - rel_j) <= 0.1 * rel_j, (rel_t, rel_j)
+
+
+def test_sgd_lowers_the_loss_and_logs(tmp_path):
+    n = 17
+    init = np.random.default_rng(1).random((n, n)).astype(np.float32)
+    _, tm = _modules(n, init, n_samples=2, loss_type="energy")
+    cb = _TLosses()
+    tr = Trainer(max_epochs=3, optimizer="sgd", learning_rate=100.0,
+                 run_dir=str(tmp_path), checkpoint=True, callbacks=[cb])
+    st = tr.fit(tm)
+    assert cb.losses[-1] < cb.losses[0]
+    assert len(tr.step_losses) == 2 and len(tr.epoch_times) == 3
+    with open(tmp_path / "metrics.csv") as f:
+        rows = list(csv.DictReader(f))
+    assert [int(r["epoch"]) for r in rows] == [0, 1, 2]
+    assert float(rows[-1]["loss"]) == pytest.approx(cb.losses[-1])
+    last = load_params(str(tmp_path / "last.ckpt"))
+    torch.testing.assert_close(last["field"], st.params["field"])
+    assert set(load_params(str(tmp_path / "best.ckpt"))) == {"field"}
+    state = load_state(str(tmp_path / "state.ckpt"))
+    assert state["step"] == 6 and "state" in state["opt_state"]
+
+
+def test_fit_takes_params_val_loader_and_early_stopping():
+    n = 9
+    _, tm = _modules(n, np.zeros((n, n)), n_samples=1, loss_type="resmin")
+    start = {"field": torch.full((n, n), 0.5)}
+    val = NumpyLoader(tm.dataset, batch_size=1)
+    tm.network.load_state_dict(start)
+    with torch.no_grad():
+        loss_at_start = float(tm.training_loss(next(iter(val))))
+    tm.network.load_state_dict({"field": torch.zeros(n, n)})
+    cb = _TLosses()
+    stop = EarlyStopping(monitor="loss", min_delta=1e9, patience=2)
+    tr = Trainer(max_epochs=10, optimizer="adam", callbacks=[stop, cb])
+    tr.fit(tm, params=start, val_dataloader=val)
+    assert cb.losses[0] == pytest.approx(loss_at_start, rel=1e-6)
+    assert len(cb.losses) == 3 and tr.should_stop
+    assert all("val_loss" in m for m in cb.metrics)
+
+
+def test_fast_dev_run_takes_one_step():
+    n = 9
+    _, tm = _modules(n, np.zeros((n, n)), n_samples=4, loss_type="resmin")
+    tr = Trainer(max_epochs=5, fast_dev_run=True)
+    assert tr.fit(tm).step == 1
+
+
+class _Indexed:
+    """Sample i is (full(i), full(-i))."""
+
+    def __len__(self):
+        return 10
+
+    def __getitem__(self, i):
+        return (np.full((2, 2, 1), i, np.float32),
+                np.full((2, 2, 1), -i, np.float32))
+
+
+@pytest.mark.parametrize("shuffle,drop_last", [(True, True), (False, False)])
+def test_loader_matches_jax_order(shuffle, drop_last):
+    jl = JNumpyLoader(_Indexed(), batch_size=3, shuffle=shuffle,
+                      drop_last=drop_last, seed=5)
+    tl = NumpyLoader(_Indexed(), batch_size=3, shuffle=shuffle,
+                     drop_last=drop_last, seed=5)
+    assert len(jl) == len(tl)
+    for _ in range(2):   # two epochs: the generator state carries over
+        for jb, tb in zip(jl, tl, strict=True):
+            for a, b in zip(tb, jb, strict=True):
+                assert isinstance(a, torch.Tensor)
+                np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+def test_cuda_device_raises_without_a_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Trainer(device="cuda")
+
+
+def test_zero_batches_raise():
+    n = 9
+    _, tm = _modules(n, np.zeros((n, n)), n_samples=1, loss_type="resmin")
+    tm.batch_size = 2
+    with pytest.raises(ValueError, match="zero batches"):
+        Trainer().fit(tm)
