@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's main paths on one NVIDIA GPU and check them.
 
 Run from the repository root, on a machine with a CUDA card and nvcc:
 
@@ -9,21 +9,41 @@ Phases, each printing one JSON line; any failure raises and the script
 exits non-zero (it also does so, printing no result, without CUDA):
 
   0. device: the card, ``nvidia-smi`` name and power limit; TF32 off.
-  1. build: nvcc builds ``diffnet_tpu_torch/csrc/poisson2d.cu`` (sm_90a).
+  1. build: nvcc builds ``diffnet_tpu_torch/csrc/poisson2d.cu`` and
+     ``stencil2d.cu`` (sm_90a, one process each, in parallel) into one
+     library.
   2. kernels: K1 (stiffness action and masked residual), K2 (resmin loss
      and gradient) and K3 (Ritz energy) against their plain torch versions
-     at 33^2 (anisotropic h), 40^2, 24x49 (K1 only) and 512^2 x 32, and the
-     time of each at 512^2 x 32 beside its plain version's (CUDA events
+     at 33^2 (anisotropic h), 40^2, 24x49 (K1 only), 1x513^2 (slice D2's
+     fine level) and 512^2 x 32; K4 (the assembled 9-point stencil apply)
+     against its plain version at 2x33^2, 1x40x56, 3x17x129, slice D's
+     levels 1x513^2, 1x257^2, 1x129^2, 1x65^2, and 32x512^2, each with
+     per-sample and batch-1 C.
+     The time of each at 512^2 x 32 beside its plain version's (CUDA events
      around 10 back-to-back calls, median of 20 runs).
-  3. gradients: the K1 du/dnu and K3 du VJPs against autograd through the
-     plain versions, at 65^2.
-  4-6. the main path through ``Trainer.fit`` (launch counts set to 0 first):
-     A. the README quick start, 64^2 MMS resmin with LBFGS; rel L2 vs the
-        exact solution must be <= 2.6e-4 (the JAX package gives 2.046e-4);
+  3. gradients: the K1 du/dnu, K3 du, K2 du and K4 dC/du VJPs against
+     autograd through the plain versions, at 65^2.
+  4-7. the main paths (launch counts set to 0 first, read after each):
+     A. the README quick start through ``Trainer.fit``, 64^2 MMS resmin
+        with LBFGS; rel L2 vs the exact solution must be <= 2.6e-4 (the JAX
+        package gives 2.046e-4);
      B. 512^2 x 32 resmin with the single-launch loss+grad kernel, Adam,
         10 steps from a seeded random field; the loss must fall, K2 must
         launch once a step, and the first loss must match the unfused path;
-     C. 512^2 x 32 energy with the fused energy kernel, Adam, 10 steps.
+     C. 512^2 x 32 energy with the fused energy kernel, Adam, 10 steps;
+     D. the linear-solver path: bench.py's 513^2 variable-nu (54x
+        contrast) Poisson problem, solved by 14 iterations of CG
+        preconditioned by a geometric-multigrid V-cycle
+        (``multigrid_preconditioner``, n_coarse=33, inputs restricted from
+        the fine level), in three variants: D1 the plain stencil matvec,
+        D2 the fine level and outer matvec through K1 (``fine_matvec``),
+        D3 every assembled level and the outer matvec through K4
+        (``stencil_kernel="cuda"``). Each relative residual, under the
+        variant's own operator and under D1's element-path operator (which
+        runs no kernel), must be <= 1.8e-5 (twice the JAX package's
+        8.92e-6); D2 must launch K1, D3 K4. One solve of each variant runs
+        under ``torch.profiler`` for its device operations, busy time and
+        idle share.
   Then the kernel table line and, last, ``{"ok": true, "device": ...}``.
 """
 
@@ -47,14 +67,21 @@ from diffnet_tpu_torch.ops import _build
 from diffnet_tpu_torch.ops import poisson_energy as k3
 from diffnet_tpu_torch.ops import poisson_loss_grad as k2
 from diffnet_tpu_torch.ops import poisson_residual as k1
+from diffnet_tpu_torch.ops import stencil_apply as k4
 from diffnet_tpu_torch.pde import Poisson2D
-from diffnet_tpu_torch.train import Trainer
+from diffnet_tpu_torch.train import (Trainer, cg, extract_verified,
+                                     multigrid_preconditioner, stencil_matvec)
 
-SOURCE = "diffnet_tpu_torch/csrc/poisson2d.cu"
-KERNELS = {   # name -> (module, the TPU kernel it replaces)
-    "poisson_stiffness_action": (k1, "diffnet_tpu/ops/poisson_residual.py:291"),
-    "poisson_resmin_loss_grad": (k2, "diffnet_tpu/ops/poisson_loss_grad.py:98"),
-    "poisson_energy": (k3, "diffnet_tpu/ops/poisson_energy.py:151"),
+POISSON_SRC = "diffnet_tpu_torch/csrc/poisson2d.cu"
+KERNELS = {   # name -> (module, its source, the TPU kernel it replaces)
+    "poisson_stiffness_action": (k1, POISSON_SRC,
+                                 "diffnet_tpu/ops/poisson_residual.py:291"),
+    "poisson_resmin_loss_grad": (k2, POISSON_SRC,
+                                 "diffnet_tpu/ops/poisson_loss_grad.py:98"),
+    "poisson_energy": (k3, POISSON_SRC,
+                       "diffnet_tpu/ops/poisson_energy.py:151"),
+    "stencil_apply_2d": (k4, "diffnet_tpu_torch/csrc/stencil2d.cu",
+                         "diffnet_tpu/ops/stencil_apply.py:178"),
 }
 # Tolerances, kernel against plain version (float32, sums in other orders):
 FIELD_ATOL = 2e-6      # K1 fields, times max(1, max |ref|): O(1) stencils
@@ -63,6 +90,8 @@ SCALAR_RTOL = 1e-5     # K2 loss, K3 energy
 VJP_ATOL = 2e-6        # gradients at 65^2, times max(1, max |ref|)
 L2_LIMIT = 2.6e-4      # slice A final rel L2
 FIRST_LOSS_RTOL = 1e-4  # slice B: kernel vs unfused first loss, 8.4M squares
+RELRES_LIMIT = 1.8e-5  # slice D: twice the JAX package's 8.92e-6 at 513^2
+SOLVE_GRID, SOLVE_ITERS = 513, 14   # slice D: bench.py's _solve_time
 
 
 def emit(obj: dict) -> None:
@@ -82,12 +111,16 @@ def forcing(x, y):
 
 
 def reset_counts() -> None:
-    for mod, _ in KERNELS.values():
+    for mod, _, _ in KERNELS.values():
         mod.launches = 0
 
 
 def counts() -> dict[str, int]:
-    return {name: mod.launches for name, (mod, _) in KERNELS.items()}
+    return {name: mod.launches for name, (mod, _, _) in KERNELS.items()}
+
+
+def since(before: dict[str, int]) -> dict[str, int]:
+    return {k: v - before[k] for k, v in counts().items()}
 
 
 def basis_for(ny: int, nx: int, aniso: bool, dev) -> fem.BasisTables:
@@ -152,7 +185,8 @@ def phase_kernels(dev) -> dict:
     errs = {name: 0.0 for name in KERNELS}
     times = {}
     for B, ny, nx, aniso in ((2, 33, 33, True), (2, 40, 40, False),
-                             (2, 24, 49, False), (32, 512, 512, False)):
+                             (2, 24, 49, False), (1, 513, 513, False),
+                             (32, 512, 512, False)):
         tb = basis_for(ny, nx, aniso, dev)
         u, nu, Nf, f = (torch.rand((B, ny, nx), generator=g, device=dev)
                         for _ in range(4))
@@ -221,6 +255,43 @@ def phase_kernels(dev) -> dict:
     return {"errs": errs, "times": times}
 
 
+# 1 x 513^2 .. 1 x 65^2: the levels on which slice D runs K4, at batch 1
+STENCIL_SHAPES = ((2, 33, 33), (1, 40, 56), (3, 17, 129), (1, 513, 513),
+                  (1, 257, 257), (1, 129, 129), (1, 65, 65), (32, 512, 512))
+STENCIL_NODE_BYTES = 44   # 9 C planes and u read, out written, float32
+
+
+def phase_stencil_kernel(dev) -> dict:
+    """K4 against its plain version, with a C per sample and a C shared by
+    the batch (read with a batch stride of 0); its time at 512^2 x 32."""
+    g = torch.Generator(device=dev).manual_seed(2)
+    err, times = 0.0, None
+    for B, ny, nx in STENCIL_SHAPES:
+        u = torch.rand((B, ny, nx), generator=g, device=dev) - 0.5
+        row = {"phase": "kernels_K4", "shape": [B, ny, nx],
+               "tolerance": {"K4_atol": FIELD_ATOL}}
+        for cb in dict.fromkeys((B, 1)):
+            C = torch.rand((9, cb, ny, nx), generator=g, device=dev) - 0.5
+            out = k4.apply_2d(C, u)
+            ref = k4.stencil_apply_plain(C, u)
+            torch.cuda.synchronize()
+            e = float((out - ref).abs().max())
+            scale = float(ref.abs().max())
+            row[f"C_batch_{cb}"] = {"max_abs_err": e, "rel_err": e / scale}
+            err = max(err, e)
+            if e > FIELD_ATOL * max(1.0, scale):
+                fail(f"K4 at {row['shape']}, C batch {cb}: max abs err {e}")
+            if B == 32 and cb == B:
+                t = cuda_ms({"K4_plain": lambda: k4.stencil_apply_plain(C, u),
+                             "K4": lambda: k4.apply_2d(C, u)})
+                times = (t["K4"], t["K4_plain"])
+                row["ms"] = t
+                row["kernel_GBps"] = (STENCIL_NODE_BYTES * B * ny * nx
+                                      / (t["K4"] * 1e-3) / 1e9)
+        emit(row)
+    return {"err": err, "times": times}
+
+
 def phase_gradients(dev) -> None:
     g = torch.Generator(device=dev).manual_seed(1)
     n = 65
@@ -248,6 +319,12 @@ def phase_gradients(dev) -> None:
             grads(lambda u: k2.resmin_loss_grad_plain(u, nu, f, bc, tb)[0],
                   u)),
     }
+    for cb in (2, 1):   # C per sample, and C shared by the batch
+        C = torch.rand((9, cb, n, n), generator=g, device=dev) - 0.5
+        pairs[f"K4_dC_du_C_batch_{cb}"] = (
+            grads(lambda C, u: (k4.stencil_apply(C, u) * w).sum(), C, u),
+            grads(lambda C, u: (k4.stencil_apply_plain(C, u) * w).sum(),
+                  C, u))
     torch.cuda.synchronize()
     for name, (got, ref) in pairs.items():
         err = max(float((a - b).abs().max()) for a, b in zip(got, ref))
@@ -276,7 +353,7 @@ def slice_a(dev) -> dict:
         u = m.network()[0]
         eL2, _, uex = m.calc_l2_err(u)
     rel = float(eL2 / uex)
-    launches = {k: v - before[k] for k, v in counts().items()}
+    launches = since(before)
     out = {"phase": "slice_A", "grid": [n, n], "final_rel_l2": rel,
            "limit": L2_LIMIT, "jax_reference": 2.046e-4, "seconds": dt,
            "launches": launches}
@@ -329,7 +406,7 @@ def slice_b(dev) -> dict:
     del ref, batch
     before = counts()
     tr, dt = _train_10(m, dev)
-    launches = {k: v - before[k] for k, v in counts().items()}
+    launches = since(before)
     losses = tr.step_losses
     out = {"phase": "slice_B", "grid": [n, n], "batch": bs,
            "losses": losses, "first_loss_unfused": first_ref,
@@ -348,7 +425,7 @@ def slice_c(dev) -> dict:
     m = _field_module(n, bs, "energy", fused_kernels=True)
     before = counts()
     tr, dt = _train_10(m, dev)
-    launches = {k: v - before[k] for k, v in counts().items()}
+    launches = since(before)
     out = {"phase": "slice_C", "grid": [n, n], "batch": bs,
            "losses": tr.step_losses, "seconds": dt,
            "fit_steps_per_s": 10 / dt, "launches": launches}
@@ -358,6 +435,174 @@ def slice_c(dev) -> dict:
             launches["poisson_stiffness_action"] < 10:
         fail(f"slice C: launches {launches}")
     return launches
+
+
+class _VarNuInstance:
+    """bench.py's solve instance: nu = exp(2g), a smooth ~54x-contrast
+    coefficient, source (u = 1) on the left column, sink (u = 0) on the
+    right, zero forcing."""
+
+    def __init__(self, nu):
+        m = nu.shape[0]
+        b1 = np.zeros((m, m), np.float32)
+        b1[:, 0] = 1
+        b2 = np.zeros((m, m), np.float32)
+        b2[:, -1] = 1
+        self.inputs = np.stack([nu, b1, b2], -1).astype(np.float32)
+        self.forcing = np.zeros((m, m, 1), np.float32)
+
+    def __len__(self):
+        return 1
+
+    def __getitem__(self, idx):
+        return self.inputs, self.forcing
+
+
+def _solve_ms(solve, b) -> tuple[float, tuple, list[float]]:
+    """One warm-up solve, then the median of 3 synchronised solves, in ms;
+    with the last solve's result."""
+    res = solve(b)
+    torch.cuda.synchronize()
+    ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        res = solve(b)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(ms), res, ms
+
+
+def _device_idle_share(solve, b) -> dict:
+    """One solve under torch.profiler: the summed device time of its
+    kernels and copies against the synchronised wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        solve(b)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    dev_events = [e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.time_range.elapsed_us() for e in dev_events)
+    by_name: dict[str, float] = {}
+    for e in dev_events:   # names cut to 80 characters before summing
+        key = e.name[:80]
+        by_name[key] = by_name.get(key, 0.0) + e.time_range.elapsed_us()
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
+            "idle_share": 1.0 - busy_us / wall_us,
+            "device_events": len(dev_events),
+            "top_ms": {k: v / 1e3 for k, v in top}}
+
+
+def slice_d(dev) -> None:
+    """The MG-CG solve of bench.py's ``_solve_time``, in its three
+    variants (see the module docstring)."""
+    n, iters = SOLVE_GRID, SOLVE_ITERS
+    x = np.linspace(0.0, 1.0, n)
+    X, Y = np.meshgrid(x, x, indexing="xy")
+    g = (np.cos(2 * np.pi * X) * np.cos(np.pi * Y)
+         + 0.5 * np.sin(3 * np.pi * X * Y))
+    nu = np.exp(2.0 * g / np.abs(g).max()).astype(np.float32)
+    ds_fine = _VarNuInstance(nu)
+    cache = {}
+
+    def factory(m_n):
+        # coarse levels carry unit nu: inputs_per_level="restrict" feeds
+        # them the fine nu, restricted
+        if m_n not in cache:
+            ds = ds_fine if m_n == n else _VarNuInstance(
+                np.ones((m_n, m_n), np.float32))
+            cache[m_n] = Poisson2D(DirectField((m_n, m_n)), ds,
+                                   domain_size=m_n, batch_size=1,
+                                   loss_type="resmin")
+        return cache[m_n]
+
+    inputs = torch.from_numpy(ds_fine.inputs)[None].to(dev)
+    forcing = torch.from_numpy(ds_fine.forcing)[None].to(dev)
+    bc = np.zeros((n, n), np.float32)
+    bc[:, [0, -1]] = 1.0
+    b_np = np.where(bc > 0.5, 0.0, np.random.default_rng(0).standard_normal(
+        (n, n))).astype(np.float32)
+    b = torch.from_numpy(b_np).to(dev)
+
+    def linear_op(module):
+        """v -> R(v) - R(0) of `module` on the fine instance."""
+        b0 = module.residual_for_field(torch.zeros((1, n, n), device=dev),
+                                       inputs, forcing)[0]
+
+        def A(v):
+            return module.residual_for_field(v[None], inputs, forcing)[0] - b0
+        return A
+
+    def mg(**kw):
+        return multigrid_preconditioner(factory, n, n_coarse=33,
+                                        inputs_per_level="restrict",
+                                        device=dev, **kw)
+
+    def relres(A, u):
+        return torch.linalg.vector_norm(A(u) - b) / torch.linalg.vector_norm(b)
+
+    # every variant is also held to the element-path operator, which runs
+    # no kernel: a kernel that is wrong in a consistent way would converge
+    # on its own wrong operator
+    A_plain = linear_op(factory(n).to(dev))
+    out = {"phase": "slice_D", "grid": [n, n], "iters": iters,
+           "limit": RELRES_LIMIT, "jax_reference_relres": 8.92e-6}
+    variants = {}
+    for name in ("D1", "D2", "D3"):
+        before = counts()
+        t0 = time.perf_counter()
+        if name == "D1":     # plain stencil matvec on every level
+            A = A_plain
+            M, info = mg()
+        elif name == "D2":   # fine level and outer matvec through K1
+            A = linear_op(Poisson2D(DirectField((n, n)), ds_fine,
+                                    domain_size=n, batch_size=1,
+                                    loss_type="resmin",
+                                    fused_kernels=True).to(dev))
+            M, info = mg(fine_matvec=A)
+        else:                # every assembled level and the outer CG: K4
+            M, info = mg(stencil_kernel="cuda")
+            Cf, defect = extract_verified(A_plain, (n, n), device=dev)
+            if defect > 1e-4:
+                fail(f"slice D3: fine-operator stencil defect {defect}")
+
+            def A(v, Cf=Cf):
+                return stencil_matvec(Cf, v, kernel="cuda")
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+
+        def solve(b, A=A, M=M):
+            u, _ = cg(A, b, tol=0.0, maxiter=iters, M=M)
+            return u, relres(A, u)
+
+        ms, (u, rel), all_ms = _solve_ms(solve, b)
+        launches = since(before)
+        rel_plain = float(relres(A_plain, u))
+        row = {"relres": float(rel), "relres_plain_op": rel_plain,
+               "setup_s": setup_s, "solve_ms": ms, "solve_ms_all": all_ms,
+               "levels": info["levels"], "launches": launches,
+               "profile": _device_idle_share(solve, b)}
+        variants[name] = row
+        emit({"phase": f"slice_{name}", **row})
+        if not (tuple(u.shape) == (n, n) and bool(torch.isfinite(u).all())):
+            fail(f"slice {name}: the solution is not a finite {n}x{n} field")
+        for key in ("relres", "relres_plain_op"):
+            if not row[key] <= RELRES_LIMIT:
+                fail(f"slice {name}: {key} {row[key]} > {RELRES_LIMIT}")
+    if variants["D2"]["launches"]["poisson_stiffness_action"] <= 0:
+        fail("slice D2: K1 never launched")
+    if variants["D3"]["launches"]["stencil_apply_2d"] <= 0:
+        fail("slice D3: K4 never launched")
+    out["variants"] = {k: {kk: v[kk] for kk in ("relres", "relres_plain_op",
+                                                "setup_s", "solve_ms")}
+                       for k, v in variants.items()}
+    emit(out)
 
 
 def resident_steps_per_s(dev) -> dict:
@@ -396,27 +641,37 @@ def main() -> int:
     phase_device(dev)
     phase_build()
     k = phase_kernels(dev)
+    k4_res = phase_stencil_kernel(dev)
+    k["errs"]["stencil_apply_2d"] = k4_res["err"]
+    k["times"]["stencil_apply_2d"] = k4_res["times"]
     phase_gradients(dev)
 
-    reset_counts()           # the main path starts here
+    reset_counts()           # the training path starts here
     la = slice_a(dev)
     lb = slice_b(dev)
     lc = slice_c(dev)
-    total = counts()         # ... and ends here
+    training = counts()      # ... and ends here
+    reset_counts()           # the linear-solver path starts here
+    slice_d(dev)
+    solver = counts()        # ... and ends here
+    total = {name: training[name] + solver[name] for name in KERNELS}
     emit({"phase": "main_path_launches", "total": total,
-          "slice_A": la, "slice_B": lb, "slice_C": lc})
-    for name, n in total.items():
-        if n <= 0:
-            fail(f"{name} was never launched on the main path")
+          "slice_A": la, "slice_B": lb, "slice_C": lc, "slice_D": solver})
+    for name in ("poisson_stiffness_action", "poisson_resmin_loss_grad",
+                 "poisson_energy"):
+        if training[name] <= 0:
+            fail(f"{name} was never launched on the training path")
+    if solver["stencil_apply_2d"] <= 0:
+        fail("stencil_apply_2d was never launched on the linear-solver path")
 
     emit({"phase": "resident_steps_per_s",
           "steps_per_s": resident_steps_per_s(dev)})
     emit({"kernels": [
-        {"name": name, "route": "cuda", "source": SOURCE,
+        {"name": name, "route": "cuda", "source": source,
          "replaces": replaces, "launches": total[name],
          "max_abs_err": k["errs"][name], "ms": k["times"][name][0],
          "plain_ms": k["times"][name][1]}
-        for name, (_, replaces) in KERNELS.items()]})
+        for name, (_, source, replaces) in KERNELS.items()]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,11 +1,12 @@
 """diffnet_tpu_torch: the PyTorch / CUDA port of diffnet_tpu.
 
-It sits beside the JAX package and imports torch and numpy only, never jax
-or ``diffnet_tpu``. Subpackages keep the JAX package's names: ``core``
-(basis tables, FEM evaluation and assembly), ``ops`` (hand-written CUDA
-kernels for Hopper, each with its plain torch version), ``pde``
+It sits beside the JAX package and imports torch, numpy and scipy only,
+never jax or ``diffnet_tpu``. Subpackages keep the JAX package's names:
+``core`` (basis tables, FEM evaluation and assembly), ``ops`` (hand-written
+CUDA kernels for Hopper, each with its plain torch version), ``pde``
 (``Poisson2D``), ``models`` (``DirectField``), ``data`` (datasets and the
-loader) and ``train`` (``Trainer``).
+loader), ``train`` (``Trainer``; stencil extraction, Krylov solvers and
+the multigrid-preconditioned linear solve) and ``utils`` (ILU factors).
 """
 
 __version__ = "0.1.0"

@@ -9,6 +9,9 @@ the plain version for CPU tensors), the plain version, a
 from .poisson_energy import poisson_energy_fused
 from .poisson_loss_grad import poisson_resmin_loss_fused
 from .poisson_residual import poisson_residual_fused, poisson_stiffness_action
+# (``stencil_apply`` itself stays under its module's name, which it shares)
+from .stencil_apply import stencil_apply_2d, stencil_transpose_planes
 
 __all__ = ["poisson_stiffness_action", "poisson_residual_fused",
-           "poisson_resmin_loss_fused", "poisson_energy_fused"]
+           "poisson_resmin_loss_fused", "poisson_energy_fused",
+           "stencil_apply_2d", "stencil_transpose_planes"]

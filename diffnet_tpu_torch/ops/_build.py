@@ -1,12 +1,15 @@
-"""Build and load the port's CUDA library (``csrc/poisson2d.cu``).
+"""Build and load the port's CUDA library (``csrc/*.cu``).
 
-The source is compiled with ``nvcc`` for Hopper (``sm_90a``) into a shared
-library with a plain C interface and loaded with ``ctypes``. The build
+Each source is compiled with ``nvcc`` for Hopper (``sm_90a``), one ``nvcc``
+per source, all started together, so a build takes as long as its slowest
+source however many sources are added; the objects are then linked into one
+shared library with a plain C interface, loaded with ``ctypes``. The build
 happens at first use, never at import, into ``diffnet_tpu_torch/_build/``
-under a name keyed by a hash of the source and the flags: a changed source
-builds anew, an unchanged one is loaded as it is. The compiler writes to a
-temporary name that is then renamed, so a half-written library is never
-loaded, and two processes building at once do not collide.
+under a name keyed by a hash of the sources and the flags: a changed source
+builds anew, an unchanged one is loaded as it is. The objects go to a
+temporary directory and the library to a temporary name that is then
+renamed, so a half-written library is never loaded, and two processes
+building at once do not collide.
 """
 
 from __future__ import annotations
@@ -17,15 +20,17 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 from pathlib import Path
 
-__all__ = ["NVCC_FLAGS", "build", "load_library"]
+__all__ = ["NVCC_FLAGS", "LINK_FLAGS", "SOURCES", "build", "load_library"]
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "poisson2d.cu"
+SOURCES = (_PKG / "csrc" / "poisson2d.cu", _PKG / "csrc" / "stencil2d.cu")
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v", "-c")
+LINK_FLAGS = ("-shared",)
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
@@ -37,6 +42,7 @@ _SIGNATURES = {
     "poisson_energy": (_I, [_P, _P, _P, _P, _I, _I, _I] + [_F] * 7 + [_P]),
     "poisson_resmin_loss_grad_partials": (_LL, [_I, _I, _I]),
     "poisson_energy_partials": (_LL, [_I, _I, _I]),
+    "stencil_apply_2d": (_I, [_P, _LL, _P, _P, _I, _I, _I, _I, _P]),
     "poisson2d_error_string": (ctypes.c_char_p, [_I]),
 }
 
@@ -56,9 +62,21 @@ def _nvcc() -> str:
 
 
 def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"poisson2d_{digest[:16]}.so"
+    h = hashlib.sha256()
+    for src in SOURCES:
+        h.update(src.name.encode() + b"\0" + src.read_bytes() + b"\0")
+    h.update(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
+    return BUILD_DIR / f"diffnet_kernels_{h.hexdigest()[:16]}.so"
+
+
+def _run(procs: list[subprocess.Popen]) -> str:
+    """Wait for every process; raise with their output if one failed."""
+    outs = [p.communicate() for p in procs]
+    log = "".join(o + e for o, e in outs)
+    bad = [p.returncode for p in procs if p.returncode != 0]
+    if bad:
+        raise RuntimeError(f"nvcc failed ({bad[0]}):\n{log}")
+    return log
 
 
 def build() -> tuple[Path, str]:
@@ -68,15 +86,23 @@ def build() -> tuple[Path, str]:
     if so.exists():
         return so, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
     tmp = so.with_name(f"{so.name}.tmp{os.getpid()}")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}{proc.stderr}")
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as objdir:
+        objs = [Path(objdir) / f"{src.stem}.o" for src in SOURCES]
+        try:
+            log = _run([subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-o", str(obj), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                for src, obj in zip(SOURCES, objs)])
+            log += _run([subprocess.Popen(
+                [nvcc, *LINK_FLAGS, "-o", str(tmp), *map(str, objs)],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)])
+        except BaseException:
+            tmp.unlink(missing_ok=True)
+            raise
     os.replace(tmp, so)
-    return so, proc.stdout + proc.stderr
+    return so, log
 
 
 @functools.cache

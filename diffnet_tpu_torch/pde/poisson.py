@@ -175,7 +175,8 @@ class Poisson2D(FEM2DModule):
         bc2 = inputs_tensor[..., 2]
         u = self._substitute_bcs(u, bc1, bc2)
         bc_mask = bc2 if self.u_bc is not None else torch.maximum(bc1, bc2)
-        f_gp = self._f_gp(_squeeze_field(forcing_tensor), u.dtype)
+        f_gp = self._f_gp(None if forcing_tensor is None
+                          else _squeeze_field(forcing_tensor), u.dtype)
         if self.fused_kernels and self.loss_type == "resmin":
             Nf = fem.galerkin_project(f_gp, self.basis, "N", u.shape[-2:])
             return poisson_residual_fused(u, nu.contiguous(), Nf, bc_mask,

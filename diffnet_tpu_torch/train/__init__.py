@@ -1,7 +1,16 @@
+from .continuation import coarse_to_fine, prolong_field
+from .krylov import bicgstab, cg, gmres
+from .linear import module_linear_solve, multigrid_preconditioner, \
+    solve_linear
+from .stencil import (assemble_stencil, extract_stencil, extract_verified,
+                      stencil_diag, stencil_matvec)
 from .trainer import (Callback, CSVLogger, EarlyStopping, Trainer,
                       TrainState, load_params, load_state, save_params,
                       save_state)
 
 __all__ = ["Trainer", "TrainState", "Callback", "CSVLogger", "EarlyStopping",
-           "save_params", "load_params", "save_state",
-           "load_state"]
+           "save_params", "load_params", "save_state", "load_state",
+           "coarse_to_fine", "prolong_field", "cg", "bicgstab", "gmres",
+           "solve_linear", "module_linear_solve", "multigrid_preconditioner",
+           "assemble_stencil", "extract_stencil", "extract_verified",
+           "stencil_diag", "stencil_matvec"]

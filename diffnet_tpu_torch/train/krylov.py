@@ -1,0 +1,223 @@
+"""Krylov solvers on torch tensors: ``cg``, ``bicgstab`` and ``gmres``.
+
+The semantics of ``jax.scipy.sparse.linalg`` (which the JAX package's
+linear solves call), kept exactly:
+
+- the stopping rule ``|r|^2 > max(tol^2 |b|^2, atol^2)`` (cg, bicgstab;
+  cg tests the unpreconditioned residual unless M is the identity), and
+  ``|M r| > max(tol |b|, atol)`` between gmres restarts;
+- ``x0`` (zeros by default), ``maxiter`` (default ``10 * b.numel()``; for
+  gmres it counts restart cycles of ``restart`` (20) Arnoldi steps, each
+  solved as one batched least-squares problem);
+- the ``(x, info)`` return: ``info`` is None for cg and bicgstab, and for
+  gmres a 0-dim tensor, -1 when x holds a NaN, else 0.
+
+The iteration reads back no scalar when ``tol == atol == 0``: each step
+then computes its update for every iteration up to ``maxiter`` and keeps
+the old state (``torch.where`` on a device flag) once the stopping rule has
+held, which is what JAX's ``while_loop`` returns. Otherwise the loop reads
+one scalar per iteration (per restart cycle for gmres) to stop. Operators
+``A`` and ``M`` map a tensor of ``b``'s shape to one of the same shape.
+The solves do not differentiate (they run under ``torch.no_grad``).
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+__all__ = ["cg", "bicgstab", "gmres"]
+
+
+def _vdot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    return torch.vdot(x.reshape(-1), y.reshape(-1))
+
+
+def _identity(x):
+    return x
+
+
+def _while(cond: Callable, body: Callable, state: tuple, maxsteps: int,
+           readback: bool) -> tuple:
+    """``lax.while_loop(cond, body, state)`` for a loop that ends within
+    `maxsteps` steps. With `readback`, one scalar a step decides whether to
+    go on; without, every step runs and a step whose condition failed
+    leaves the state as it was."""
+    done = None
+    for _ in range(maxsteps):
+        go = cond(state)
+        if readback:
+            if not bool(go):
+                break
+            state = body(state)
+            continue
+        done = ~go if done is None else done | ~go
+        new = body(state)
+        state = tuple(torch.where(done, s, n) for s, n in zip(state, new))
+    return state
+
+
+def _setup(b, x0, maxiter, M):
+    if x0 is None:
+        x0 = torch.zeros_like(b)
+    if x0.shape != b.shape:
+        raise ValueError(f"x0 and b must have matching shapes: "
+                         f"{tuple(x0.shape)} vs {tuple(b.shape)}")
+    if maxiter is None:
+        maxiter = 10 * b.numel()
+    return x0, int(maxiter), (_identity if M is None else M)
+
+
+def _atol2(b, tol, atol):
+    bs = _vdot(b, b)
+    return torch.clamp(tol * tol * bs, min=atol * atol)
+
+
+@torch.no_grad()
+def cg(A: Callable, b: torch.Tensor, x0: torch.Tensor | None = None, *,
+       tol: float = 1e-5, atol: float = 0.0, maxiter: int | None = None,
+       M: Callable | None = None):
+    """Preconditioned conjugate gradients for SPD ``A`` (``M`` SPD too)."""
+    x0, maxiter, Mf = _setup(b, x0, maxiter, M)
+    atol2 = _atol2(b, tol, atol)
+    k0 = torch.zeros((), dtype=torch.int64, device=b.device)
+
+    def cond(s):
+        _, r, gamma, _, k = s
+        rs = gamma if Mf is _identity else _vdot(r, r)
+        return (rs > atol2) & (k < maxiter)
+
+    def body(s):
+        x, r, gamma, p, k = s
+        Ap = A(p)
+        alpha = gamma / _vdot(p, Ap)
+        x_ = x + alpha * p
+        r_ = r - alpha * Ap
+        z_ = Mf(r_)
+        gamma_ = _vdot(r_, z_)
+        p_ = z_ + (gamma_ / gamma) * p
+        return x_, r_, gamma_, p_, k + 1
+
+    r0 = b - A(x0)
+    z0 = Mf(r0)
+    state = (x0, r0, _vdot(r0, z0), z0, k0)
+    x, *_ = _while(cond, body, state, maxiter, tol != 0 or atol != 0)
+    return x, None
+
+
+@torch.no_grad()
+def bicgstab(A: Callable, b: torch.Tensor, x0: torch.Tensor | None = None,
+             *, tol: float = 1e-5, atol: float = 0.0,
+             maxiter: int | None = None, M: Callable | None = None):
+    """Preconditioned BiCGSTAB for general ``A``. A breakdown (rho, alpha or
+    omega of 0) stops the iteration, as in JAX."""
+    x0, maxiter, Mf = _setup(b, x0, maxiter, M)
+    atol2 = _atol2(b, tol, atol)
+
+    def cond(s):
+        r, k = s[1], s[-1]
+        return (_vdot(r, r) > atol2) & (k < maxiter) & (k >= 0)
+
+    def body(s):
+        x, r, rhat, alpha, omega, rho, p, q, k = s
+        rho_ = _vdot(rhat, r)
+        beta = rho_ / rho * alpha / omega
+        p_ = r + beta * (p - omega * q)
+        phat = Mf(p_)
+        q_ = A(phat)
+        alpha_ = rho_ / _vdot(rhat, q_)
+        s_ = r - alpha_ * q_
+        exit_early = _vdot(s_, s_) < atol2
+        shat = Mf(s_)
+        t = A(shat)
+        omega_ = _vdot(t, s_) / _vdot(t, t)
+        x_ = torch.where(exit_early, x + alpha_ * phat,
+                         x + (alpha_ * phat + omega_ * shat))
+        r_ = torch.where(exit_early, s_, s_ - omega_ * t)
+        k_ = torch.where((omega_ == 0) | (alpha_ == 0), -11, k + 1)
+        k_ = torch.where(rho_ == 0, -10, k_)
+        return x_, r_, rhat, alpha_, omega_, rho_, p_, q_, k_
+
+    r0 = b - A(x0)
+    one = torch.ones((), dtype=b.dtype, device=b.device)
+    k0 = torch.zeros((), dtype=torch.int64, device=b.device)
+    state = (x0, r0, r0, one, one, one, r0, r0, k0)
+    x, *_ = _while(cond, body, state, maxiter, tol != 0 or atol != 0)
+    return x, None
+
+
+def _safe_normalize(x: torch.Tensor, thresh=None):
+    norm = torch.linalg.vector_norm(x)
+    if thresh is None:
+        thresh = torch.finfo(x.dtype).eps
+    use = norm > thresh
+    return (torch.where(use, x / norm, torch.zeros_like(x)),
+            torch.where(use, norm, torch.zeros_like(norm)))
+
+
+def _lstsq_pos(a: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Least squares through the normal equations, solved by Cholesky
+    (JAX's ``_lstsq`` with ``assume_a='pos'``); NaN where Cholesky fails."""
+    L, info = torch.linalg.cholesky_ex(a.T @ a)
+    L = torch.where(info > 0, torch.full_like(L, float("nan")), L)
+    return torch.cholesky_solve((a.T @ y)[:, None], L)[:, 0]
+
+
+def _gmres_batched(A, M, b, x, unit_residual, residual_norm, restart):
+    """One restart: ``restart`` Arnoldi steps (classical Gram-Schmidt, one
+    pass, as JAX's two-pass routine exits after one), then the projected
+    least-squares problem. Returns the new x and its normalised
+    preconditioned residual."""
+    n = b.numel()
+    dtype, dev = b.dtype, b.device
+    V = torch.zeros((restart + 1, n), dtype=dtype, device=dev)
+    V[0] = unit_residual.reshape(-1)
+    H = torch.eye(restart, restart + 1, dtype=dtype, device=dev)
+    eps = torch.finfo(dtype).eps
+    broke = torch.zeros((), dtype=torch.bool, device=dev)
+    for k in range(restart):
+        v = M(A(V[k].reshape(b.shape))).reshape(-1)
+        _, v_norm_0 = _safe_normalize(v)
+        h = V @ v
+        v = v - V.T @ h
+        unit_v, v_norm_1 = _safe_normalize(v, thresh=eps * v_norm_0)
+        h[k + 1] = v_norm_1
+        # a breakdown before step k stops the loop: later rows stay as
+        # they were (H an identity row, V zero)
+        V[k + 1] = torch.where(broke, V[k + 1], unit_v)
+        H[k] = torch.where(broke, H[k], h)
+        broke = broke | (v_norm_1 == 0)
+    beta = torch.zeros(restart + 1, dtype=dtype, device=dev)
+    beta[0] = residual_norm
+    y = _lstsq_pos(H.T, beta)
+    x = x + (V[:-1].T @ y).reshape(b.shape)
+    unit_residual, residual_norm = _safe_normalize(M(b - A(x)))
+    return x, unit_residual, residual_norm
+
+
+@torch.no_grad()
+def gmres(A: Callable, b: torch.Tensor, x0: torch.Tensor | None = None, *,
+          tol: float = 1e-5, atol: float = 0.0, restart: int = 20,
+          maxiter: int | None = None, M: Callable | None = None):
+    """Restarted GMRES, JAX's ``solve_method='batched'`` (the one the JAX
+    package uses); ``maxiter`` counts restart cycles."""
+    x0, maxiter, Mf = _setup(b, x0, maxiter, M)
+    restart = min(int(restart), b.numel())
+    atol_ = torch.clamp(tol * torch.linalg.vector_norm(b), min=atol)
+    k0 = torch.zeros((), dtype=torch.int64, device=b.device)
+
+    def cond(s):
+        _, k, _, rnorm = s
+        return (k < maxiter) & (rnorm > atol_)
+
+    def body(s):
+        x, k, unit, rnorm = s
+        x, unit, rnorm = _gmres_batched(A, Mf, b, x, unit, rnorm, restart)
+        return x, k + 1, unit, rnorm
+
+    unit0, rnorm0 = _safe_normalize(Mf(b - A(x0)))
+    x, *_ = _while(cond, body, (x0, k0, unit0, rnorm0), maxiter,
+                   tol != 0 or atol != 0)
+    info = torch.where(torch.isnan(torch.linalg.vector_norm(x)), -1, 0)
+    return x, info

@@ -1,0 +1,446 @@
+"""Matrix-free linear solvers over assembled Galerkin residuals (port of
+``diffnet_tpu/train/linear.py``, the scalar-field part).
+
+For the linear formulations the residual ``R(u) = A u - b`` is affine in
+the nodal field, so a solve is a Krylov iteration on the matrix-free
+operator ``A u = R(u) - R(0)`` with ``b = -R(0)``; the module's Dirichlet
+masking keeps the substituted rows at zero. :func:`multigrid_preconditioner`
+builds a geometric-multigrid V-cycle for it, on the assembled stencil of
+every level (``train.stencil``), and ``stencil_kernel="cuda"`` runs those
+stencils through the K4 kernel.
+
+Everything of one solve lives on one ``device`` (``"cpu"`` by default, as
+``Trainer(device=)``): modules are moved there, fields are made there.
+The mixed Stokes / Navier-Stokes solvers (``stokes_*``, ``newton_*``,
+``gauss_newton_solve``) wait for the flow slice (ROADMAP).
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import numpy as np
+import torch
+
+from . import krylov
+from .continuation import prolong_field
+from .stencil import check_kernel, extract_verified, stencil_diag, \
+    stencil_matvec
+
+__all__ = ["solve_linear", "module_linear_solve", "multigrid_preconditioner"]
+
+
+def _as_field(x, device) -> torch.Tensor:
+    """A numpy array or tensor as a float32 tensor on `device`."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=torch.float32)
+    return torch.as_tensor(np.asarray(x, np.float32)).to(device)
+
+
+def _norm(x: torch.Tensor) -> torch.Tensor:
+    return torch.linalg.vector_norm(x)
+
+
+@torch.no_grad()
+def solve_linear(residual_fn: Callable, shape, method: str = "cg",
+                 tol: float = 1e-8, maxiter: int | None = None,
+                 M: Callable | None = None, x0=None,
+                 restart: int | None = None,
+                 assemble: str | None = None, stencil_width: int = 3,
+                 stencil_kernel: str | None = None, device="cpu"):
+    """Solve ``residual_fn(u) == 0`` for an affine ``residual_fn``.
+
+    residual_fn: nodal field ``[*shape]`` on `device` -> residual of the
+        same shape (Dirichlet rows masked to zero).
+    method: ``'cg'`` (SPD), ``'bicgstab'`` or ``'gmres'`` (nonsymmetric).
+    M: optional preconditioner ``v -> M v``.
+    assemble: ``'stencil'`` extracts the operator's stencil once and
+        iterates with :func:`~.stencil.stencil_matvec` (pass
+        ``stencil_width=2*deg+1`` for deg-d elements).
+    stencil_kernel: with ``assemble='stencil'``, ``'cuda'`` applies the
+        stencil through the K4 kernel (width 3, 2D).
+
+    Returns ``(u, info)`` as the Krylov solver does. Raises ValueError if
+    the residual is not affine (one extra residual evaluation at a random
+    field, to float tolerance).
+    """
+    if not (isinstance(shape, (tuple, list))
+            and all(isinstance(s, (int, np.integer)) for s in shape)):
+        raise NotImplementedError(
+            "solve_linear takes grid operators on one field; mixed systems "
+            "(Stokes) wait for the flow slice (ROADMAP)")
+    check_kernel(stencil_kernel)
+    shape = tuple(int(s) for s in shape)
+    zero = torch.zeros(shape, device=device)
+    b = -residual_fn(zero)
+
+    def A(u):
+        return residual_fn(u) + b
+
+    # affinity: A(2x) == 2 A(x) for an affine R with the same b
+    probe = _as_field(np.random.default_rng(0).standard_normal(shape),
+                      device)
+    A2 = A(2.0 * probe)
+    A1 = A(probe)
+    lin = float(_norm(A2 - 2.0 * A1) / (_norm(A1) + 1e-30))
+    if lin > 1e-3:
+        raise ValueError(
+            "residual_fn is not affine in the field (relative linearity "
+            f"defect {lin:.2e}); use the training path or continuation "
+            "for nonlinear formulations")
+
+    if assemble == "stencil":
+        C, defect = extract_verified(A, shape, width=stencil_width,
+                                     probe=probe, want=A1, device=device)
+        if defect > 1e-4:
+            raise ValueError(
+                f"operator is not a width-{stencil_width} stencil "
+                f"(relative defect {defect:.2e}); pass stencil_width="
+                "2*deg+1 or drop assemble='stencil'")
+
+        def A(u, C=C):
+            return stencil_matvec(C, u, width=stencil_width,
+                                  kernel=stencil_kernel)
+    elif assemble is not None:
+        raise ValueError(f"unknown assemble mode {assemble!r}")
+    elif stencil_kernel is not None:
+        raise ValueError("stencil_kernel requires assemble='stencil'")
+
+    if maxiter is None:
+        maxiter = 10 * int(zero.numel() ** 0.5)
+    kwargs = {"tol": tol, "maxiter": maxiter, "M": M,
+              "x0": None if x0 is None else _as_field(x0, device)}
+    if restart is not None:
+        if method != "gmres":
+            raise ValueError("restart applies to gmres only")
+        kwargs["restart"] = restart
+    solver = {"cg": krylov.cg, "bicgstab": krylov.bicgstab,
+              "gmres": krylov.gmres}[method]
+    return solver(A, b, **kwargs)
+
+
+def module_linear_solve(module, inputs_tensor=None, forcing_tensor=None,
+                        method: str = "cg", tol: float = 1e-8,
+                        maxiter: int | None = None, M=None,
+                        assemble: str | None = None,
+                        stencil_width: int | None = None,
+                        stencil_kernel: str | None = None, device="cpu"):
+    """Direct linear solve of a pde module's single-instance problem.
+
+    The module must expose ``residual_for_field(u, inputs, forcing)``; it is
+    moved to `device`. Returns the solved nodal field (numpy) with the
+    module's Dirichlet values substituted, and the solver's info.
+    """
+    if getattr(module, "eq_type", None) == "stokes":
+        raise NotImplementedError(
+            "Stokes modules route to stokes_linear_solve, which waits for "
+            "the flow slice (ROADMAP)")
+    res_hook = getattr(module, "residual_for_field", None)
+    if res_hook is None:
+        raise ValueError(
+            f"{type(module).__name__} does not expose residual_for_field; "
+            "linear solves are wired for the Poisson family")
+    module.to(device)
+    if inputs_tensor is None:
+        if module.dataset is None:
+            raise ValueError("no inputs given and module.dataset is None")
+        inputs_tensor, forcing_tensor = module.dataset[0]
+    inputs = _as_field(inputs_tensor, device)[None]
+    forcing = (_as_field(forcing_tensor, device)[None]
+               if forcing_tensor is not None else None)
+
+    def residual_fn(u):
+        return res_hook(u[None], inputs, forcing)[0]
+
+    if stencil_width is None:
+        # deg-d elements couple d+1 nodes per axis -> width 2d+1
+        stencil_width = 2 * int(getattr(module, "fem_basis_deg", 1)) + 1
+    u, info = solve_linear(residual_fn, module.node_shape, method=method,
+                           tol=tol, maxiter=maxiter, M=M, assemble=assemble,
+                           stencil_width=stencil_width,
+                           stencil_kernel=stencil_kernel, device=device)
+    apply_bcs = getattr(module, "apply_bcs", None)
+    if apply_bcs is not None:
+        with torch.no_grad():
+            u = apply_bcs(u[None], inputs)[0]
+    return u.cpu().numpy(), info
+
+
+@torch.no_grad()
+def _colored_diag(A: Callable, shape, nsd=None, device="cpu") -> np.ndarray:
+    """Exact diagonal of a linear width-3 stencil operator from 3^nsd
+    colouring probes (same-colour nodes, stride 3, do not interact; A is
+    called once per probe). ``shape`` is an int (square/cubic, with
+    ``nsd``) or a node-shape tuple. Returns numpy ``[shape]``."""
+    if np.isscalar(shape):
+        shape = (int(shape),) * int(nsd)
+    shape = tuple(int(s) for s in shape)
+    diag = np.zeros(shape, np.float32)
+    for offs in np.ndindex(*((3,) * len(shape))):
+        e = np.zeros(shape, np.float32)
+        sl = tuple(slice(o, None, 3) for o in offs)
+        e[sl] = 1.0
+        diag[sl] = A(_as_field(e, device)).cpu().numpy()[sl]
+    return diag
+
+
+def _full_weight_halve(a, nsd):
+    """Full-weighting restriction of a nodal field to the node-aligned half
+    grid: [1/4, 1/2, 1/4] smoothing per axis (edge-replicated), then
+    stride-2 injection. numpy, host-side (multigrid setup only)."""
+    a = np.asarray(a, np.float64)
+    for ax in range(a.ndim - nsd, a.ndim):
+        p = np.concatenate([np.take(a, [0], ax), a, np.take(a, [-1], ax)],
+                           axis=ax)
+        n_ = a.shape[ax]
+        a = (0.25 * np.take(p, range(0, n_), ax)
+             + 0.5 * np.take(p, range(1, n_ + 1), ax)
+             + 0.25 * np.take(p, range(2, n_ + 2), ax))
+    sl = tuple([slice(None)] * (a.ndim - nsd)
+               + [slice(None, None, 2)] * nsd)
+    return a[sl].astype(np.float32)
+
+
+def _restriction(coarse_shape, fine_shape, device) -> Callable:
+    """The exact adjoint of ``prolong_field(., fine_shape)``: its VJP at
+    zero (the prolongation is linear, so one VJP serves every call)."""
+    _, vjp = torch.func.vjp(lambda c: prolong_field(c, fine_shape),
+                            torch.zeros(coarse_shape, device=device))
+    return lambda r: vjp(r)[0]
+
+
+def _restricted_inputs(fine_inputs, fine_forcing, ns, nsd) -> dict:
+    """Every level's (inputs, forcing), halved from the fine level's:
+    continuous channels (nu) by full weighting, binary channels (masks) by
+    injection so they stay {0, 1}."""
+    fine_inputs = np.asarray(fine_inputs)
+    levels = {ns[0]: (fine_inputs, None if fine_forcing is None
+                      else np.asarray(fine_forcing))}
+    is_binary = [bool(np.isin(np.unique(fine_inputs[..., c]),
+                              (0.0, 1.0)).all())
+                 for c in range(fine_inputs.shape[-1])]
+    for li in range(1, len(ns)):
+        prev_i, prev_f = levels[ns[li - 1]]
+        chans = [prev_i[..., c][(slice(None, None, 2),) * nsd]
+                 if is_binary[c] else _full_weight_halve(prev_i[..., c], nsd)
+                 for c in range(prev_i.shape[-1])]
+        cur_i = np.stack(chans, axis=-1).astype(prev_i.dtype)
+        cur_f = (None if prev_f is None else np.stack(
+            [_full_weight_halve(prev_f[..., c], nsd)
+             for c in range(prev_f.shape[-1])], axis=-1).astype(prev_f.dtype))
+        levels[ns[li]] = (cur_i, cur_f)
+    return levels
+
+
+@torch.no_grad()
+def multigrid_preconditioner(module_factory, n_fine, n_coarse: int = 9,
+                             n_smooth: int = 3, inputs_per_level=None,
+                             nsd: int = 2, coarse_op: str = "rediscretize",
+                             assemble: str | None = "stencil",
+                             smoother: str = "chebyshev",
+                             cheb_alpha: float = 4.0,
+                             fine_matvec: Callable | None = None,
+                             stencil_kernel: str | None = None,
+                             device="cpu"):
+    """Geometric-multigrid V-cycle preconditioner ``M ~ A^-1`` for
+    :func:`solve_linear` on node-aligned grid hierarchies (n = 2^k + 1).
+
+    n_fine: an int (square/cubic; ``module_factory`` is called with
+        per-level ints) or a node-shape tuple (rectangular; the factory is
+        called with per-level shape tuples, ``n_coarse`` bounds the
+        smallest axis).
+    module_factory(n) -> a module exposing ``residual_for_field``; it is
+        moved to `device`, where the whole hierarchy lives.
+    inputs_per_level: ``"restrict"`` halves the fine module's (inputs,
+        forcing) to every level (full weighting for nu, injection for
+        masks), a callable ``n -> (inputs, forcing)``, or None (each
+        level's own dataset).
+    coarse_op: ``"rediscretize"`` (each level's module) or ``"galerkin"``
+        (``A_l = R A_{l-1} P`` through the level above).
+    assemble: ``"stencil"`` extracts every level's stencil once,
+        ``"stencil_coarse"`` all but the finest, None none; a level whose
+        probe defect rejects the stencil form keeps its matrix-free
+        operator.
+    smoother: ``"chebyshev"`` (degree ``n_smooth`` in D^-1 A on
+        [lmax/cheb_alpha, lmax], lmax from a setup power iteration, padded
+        1.1x) or ``"jacobi"`` (damped, omega = 0.8/lmax).
+    fine_matvec: a linear fine-grid operator used at run time in place of
+        the factory module's (which still drives all setup probing; the two
+        must agree to round-off), e.g. a module with ``fused_kernels=True``.
+    stencil_kernel: ``"cuda"`` applies every assembled level's run-time
+        stencil (not the finest when `fine_matvec` is given, not the
+        coarsest, which runs the dense pseudo-inverse) through K4.
+
+    The prolongation is ``train.continuation.prolong_field``, the
+    restriction its exact adjoint, the coarsest level a dense
+    pseudo-inverse (``rcond=1e-5``, numpy on the host) built by probing,
+    applied as a matmul. Returns ``(M, info)``.
+    """
+    if smoother not in ("chebyshev", "jacobi"):
+        raise ValueError(f"unknown smoother {smoother!r} "
+                         "(expected 'chebyshev' or 'jacobi')")
+    if assemble not in ("stencil", "stencil_coarse", None):
+        raise ValueError(f"unknown assemble mode {assemble!r} (expected "
+                         "'stencil', 'stencil_coarse', or None)")
+    check_kernel(stencil_kernel)
+    if stencil_kernel is not None and assemble is None:
+        raise ValueError("stencil_kernel requires an assembling mode "
+                         "('stencil' or 'stencil_coarse')")
+    if smoother == "chebyshev" and not cheb_alpha > 1.0:
+        raise ValueError(
+            f"cheb_alpha must be > 1 (got {cheb_alpha}): the smoothing "
+            "band is [lmax/cheb_alpha, lmax], and alpha <= 1 collapses "
+            "it (delta <= 0 -> NaN recurrence)")
+
+    # the hierarchy: every axis halves together down to n_coarse
+    rect = not np.isscalar(n_fine)
+    if rect:
+        shapes = [tuple(int(s) for s in n_fine)]
+        nsd = len(shapes[0])
+    else:
+        shapes = [(int(n_fine),) * nsd]
+    while min(shapes[-1]) > n_coarse:
+        if any((s - 1) % 2 for s in shapes[-1]):
+            break
+        nxt = tuple((s - 1) // 2 + 1 for s in shapes[-1])
+        if min(nxt) < 3:
+            break
+        shapes.append(nxt)
+    ns = shapes if rect else [s[0] for s in shapes]
+
+    if inputs_per_level == "restrict":
+        m_fine = module_factory(n_fine)
+        if m_fine.dataset is None:
+            raise ValueError("inputs_per_level='restrict' needs the fine "
+                             "module to own a dataset")
+        levels = _restricted_inputs(*m_fine.dataset[0], ns, nsd)
+        inputs_per_level = levels.__getitem__
+
+    ops, omegas, invdiags, lams = [], [], [], []
+    kernel_swaps = []   # (level, C) to route through K4 after setup
+    for li, n in enumerate(ns):
+        shape = shapes[li]
+        if coarse_op == "galerkin" and li > 0:
+            fine_shape = shapes[li - 1]
+
+            def A(u, A_prev=ops[-1], fs=fine_shape,
+                  R=_restriction(shape, fine_shape, device)):
+                return R(A_prev(prolong_field(u, fs)))
+        else:
+            m = module_factory(n).to(device)
+            if inputs_per_level is not None:
+                inputs, forcing = inputs_per_level(n)
+            else:
+                inputs, forcing = m.dataset[0]
+            inputs = _as_field(inputs, device)[None]
+            forcing = (_as_field(forcing, device)[None]
+                       if forcing is not None else None)
+
+            def res(u, m=m, inputs=inputs, forcing=forcing):
+                return m.residual_for_field(u[None], inputs, forcing)[0]
+
+            def A(u, res=res, b0=res(torch.zeros(shape, device=device))):
+                return res(u) - b0
+        if assemble == "stencil" or (assemble == "stencil_coarse" and li > 0):
+            C, defect = extract_verified(A, shape, device=device)
+            if defect <= 1e-4:
+                def A(u, C=C):
+                    return stencil_matvec(C, u)
+                kernel_swaps.append((li, C))
+                diag = stencil_diag(C).cpu().numpy()
+            else:
+                diag = _colored_diag(A, shape, device=device)
+        else:
+            diag = _colored_diag(A, shape, device=device)
+        # Dirichlet rows have a zero diagonal; their smoothed update must
+        # stay zero, so park a 1.0 there
+        safe = np.abs(diag) > 1e-12
+        invdiag = _as_field(np.where(safe, 1.0 / np.where(safe, diag, 1.0),
+                                     1.0), device)
+
+        def DinvA(u, A=A, invdiag=invdiag):
+            return invdiag * A(u)
+
+        # power iteration for the top of D^-1 A's spectrum (20 steps)
+        v = _as_field(np.random.default_rng(0).random(shape), device)
+        for _ in range(20):
+            v = DinvA(v)
+            v = v / (_norm(v) + 1e-30)
+        lam = float(torch.vdot(v.reshape(-1), DinvA(v).reshape(-1))
+                    / (torch.vdot(v.reshape(-1), v.reshape(-1)) + 1e-30))
+        if li == 0 and fine_matvec is not None:
+            A = fine_matvec   # after all setup probing
+        ops.append(A)
+        invdiags.append(invdiag)
+        omegas.append(0.8 / max(lam, 1e-30))
+        # Chebyshev needs an upper bound on lam(D^-1 A); power iteration
+        # converges from below
+        lams.append(1.1 * max(lam, 1e-30))
+
+    # coarsest: dense pseudo-inverse by probing (Dirichlet rows are zero
+    # rows, which pinv keeps at zero); rcond cuts the f32-noise modes the
+    # R(u) - R(0) cancellation leaves in the masked rows
+    nc_shape = shapes[-1]
+    ndof = int(np.prod(nc_shape))
+    cols = np.empty((ndof, ndof), np.float32)
+    for i in range(ndof):
+        e = torch.zeros(ndof, device=device)
+        e[i] = 1.0
+        cols[i] = ops[-1](e.reshape(nc_shape)).reshape(-1).cpu().numpy()
+    A0_pinv = _as_field(np.linalg.pinv(cols.T, rcond=1e-5), device)
+
+    if stencil_kernel is not None:
+        for li, C in kernel_swaps:
+            if li == 0 and fine_matvec is not None:
+                continue   # the explicit run-time fine operator wins
+            if li == len(ns) - 1:
+                continue   # the coarsest level runs the dense pinv only
+
+            def op(u, C=C):
+                return stencil_matvec(C, u, kernel=stencil_kernel)
+            ops[li] = op
+
+    restricts = [_restriction(shapes[li + 1], shapes[li], device)
+                 for li in range(len(ns) - 1)]
+
+    def smooth(level, u, b, k):
+        A, invdiag = ops[level], invdiags[level]
+        if smoother == "jacobi":
+            omega = omegas[level]
+            for _ in range(k):
+                u = u + omega * invdiag * (b - A(u))
+            return u
+        # degree-k Chebyshev in D^-1 A on [lmax/cheb_alpha, lmax] (three-
+        # term recurrence, r updated incrementally: r_new = r - A d); the
+        # coefficients are fixed floats, so the smoother is linear in b
+        lmax = lams[level]
+        lmin = lmax / cheb_alpha
+        theta = 0.5 * (lmax + lmin)
+        delta = 0.5 * (lmax - lmin)
+        sigma = theta / delta
+        r = b - A(u)
+        d = invdiag * r / theta
+        u = u + d
+        rho_prev = 1.0 / sigma
+        for _ in range(k - 1):
+            r = r - A(d)
+            rho = 1.0 / (2.0 * sigma - rho_prev)
+            d = (rho * rho_prev) * d + (2.0 * rho / delta) * (invdiag * r)
+            u = u + d
+            rho_prev = rho
+        return u
+
+    def vcycle(level, b):
+        if level == len(ns) - 1:
+            return (A0_pinv @ b.reshape(-1)).reshape(b.shape)
+        u = smooth(level, torch.zeros_like(b), b, n_smooth)
+        r = b - ops[level](u)
+        e_c = vcycle(level + 1, restricts[level](r))
+        u = u + prolong_field(e_c, shapes[level])
+        return smooth(level, u, b, n_smooth)
+
+    @torch.no_grad()
+    def M(v):
+        return vcycle(0, v)
+
+    return M, {"levels": ns, "omegas": omegas, "smoother": smoother}

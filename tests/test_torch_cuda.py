@@ -8,7 +8,10 @@ without JAX, from the repository root:
 
 Tolerances: the kernels sum in another order than torch. Fields at atol
 2e-6 times max(1, max |ref|) (O(1) float32 stencils), scalars at rtol 1e-5,
-the K2 gradient at 1e-5 of its largest entry, the VJPs as the fields.
+the K2 gradient at 1e-5 of its largest entry, the VJPs as the fields; the
+MG-CG solution through K4 within the plain solve's (14 float32 CG
+iterations, each matvec summed in another order) at 1e-3 of its largest
+entry, both at a relative residual below 1e-4.
 """
 
 import numpy as np
@@ -22,8 +25,9 @@ from diffnet_tpu_torch.models import DirectField
 from diffnet_tpu_torch.ops import poisson_energy as k3
 from diffnet_tpu_torch.ops import poisson_loss_grad as k2
 from diffnet_tpu_torch.ops import poisson_residual as k1
+from diffnet_tpu_torch.ops import stencil_apply as k4
 from diffnet_tpu_torch.pde import Poisson2D
-from diffnet_tpu_torch.train import Trainer
+from diffnet_tpu_torch.train import Trainer, cg, multigrid_preconditioner
 
 pytestmark = pytest.mark.cuda
 
@@ -126,6 +130,84 @@ def test_vjps_match_autograd_through_plain(dev):
     for got, ref in pairs:
         for a, b in zip(got, ref):
             _field_close(a, b)
+
+
+@pytest.mark.parametrize("shape", [(2, 33, 33), (1, 40, 56), (3, 17, 129),
+                                   (2, 129, 257), (1, 2, 2)])
+@pytest.mark.parametrize("shared_c", [False, True])
+def test_stencil_kernel_matches_plain(dev, shape, shared_c):
+    B, ny, nx = shape
+    C, = _fields((9, 1 if shared_c else B, ny, nx), dev, n=1, seed=3)
+    u, = _fields(shape, dev, n=1, seed=4)
+    before = k4.launches
+    out = k4.apply_2d(C - 0.5, u - 0.5)
+    torch.cuda.synchronize()
+    assert k4.launches == before + 1
+    _field_close(out, k4.stencil_apply_plain(C - 0.5, u - 0.5))
+
+
+def test_stencil_vjp_matches_autograd_through_plain(dev):
+    n = 65
+    for cb in (2, 1):
+        C, = _fields((9, cb, n, n), dev, n=1, seed=5)
+        u, w = _fields((2, n, n), dev, n=2, seed=6)
+        got = _grads(lambda C, u: (k4.stencil_apply(C, u) * w).sum(), C, u)
+        ref = _grads(lambda C, u: (k4.stencil_apply_plain(C, u) * w).sum(),
+                     C, u)
+        for a, b in zip(got, ref):
+            _field_close(a, b)
+
+
+def test_mgcg_through_the_stencil_kernel_matches_plain(dev):
+    """A 65² variable-nu MG-CG solve with every assembled level through K4
+    against the same solve on the plain stencil matvec."""
+    n = 65
+    rng = np.random.default_rng(0)
+    nu = np.exp(rng.standard_normal((n, n)) * 0.5).astype(np.float32)
+
+    class DS:
+        def __init__(self, nu):
+            m = nu.shape[0]
+            bc1 = np.zeros((m, m)); bc1[:, 0] = 1
+            bc2 = np.zeros((m, m)); bc2[:, -1] = 1
+            self.inputs = np.stack([nu, bc1, bc2], -1).astype(np.float32)
+            self.forcing = np.zeros((m, m, 1), np.float32)
+
+        def __getitem__(self, idx):
+            return self.inputs, self.forcing
+
+    def factory(m_n):
+        ds = DS(nu if m_n == n else np.ones((m_n, m_n), np.float32))
+        return Poisson2D(DirectField((m_n, m_n)), ds, domain_size=m_n,
+                         batch_size=1, loss_type="resmin")
+
+    m = factory(n).to(dev)
+    inputs = torch.from_numpy(m.dataset.inputs)[None].to(dev)
+    forcing = torch.zeros(1, n, n, 1, device=dev)
+    b = torch.from_numpy(np.where(m.dataset.inputs[..., 1:].max(-1) > 0.5, 0,
+                                  rng.standard_normal((n, n)))
+                         .astype(np.float32)).to(dev)
+    b0 = m.residual_for_field(torch.zeros(1, n, n, device=dev), inputs,
+                              forcing)[0]
+
+    def A(v):
+        return m.residual_for_field(v[None], inputs, forcing)[0] - b0
+
+    sols = {}
+    for kernel in (None, "cuda"):
+        M, _ = multigrid_preconditioner(factory, n, n_coarse=17,
+                                        inputs_per_level="restrict",
+                                        stencil_kernel=kernel, device=dev)
+        before = k4.launches
+        sols[kernel], _ = cg(A, b, tol=0.0, maxiter=14, M=M)
+        torch.cuda.synchronize()
+        assert (k4.launches > before) == (kernel == "cuda")
+        rel = float(torch.linalg.vector_norm(A(sols[kernel]) - b)
+                    / torch.linalg.vector_norm(b))
+        assert rel < 1e-4, (kernel, rel)
+    torch.testing.assert_close(
+        sols["cuda"], sols[None], rtol=0,
+        atol=1e-3 * float(sols[None].abs().max()))
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):

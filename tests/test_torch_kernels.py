@@ -299,6 +299,7 @@ def _fake_nvcc(monkeypatch, rc):
             f"sys.exit({rc})")
     monkeypatch.setattr(_build, "_nvcc", lambda: sys.executable)
     monkeypatch.setattr(_build, "NVCC_FLAGS", ("-c", code))
+    monkeypatch.setattr(_build, "LINK_FLAGS", ("-c", code))
 
 
 def test_build_compiles_once_per_source_and_renames_atomically(
@@ -311,10 +312,14 @@ def test_build_compiles_once_per_source_and_renames_atomically(
     assert so.parent == tmp_path / "_build" and "registers" in log
     assert [p.name for p in so.parent.iterdir()] == [so.name]  # no temp left
     assert _build.build() == (so, "")   # built already: nothing compiled
-    src = tmp_path / "poisson2d.cu"
-    src.write_text(_build.SOURCE.read_text() + "// changed\n")
-    monkeypatch.setattr(_build, "SOURCE", src)
-    assert _build.library_path() != so  # a changed source builds anew
+    for k, orig in enumerate(_build.SOURCES):   # either source changed
+        src = tmp_path / orig.name
+        src.write_text(orig.read_text() + "// changed\n")
+        sources = list(_build.SOURCES)
+        sources[k] = src
+        with monkeypatch.context() as mp:
+            mp.setattr(_build, "SOURCES", tuple(sources))
+            assert _build.library_path() != so   # ... builds anew
 
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "_build_fail")
     _fake_nvcc(monkeypatch, 3)
