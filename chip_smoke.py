@@ -9,9 +9,9 @@ Phases, each printing one JSON line; any failure raises and the script
 exits non-zero (it also does so, printing no result, without CUDA):
 
   0. device: the card, ``nvidia-smi`` name and power limit; TF32 off.
-  1. build: nvcc builds ``diffnet_tpu_torch/csrc/poisson2d.cu`` and
-     ``stencil2d.cu`` (sm_90a, one process each, in parallel) into one
-     library.
+  1. build: nvcc builds ``diffnet_tpu_torch/csrc/poisson2d.cu``,
+     ``stencil2d.cu``, ``poisson3d.cu`` and ``stencil3d.cu`` (sm_90a, one
+     process each, all started together) into one library.
   2. kernels: K1 (stiffness action and masked residual), K2 (resmin loss
      and gradient) and K3 (Ritz energy) against their plain torch versions
      at 33^2 (anisotropic h), 40^2, 24x49 (K1 only), 1x513^2 (slice D2's
@@ -19,11 +19,18 @@ exits non-zero (it also does so, printing no result, without CUDA):
      against its plain version at 2x33^2, 1x40x56, 3x17x129, slice D's
      levels 1x513^2, 1x257^2, 1x129^2, 1x65^2, and 32x512^2, each with
      per-sample and batch-1 C.
-     The time of each at 512^2 x 32 beside its plain version's (CUDA events
-     around 10 back-to-back calls, median of 20 runs).
+     The time of each at 512^2 x 32 beside its plain version's and its
+     bound (CUDA events around 10 back-to-back calls queued behind a spin
+     kernel, median of 20 runs; see ``cuda_ms``).
+     K5 (the trilinear stiffness action and its masked residual) at 2x9^3
+     (anisotropic h), 2x17^3, 2x20x17x17, 1x129^3 (slice F's fine level),
+     4x64^3 and 1x128^3, timed at the last two; K4-3D (the 27-point apply)
+     at 2x9^3, 1x10x12x14, slice F's levels 1x129^3, 65^3, 33^3, 17^3 and
+     1x128^3, per-sample and batch-1 C, timed at 1x128^3.
   3. gradients: the K1 du/dnu, K3 du, K2 du and K4 dC/du VJPs against
-     autograd through the plain versions, at 65^2.
-  4-7. the main paths (launch counts set to 0 first, read after each):
+     autograd through the plain versions, at 65^2; the K5 du/dnu and K4-3D
+     dC/du VJPs at 17^3.
+  4-9. the main paths (launch counts set to 0 first, read after each):
      A. the README quick start through ``Trainer.fit``, 64^2 MMS resmin
         with LBFGS; rel L2 vs the exact solution must be <= 2.6e-4 (the JAX
         package gives 2.046e-4);
@@ -43,7 +50,20 @@ exits non-zero (it also does so, printing no result, without CUDA):
         runs no kernel), must be <= 1.8e-5 (twice the JAX package's
         8.92e-6); D2 must launch K1, D3 K4. One solve of each variant runs
         under ``torch.profiler`` for its device operations, busy time and
-        idle share.
+        idle share;
+     E. 3D training through ``Trainer.fit`` with ``fused_kernels=True``
+        (K5): E1 examples/poisson_3d.py's 17^3 MMS resmin run (LBFGS, 60
+        epochs x 10 iterations), rel L2 <= 1.3x the JAX package's; E2 10
+        Adam steps at 64^3 x 4 from a seeded random field, the loss must
+        fall, the first loss match the unfused path and K5 launch at least
+        twice a step;
+     F. the 3D linear-solver path: a 129^3 variable-nu (55x contrast)
+        MG-CG solve (levels 129-65-33-17-9, 14 iterations) in three
+        variants: F1 the plain stencil, F2 K5 on the fine level and outer
+        matvec, F3 K4-3D on every assembled level and the outer matvec;
+        each relative residual, under its own operator and under F1's
+        element-path operator, <= 2x the JAX package's; F2 must launch K5,
+        F3 K4-3D; one profiled solve of each.
   Then the kernel table line and, last, ``{"ok": true, "device": ...}``.
 """
 
@@ -61,37 +81,70 @@ import torch
 
 from diffnet_tpu_torch.core import fem
 from diffnet_tpu_torch.core.quadrature import make_basis
-from diffnet_tpu_torch.data import RectangleManufactured
+from diffnet_tpu_torch.data import CuboidManufactured, RectangleManufactured
 from diffnet_tpu_torch.models import DirectField
 from diffnet_tpu_torch.ops import _build
 from diffnet_tpu_torch.ops import poisson_energy as k3
 from diffnet_tpu_torch.ops import poisson_loss_grad as k2
 from diffnet_tpu_torch.ops import poisson_residual as k1
+from diffnet_tpu_torch.ops import poisson_residual_3d as k5
 from diffnet_tpu_torch.ops import stencil_apply as k4
-from diffnet_tpu_torch.pde import Poisson2D
+from diffnet_tpu_torch.pde import Poisson2D, Poisson3D
 from diffnet_tpu_torch.train import (Trainer, cg, extract_verified,
                                      multigrid_preconditioner, stencil_matvec)
 
 POISSON_SRC = "diffnet_tpu_torch/csrc/poisson2d.cu"
-KERNELS = {   # name -> (module, its source, the TPU kernel it replaces)
-    "poisson_stiffness_action": (k1, POISSON_SRC,
+KERNELS = {   # name -> (module, its launch count, its source, the TPU kernel)
+    "poisson_stiffness_action": (k1, "launches", POISSON_SRC,
                                  "diffnet_tpu/ops/poisson_residual.py:291"),
-    "poisson_resmin_loss_grad": (k2, POISSON_SRC,
+    "poisson_resmin_loss_grad": (k2, "launches", POISSON_SRC,
                                  "diffnet_tpu/ops/poisson_loss_grad.py:98"),
-    "poisson_energy": (k3, POISSON_SRC,
+    "poisson_energy": (k3, "launches", POISSON_SRC,
                        "diffnet_tpu/ops/poisson_energy.py:151"),
-    "stencil_apply_2d": (k4, "diffnet_tpu_torch/csrc/stencil2d.cu",
+    "stencil_apply_2d": (k4, "launches", "diffnet_tpu_torch/csrc/stencil2d.cu",
                          "diffnet_tpu/ops/stencil_apply.py:178"),
+    "poisson_stiffness_action_3d": (
+        k5, "launches", "diffnet_tpu_torch/csrc/poisson3d.cu",
+        "diffnet_tpu/ops/poisson_residual_3d.py:450"),
+    "stencil_apply_3d": (k4, "launches_3d",
+                         "diffnet_tpu_torch/csrc/stencil3d.cu",
+                         "diffnet_tpu/ops/stencil_apply.py:425"),
 }
 # Tolerances, kernel against plain version (float32, sums in other orders):
-FIELD_ATOL = 2e-6      # K1 fields, times max(1, max |ref|): O(1) stencils
+FIELD_ATOL = 2e-6      # K1/K4/K5 fields, times max(1, max |ref|): O(1) terms
 GRAD_RTOL = 1e-5       # K2 gradient, of its largest entry (entries ~O(10))
 SCALAR_RTOL = 1e-5     # K2 loss, K3 energy
-VJP_ATOL = 2e-6        # gradients at 65^2, times max(1, max |ref|)
+VJP_ATOL = 2e-6        # gradients at 65^2 and 17^3, times max(1, max |ref|)
 L2_LIMIT = 2.6e-4      # slice A final rel L2
-FIRST_LOSS_RTOL = 1e-4  # slice B: kernel vs unfused first loss, 8.4M squares
+FIRST_LOSS_RTOL = 1e-4  # slices B, E2: kernel vs unfused first loss
 RELRES_LIMIT = 1.8e-5  # slice D: twice the JAX package's 8.92e-6 at 513^2
 SOLVE_GRID, SOLVE_ITERS = 513, 14   # slice D: bench.py's _solve_time
+# The JAX package's figures on the same problems, on a CPU
+# (scripts/torch_port_reference_3d.py): slice E1's final rel L2 and slice
+# F's relative residual. E1 is held to 1.3x, F to 2x.
+JAX_E1_REL_L2 = 0.02751881815493107
+JAX_F_RELRES = 3.352927819832985e-07
+E1_LIMIT = 1.3 * JAX_E1_REL_L2
+RELRES_LIMIT_3D = 2.0 * JAX_F_RELRES
+SOLVE_GRID_3D, N_COARSE_3D = 129, 9   # slice F: levels 129-65-33-17-9
+
+# The card's peaks for the bound (NVIDIA's H100 SXM data sheet, at 700 W):
+# HBM bytes/s and fp32 operations/s outside the tensor cores.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FP32_PER_S = 67e12
+# fp32 operations of each kernel's algebra, counted once (no recomputed
+# element): K1's sum-factorised element body (~49 an element), K2 two of
+# them (K u and K R) plus 5 a node (residual, mask, square, sum, 2x), K3's
+# element energy and load (~61 an element), K4 one FMA a tap, K5 the
+# sum-factorised trilinear body of csrc/poisson3d.cu (3 axis parts of 88
+# plus the 16 of the signed corner sums, 280 an element, and 7 adds a node
+# to assemble the eight corners).
+FLOPS = {"poisson_stiffness_action": (49, 0),      # (a element, a node)
+         "poisson_resmin_loss_grad": (98, 5),
+         "poisson_energy": (61, 0),
+         "stencil_apply_2d": (0, 18),
+         "poisson_stiffness_action_3d": (280, 7),
+         "stencil_apply_3d": (0, 54)}
 
 
 def emit(obj: dict) -> None:
@@ -111,12 +164,30 @@ def forcing(x, y):
 
 
 def reset_counts() -> None:
-    for mod, _, _ in KERNELS.values():
-        mod.launches = 0
+    for mod, attr, _, _ in KERNELS.values():
+        setattr(mod, attr, 0)
 
 
 def counts() -> dict[str, int]:
-    return {name: mod.launches for name, (mod, _, _) in KERNELS.items()}
+    return {name: getattr(mod, attr)
+            for name, (mod, attr, _, _) in KERNELS.items()}
+
+
+def bound(name: str, tensors, shape) -> dict:
+    """The least time the card could take for `name`'s work on these
+    tensors: the larger of their bytes (each input read once, each output
+    written once) over the peak memory rate and the kernel's operations
+    (FLOPS, counted on `shape`'s elements and nodes) over the fp32 peak."""
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    B, *spatial = shape
+    elements = B * math.prod(n - 1 for n in spatial)
+    per_elem, per_node = FLOPS[name]
+    ops = per_elem * elements + per_node * B * math.prod(spatial)
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_FP32_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "operations": ops}
 
 
 def since(before: dict[str, int]) -> dict[str, int]:
@@ -129,21 +200,46 @@ def basis_for(ny: int, nx: int, aniso: bool, dev) -> fem.BasisTables:
     return fem.BasisTables(make_basis(2, 1, h=h)).to(dev)
 
 
-def cuda_ms(fns: dict, reps: int = 20, inner: int = 10,
-            warmup: int = 3) -> dict[str, float]:
+def basis_3d(shape, aniso: bool, dev) -> fem.BasisTables:
+    nz, ny, nx = shape[1:]
+    h = ((0.7 / (nx - 1), 1.9 / (ny - 1), 1.3 / (nz - 1)) if aniso
+         else (1.0 / (nx - 1), 1.0 / (ny - 1), 1.0 / (nz - 1)))
+    return fem.BasisTables(make_basis(3, 1, h=h)).to(dev)
+
+
+def cuda_ms(fns: dict, reps: int = 20, inner: int = 10, warmup: int = 3,
+            queued: bool = True) -> dict[str, float]:
     """Median over `reps` runs of the CUDA-event time of `inner` back-to-back
-    calls, per call, for each callable; the callables take turns. Back to
-    back, the host's launch work overlaps the device's, so the time is the
-    device's."""
+    calls, per call, for each callable; the callables take turns.
+
+    queued: first hold the stream in a spin kernel (``torch.cuda._sleep``)
+    for 1.5x the host's measured time to enqueue the `inner` calls, so the
+    calls wait in the queue and run without gaps: the time is the device's
+    even where a call's host work (checks, allocation, the launch itself)
+    outlasts its kernel, as it does for kernels of a few tens of us. Without
+    it a short kernel reads the host's time per call. A plain version whose
+    launches overflow the queue (~1k pending) can still read the host's."""
     for fn in fns.values():
         for _ in range(warmup):
             fn()
     torch.cuda.synchronize()
+    enqueue_s = {}
+    for k, fn in fns.items():
+        t0 = time.perf_counter()
+        for _ in range(inner):
+            fn()
+        enqueue_s[k] = time.perf_counter() - t0
+        torch.cuda.synchronize()
+    # the SM clock in Hz (the property is in kHz; 2 GHz where it is absent)
+    hz = getattr(torch.cuda.get_device_properties(0), "clock_rate",
+                 2_000_000) * 1e3
     times = {k: [] for k in fns}
     for _ in range(reps):
         for k, fn in fns.items():
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
+            if queued:
+                torch.cuda._sleep(int(1.5 * enqueue_s[k] * hz) + 10_000)
             start.record()
             for _ in range(inner):
                 fn()
@@ -243,10 +339,20 @@ def phase_kernels(dev) -> dict:
                 "K3_plain": lambda: k3.energy_plain(u, nu, f, tb),
                 "K3": lambda: k3.energy(u, nu, f, tb),
             })
-            times = {"poisson_stiffness_action": (t["K1"], t["K1_plain"]),
-                     "poisson_resmin_loss_grad": (t["K2"], t["K2_plain"]),
-                     "poisson_energy": (t["K3"], t["K3_plain"])}
+            shape = (B, ny, nx)
+            times = {
+                "poisson_stiffness_action": dict(
+                    ms=t["K1"], plain_ms=t["K1_plain"],
+                    **bound("poisson_stiffness_action", (u, nu, K), shape)),
+                "poisson_resmin_loss_grad": dict(
+                    ms=t["K2"], plain_ms=t["K2_plain"],
+                    **bound("poisson_resmin_loss_grad",
+                            (u, nu, Nf, bc, grad), shape)),
+                "poisson_energy": dict(
+                    ms=t["K3"], plain_ms=t["K3_plain"],
+                    **bound("poisson_energy", (u, nu, f), shape))}
             row["ms"] = t
+            row["bound_ms"] = {k: v["bound_ms"] for k, v in times.items()}
             gb = 1e-9 * B * ny * nx * 4
             row["kernel_GBps"] = {"K1": 3 * gb / (t["K1"] * 1e-3),
                                   "K2": 5 * gb / (t["K2"] * 1e-3),
@@ -284,10 +390,110 @@ def phase_stencil_kernel(dev) -> dict:
             if B == 32 and cb == B:
                 t = cuda_ms({"K4_plain": lambda: k4.stencil_apply_plain(C, u),
                              "K4": lambda: k4.apply_2d(C, u)})
-                times = (t["K4"], t["K4_plain"])
+                times = dict(ms=t["K4"], plain_ms=t["K4_plain"],
+                             **bound("stencil_apply_2d", (C, u, out),
+                                     (B, ny, nx)))
                 row["ms"] = t
+                row["bound_ms"] = times["bound_ms"]
                 row["kernel_GBps"] = (STENCIL_NODE_BYTES * B * ny * nx
                                       / (t["K4"] * 1e-3) / 1e9)
+        emit(row)
+    return {"err": err, "times": times}
+
+
+# 1 x 129^3: slice F's fine level; 4 x 64^3: bench.py's p3d shape
+# (bench.py:1712); 1 x 128^3: bench.py:1405
+K5_SHAPES = (((2, 9, 9, 9), True), ((2, 17, 17, 17), False),
+             ((2, 20, 17, 17), False), ((1, 129, 129, 129), False),
+             ((4, 64, 64, 64), False), ((1, 128, 128, 128), False))
+K5_TIMED = ((4, 64, 64, 64), (1, 128, 128, 128))
+
+
+def phase_k5(dev) -> dict:
+    """K5 and its masked residual against their plain versions; times at
+    4 x 64^3 and 1 x 128^3."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    err, times = 0.0, {}
+    for shape, aniso in K5_SHAPES:
+        tb = basis_3d(shape, aniso, dev)
+        u, nu, Nf = (torch.rand(shape, generator=g, device=dev)
+                     for _ in range(3))
+        nu = nu + 0.5
+        bc = torch.zeros(shape[1:], device=dev)
+        bc[[0, -1]] = 1
+        bc[:, [0, -1]] = 1
+        bc[:, :, [0, -1]] = 1
+        row = {"phase": "kernels_K5", "shape": list(shape),
+               "tolerance": {"K5_atol": FIELD_ATOL}}
+        K = k5.stiffness_action_3d(u, nu, tb)
+        Kp = k5.stiffness_action_3d_plain(u, nu, tb)
+        R = k5.poisson_residual_fused_3d(u, nu, Nf, bc, tb)
+        Rp = torch.where(bc > 0.5, torch.zeros_like(Kp), Kp - Nf)
+        torch.cuda.synchronize()
+        for name, a, b in (("K5", K, Kp), ("K5_residual", R, Rp)):
+            e = float((a - b).abs().max())
+            ref = float(b.abs().max())
+            row[name] = {"max_abs_err": e, "rel_err": e / ref}
+            err = max(err, e)
+            if e > FIELD_ATOL * max(1.0, ref):
+                fail(f"{name} at {row['shape']}: max abs err {e}")
+        if shape in K5_TIMED:
+            t = cuda_ms({"K5_plain": lambda: k5.stiffness_action_3d_plain(
+                u, nu, tb), "K5": lambda: k5.stiffness_action_3d(u, nu, tb)})
+            b = bound("poisson_stiffness_action_3d", (u, nu, K), shape)
+            times[shape] = dict(ms=t["K5"], plain_ms=t["K5_plain"], **b)
+            row["ms"] = t
+            row.update(b)
+            row["kernel_GBps"] = b["bytes"] / (t["K5"] * 1e-3) / 1e9
+            row["kernel_GFLOPps"] = b["operations"] / (t["K5"] * 1e-3) / 1e9
+            # not queued: what back-to-back calls read when the host's work
+            # for a call outlasts the kernel
+            row["ms_not_queued"] = cuda_ms(
+                {"K5": lambda: k5.stiffness_action_3d(u, nu, tb)},
+                queued=False)["K5"]
+        emit(row)
+        del u, nu, Nf, K, Kp, R, Rp
+    return {"err": err, "times": times[(4, 64, 64, 64)], "by_shape": {
+        "x".join(map(str, k)): v for k, v in times.items()}}
+
+
+# slice F's levels 129^3 .. 17^3 at batch 1, and bench.py:1513's 1 x 128^3
+STENCIL3D_SHAPES = ((2, 9, 9, 9), (1, 10, 12, 14), (1, 129, 129, 129),
+                    (1, 65, 65, 65), (1, 33, 33, 33), (1, 17, 17, 17),
+                    (1, 128, 128, 128))
+
+
+def phase_stencil3d_kernel(dev) -> dict:
+    """K4-3D against its plain version, a C per sample and a C shared by
+    the batch (the same at batch 1); its time at 1 x 128^3."""
+    g = torch.Generator(device=dev).manual_seed(4)
+    err, times = 0.0, None
+    for shape in STENCIL3D_SHAPES:
+        B = shape[0]
+        u = torch.rand(shape, generator=g, device=dev) - 0.5
+        row = {"phase": "kernels_K4_3d", "shape": list(shape),
+               "tolerance": {"K4_atol": FIELD_ATOL}}
+        for cb in dict.fromkeys((B, 1)):
+            C = torch.rand((27, cb) + shape[1:], generator=g,
+                           device=dev) - 0.5
+            out = k4.apply_3d(C, u)
+            ref = k4.stencil_apply_plain(C, u)
+            torch.cuda.synchronize()
+            e = float((out - ref).abs().max())
+            scale = float(ref.abs().max())
+            row[f"C_batch_{cb}"] = {"max_abs_err": e, "rel_err": e / scale}
+            err = max(err, e)
+            if e > FIELD_ATOL * max(1.0, scale):
+                fail(f"K4-3D at {row['shape']}, C batch {cb}: max abs err "
+                     f"{e}")
+            if shape == (1, 128, 128, 128):
+                t = cuda_ms({"K4_3d_plain": lambda: k4.stencil_apply_plain(
+                    C, u), "K4_3d": lambda: k4.apply_3d(C, u)})
+                b = bound("stencil_apply_3d", (C, u, out), shape)
+                times = dict(ms=t["K4_3d"], plain_ms=t["K4_3d_plain"], **b)
+                row["ms"] = t
+                row.update(b)
+                row["kernel_GBps"] = b["bytes"] / (t["K4_3d"] * 1e-3) / 1e9
         emit(row)
     return {"err": err, "times": times}
 
@@ -325,6 +531,24 @@ def phase_gradients(dev) -> None:
             grads(lambda C, u: (k4.stencil_apply(C, u) * w).sum(), C, u),
             grads(lambda C, u: (k4.stencil_apply_plain(C, u) * w).sum(),
                   C, u))
+    # 3D at 17^3: K5 du/dnu, K4-3D dC/du
+    n3 = 17
+    tb3 = basis_3d((2, n3, n3, n3), True, dev)
+    u3, nu3, w3 = (torch.rand((2, n3, n3, n3), generator=g, device=dev)
+                   for _ in range(3))
+    nu3 = nu3 + 0.5
+    pairs["K5_du_dnu_17cubed"] = (
+        grads(lambda u, nu: (k5.poisson_stiffness_action_3d(u, nu, tb3)
+                             * w3).sum(), u3, nu3),
+        grads(lambda u, nu: (k5.stiffness_action_3d_plain(u, nu, tb3)
+                             * w3).sum(), u3, nu3))
+    for cb in (2, 1):
+        C = torch.rand((27, cb, n3, n3, n3), generator=g, device=dev) - 0.5
+        pairs[f"K4_3d_dC_du_C_batch_{cb}_17cubed"] = (
+            grads(lambda C, u: (k4.stencil_apply(C, u, 3) * w3).sum(),
+                  C, u3),
+            grads(lambda C, u: (k4.stencil_apply_plain(C, u) * w3).sum(),
+                  C, u3))
     torch.cuda.synchronize()
     for name, (got, ref) in pairs.items():
         err = max(float((a - b).abs().max()) for a, b in zip(got, ref))
@@ -605,6 +829,208 @@ def slice_d(dev) -> None:
     emit(out)
 
 
+def slice_e1(dev) -> dict:
+    """examples/poisson_3d.py's MMS run at its default 17^3, through K5."""
+    n = 17
+    ds = CuboidManufactured(n)
+    ds.n_samples = 1
+    m = Poisson3D(DirectField((n,) * 3, init=np.zeros((n,) * 3)), ds,
+                  domain_size=n, batch_size=1, loss_type="resmin",
+                  exact_solution=ds.exact, forcing=ds.forcing_func,
+                  mms_dirichlet=True, fused_kernels=True)
+    before = counts()
+    t0 = time.perf_counter()
+    Trainer(max_epochs=60, optimizer="lbfgs", lbfgs_max_iter=10,
+            device=dev).fit(m)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    with torch.no_grad():
+        u = m.network()[0]
+        eL2, _, uex = m.calc_l2_err(u)
+    rel = float(eL2 / uex)
+    launches = since(before)
+    emit({"phase": "slice_E1", "grid": [n] * 3, "final_rel_l2": rel,
+          "limit": E1_LIMIT, "jax_reference": JAX_E1_REL_L2, "seconds": dt,
+          "launches": launches})
+    if not (tuple(u.shape) == (n,) * 3 and bool(torch.isfinite(u).all())):
+        fail("slice E1: the solution is not a finite 17^3 field")
+    if not rel <= E1_LIMIT:
+        fail(f"slice E1: rel L2 {rel} > {E1_LIMIT}")
+    if launches["poisson_stiffness_action_3d"] <= 0:
+        fail("slice E1: K5 never launched")
+    return launches
+
+
+def _cube_module(n, bs, **kw):
+    ds = CuboidManufactured(n)
+    ds.n_samples = 10 * bs
+    init = np.random.default_rng(0).random((n,) * 3).astype(np.float32)
+    return Poisson3D(DirectField((n,) * 3, init=init), ds, domain_size=n,
+                     batch_size=bs, loss_type="resmin",
+                     exact_solution=ds.exact, forcing=ds.forcing_func,
+                     mms_dirichlet=True, **kw)
+
+
+def slice_e2(dev) -> dict:
+    """10 Adam steps at 64^3 x 4 (the reference's voxel scale) through K5."""
+    n, bs = 64, 4
+    m = _cube_module(n, bs, fused_kernels=True)
+    ref = _cube_module(n, bs).to(dev)   # the unfused et path, same start
+    inputs, frc = m.dataset[0]
+    batch = tuple(torch.from_numpy(np.broadcast_to(a, (bs,) + a.shape)
+                                   .copy()).to(dev) for a in (inputs, frc))
+    with torch.no_grad():
+        first_ref = float(ref.training_loss(batch))
+    del ref, batch
+    before = counts()
+    tr, dt = _train_10(m, dev)
+    launches = since(before)
+    losses = tr.step_losses
+    emit({"phase": "slice_E2", "grid": [n] * 3, "batch": bs,
+          "losses": losses, "first_loss_unfused": first_ref, "seconds": dt,
+          "fit_steps_per_s": 10 / dt, "launches": launches})
+    _check_losses("slice E2", losses)
+    if launches["poisson_stiffness_action_3d"] < 20:
+        fail(f"slice E2: K5 launched {launches} times, not twice a step")
+    if abs(losses[0] - first_ref) > FIRST_LOSS_RTOL * abs(first_ref):
+        fail(f"slice E2: first loss {losses[0]} vs unfused {first_ref}")
+    return launches
+
+
+def smooth_nu_3d(n: int, seed: int = 0) -> np.ndarray:
+    """nu = exp(2g), g a sum of four seeded cosine modes scaled to
+    max |g| = 1 (a contrast of up to e^4, about 55x), on [z, y, x] nodes.
+    The same as scripts/torch_port_reference_3d.py's, which gives the JAX
+    package's figure on this problem."""
+    rng = np.random.default_rng(seed)
+    x = np.linspace(0.0, 1.0, n)
+    Z, Y, X = np.meshgrid(x, x, x, indexing="ij")
+    g = np.zeros((n, n, n))
+    for _ in range(4):
+        kx, ky, kz = rng.integers(1, 4, size=3)
+        px, py, pz = rng.uniform(0.0, 2 * np.pi, size=3)
+        g += (rng.uniform(0.5, 1.0) * np.cos(np.pi * kx * X + px)
+              * np.cos(np.pi * ky * Y + py) * np.cos(np.pi * kz * Z + pz))
+    g /= np.abs(g).max()
+    return np.exp(2.0 * g).astype(np.float32)
+
+
+class _VarNuInstance3D:
+    """Slice F's instance: source (u = 1) on the x = 0 face, sink (u = 0)
+    on the x = 1 face, zero forcing."""
+
+    def __init__(self, nu):
+        n = nu.shape[0]
+        b1 = np.zeros((n, n, n), np.float32)
+        b1[:, :, 0] = 1
+        b2 = np.zeros((n, n, n), np.float32)
+        b2[:, :, -1] = 1
+        self.inputs = np.stack([nu, b1, b2], -1).astype(np.float32)
+        self.forcing = np.zeros((n, n, n, 1), np.float32)
+
+    def __len__(self):
+        return 1
+
+    def __getitem__(self, idx):
+        return self.inputs, self.forcing
+
+
+def slice_f(dev) -> None:
+    """The 129^3 MG-CG solve in its three variants (see the module
+    docstring)."""
+    n, iters = SOLVE_GRID_3D, SOLVE_ITERS
+    nu = smooth_nu_3d(n)
+    ds_fine = _VarNuInstance3D(nu)
+    cache = {}
+
+    def factory(m_n):
+        if m_n not in cache:
+            ds = ds_fine if m_n == n else _VarNuInstance3D(
+                np.ones((m_n,) * 3, np.float32))
+            cache[m_n] = Poisson3D(DirectField((m_n,) * 3), ds,
+                                   domain_size=m_n, batch_size=1,
+                                   loss_type="resmin")
+        return cache[m_n]
+
+    inputs = torch.from_numpy(ds_fine.inputs)[None].to(dev)
+    forcing = torch.from_numpy(ds_fine.forcing)[None].to(dev)
+    b_np = np.random.default_rng(0).standard_normal((n, n, n))
+    b_np[:, :, [0, -1]] = 0.0
+    b = torch.from_numpy(b_np.astype(np.float32)).to(dev)
+
+    def linear_op(module):
+        b0 = module.residual_for_field(torch.zeros((1, n, n, n), device=dev),
+                                       inputs, forcing)[0]
+
+        def A(v):
+            return module.residual_for_field(v[None], inputs, forcing)[0] - b0
+        return A
+
+    def mg(**kw):
+        return multigrid_preconditioner(factory, n, n_coarse=N_COARSE_3D,
+                                        nsd=3, inputs_per_level="restrict",
+                                        device=dev, **kw)
+
+    def relres(A, u):
+        return torch.linalg.vector_norm(A(u) - b) / torch.linalg.vector_norm(b)
+
+    A_plain = linear_op(factory(n).to(dev))
+    out = {"phase": "slice_F", "grid": [n] * 3, "iters": iters,
+           "nu_contrast": float(nu.max() / nu.min()),
+           "limit": RELRES_LIMIT_3D, "jax_reference_relres": JAX_F_RELRES}
+    variants = {}
+    for name in ("F1", "F2", "F3"):
+        before = counts()
+        t0 = time.perf_counter()
+        if name == "F1":     # plain stencil matvec on every level
+            A = A_plain
+            M, info = mg()
+        elif name == "F2":   # fine level and outer matvec through K5
+            A = linear_op(Poisson3D(DirectField((n,) * 3), ds_fine,
+                                    domain_size=n, batch_size=1,
+                                    loss_type="resmin",
+                                    fused_kernels=True).to(dev))
+            M, info = mg(fine_matvec=A)
+        else:                # every assembled level and the outer CG: K4-3D
+            M, info = mg(stencil_kernel="cuda")
+            Cf, defect = extract_verified(A_plain, (n,) * 3, device=dev)
+            if defect > 1e-4:
+                fail(f"slice F3: fine-operator stencil defect {defect}")
+
+            def A(v, Cf=Cf):
+                return stencil_matvec(Cf, v, kernel="cuda")
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+
+        def solve(b, A=A, M=M):
+            u, _ = cg(A, b, tol=0.0, maxiter=iters, M=M)
+            return u, relres(A, u)
+
+        ms, (u, rel), all_ms = _solve_ms(solve, b)
+        launches = since(before)
+        rel_plain = float(relres(A_plain, u))
+        row = {"relres": float(rel), "relres_plain_op": rel_plain,
+               "setup_s": setup_s, "solve_ms": ms, "solve_ms_all": all_ms,
+               "levels": info["levels"], "launches": launches,
+               "profile": _device_idle_share(solve, b)}
+        variants[name] = row
+        emit({"phase": f"slice_{name}", **row})
+        if not (tuple(u.shape) == (n,) * 3 and bool(torch.isfinite(u).all())):
+            fail(f"slice {name}: the solution is not a finite {n}^3 field")
+        for key in ("relres", "relres_plain_op"):
+            if not row[key] <= RELRES_LIMIT_3D:
+                fail(f"slice {name}: {key} {row[key]} > {RELRES_LIMIT_3D}")
+        del M, A
+    if variants["F2"]["launches"]["poisson_stiffness_action_3d"] <= 0:
+        fail("slice F2: K5 never launched")
+    if variants["F3"]["launches"]["stencil_apply_3d"] <= 0:
+        fail("slice F3: K4-3D never launched")
+    out["variants"] = {k: {kk: v[kk] for kk in ("relres", "relres_plain_op",
+                                                "setup_s", "solve_ms")}
+                       for k, v in variants.items()}
+    emit(out)
+
+
 def resident_steps_per_s(dev) -> dict:
     """Steps/s of the two 512^2 x 32 training steps with the batch already
     on the card (no loader): Adam on the fused losses."""
@@ -644,34 +1070,58 @@ def main() -> int:
     k4_res = phase_stencil_kernel(dev)
     k["errs"]["stencil_apply_2d"] = k4_res["err"]
     k["times"]["stencil_apply_2d"] = k4_res["times"]
+    k5_res = phase_k5(dev)
+    k["errs"]["poisson_stiffness_action_3d"] = k5_res["err"]
+    k["times"]["poisson_stiffness_action_3d"] = k5_res["times"]
+    k43_res = phase_stencil3d_kernel(dev)
+    k["errs"]["stencil_apply_3d"] = k43_res["err"]
+    k["times"]["stencil_apply_3d"] = k43_res["times"]
     phase_gradients(dev)
 
-    reset_counts()           # the training path starts here
+    paths = {}               # each path: counts set to 0 before, read after
+    reset_counts()           # the 2D training path
     la = slice_a(dev)
     lb = slice_b(dev)
     lc = slice_c(dev)
-    training = counts()      # ... and ends here
-    reset_counts()           # the linear-solver path starts here
+    paths["training_2d"] = counts()
+    reset_counts()           # the 2D linear-solver path
     slice_d(dev)
-    solver = counts()        # ... and ends here
-    total = {name: training[name] + solver[name] for name in KERNELS}
-    emit({"phase": "main_path_launches", "total": total,
-          "slice_A": la, "slice_B": lb, "slice_C": lc, "slice_D": solver})
-    for name in ("poisson_stiffness_action", "poisson_resmin_loss_grad",
-                 "poisson_energy"):
-        if training[name] <= 0:
-            fail(f"{name} was never launched on the training path")
-    if solver["stencil_apply_2d"] <= 0:
-        fail("stencil_apply_2d was never launched on the linear-solver path")
+    paths["solver_2d"] = counts()
+    reset_counts()           # the 3D training path
+    le1 = slice_e1(dev)
+    le2 = slice_e2(dev)
+    paths["training_3d"] = counts()
+    reset_counts()           # the 3D linear-solver path
+    slice_f(dev)
+    paths["solver_3d"] = counts()
+    total = {name: sum(p[name] for p in paths.values()) for name in KERNELS}
+    emit({"phase": "main_path_launches", "total": total, **paths,
+          "slice_A": la, "slice_B": lb, "slice_C": lc, "slice_E1": le1,
+          "slice_E2": le2})
+    for path, names in (("training_2d", ("poisson_stiffness_action",
+                                         "poisson_resmin_loss_grad",
+                                         "poisson_energy")),
+                        ("solver_2d", ("stencil_apply_2d",)),
+                        ("training_3d", ("poisson_stiffness_action_3d",)),
+                        ("solver_3d", ("poisson_stiffness_action_3d",
+                                       "stencil_apply_3d"))):
+        for name in names:
+            if paths[path][name] <= 0:
+                fail(f"{name} was never launched on the {path} path")
 
     emit({"phase": "resident_steps_per_s",
           "steps_per_s": resident_steps_per_s(dev)})
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": source,
          "replaces": replaces, "launches": total[name],
-         "max_abs_err": k["errs"][name], "ms": k["times"][name][0],
-         "plain_ms": k["times"][name][1]}
-        for name, (_, source, replaces) in KERNELS.items()]})
+         "max_abs_err": k["errs"][name], "ms": k["times"][name]["ms"],
+         "plain_ms": k["times"][name]["plain_ms"],
+         "bound_ms": k["times"][name]["bound_ms"],
+         "bound_by": k["times"][name]["bound_by"],
+         # no single PyTorch call computes any of these: each has a
+         # coefficient that varies by node (nu, or the stencil planes C)
+         "library_ms": None}
+        for name, (_, _, source, replaces) in KERNELS.items()]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,6 +1,8 @@
 from .loader import NumpyLoader
-from .single_instances import (Rectangle, RectangleManufactured,
-                               SingleInstanceDataset)
+from .single_instances import (Cuboid, CuboidManufactured, Rectangle,
+                               RectangleManufactured, SingleInstanceDataset,
+                               VoxelIMBackRAW, load_raw)
 
 __all__ = ["NumpyLoader", "SingleInstanceDataset", "Rectangle",
-           "RectangleManufactured"]
+           "RectangleManufactured", "Cuboid", "CuboidManufactured",
+           "load_raw", "VoxelIMBackRAW"]

@@ -2,9 +2,10 @@
 ``diffnet_tpu/data/single_instances.py``.
 
 Each dataset returns the same sample `n_samples` times (one epoch = n
-gradient steps on one instance) as ``(inputs[H, W, C], forcing[H, W, 1])``
-float32, channels last: ``inputs[..., 0]`` = domain/nu, ``[..., 1]`` = bc1
-(source, u := 1), ``[..., 2]`` = bc2 (sink, u := 0).
+gradient steps on one instance) as ``(inputs[(D,) H, W, C], forcing[(D,)
+H, W, 1])`` float32, channels last: ``inputs[..., 0]`` = domain/nu,
+``[..., 1]`` = bc1 (source, u := 1), ``[..., 2]`` = bc2 (sink, u := 0).
+3D arrays are ``[z, y, x]``.
 """
 
 from __future__ import annotations
@@ -13,7 +14,8 @@ import math
 
 import numpy as np
 
-__all__ = ["SingleInstanceDataset", "Rectangle", "RectangleManufactured"]
+__all__ = ["SingleInstanceDataset", "Rectangle", "RectangleManufactured",
+           "Cuboid", "CuboidManufactured", "load_raw", "VoxelIMBackRAW"]
 
 
 def _grid(n):
@@ -70,3 +72,84 @@ class RectangleManufactured(SingleInstanceDataset):
     @staticmethod
     def exact(x, y):
         return np.sin(math.pi * x) * np.sin(math.pi * y)
+
+
+def _walls_3d(n: int) -> np.ndarray:
+    """1 on the six faces of an n^3 node grid."""
+    bc = np.zeros((n, n, n))
+    bc[[0, -1], :, :] = 1
+    bc[:, [0, -1], :] = 1
+    bc[:, :, [0, -1]] = 1
+    return bc
+
+
+class Cuboid(SingleInstanceDataset):
+    """Unit cube, source on the z = 0 face, sink on the z = 1 face."""
+
+    def __init__(self, domain_size=64):
+        n = domain_size
+        self.domain = np.ones((n, n, n))
+        self.bc1 = np.zeros((n, n, n)); self.bc1[0, :, :] = 1
+        self.bc2 = np.zeros((n, n, n)); self.bc2[-1, :, :] = 1
+        self.forcing = np.zeros((n, n, n))
+
+
+class CuboidManufactured(SingleInstanceDataset):
+    """3D MMS: f = 19 pi^2 sin(pi x) sin(3 pi y) sin(3 pi z), Dirichlet-0 on
+    all six faces."""
+
+    def __init__(self, domain_size=64):
+        n = domain_size
+        self.domain = np.ones((n, n, n))
+        self.bc1 = np.zeros((n, n, n))
+        self.bc2 = _walls_3d(n)
+        x = np.linspace(0, 1, n)
+        zz, yy, xx = np.meshgrid(x, x, x, indexing="ij")
+        self.xx, self.yy, self.zz = xx, yy, zz
+        self.forcing = self.forcing_func(xx, yy, zz)
+
+    @staticmethod
+    def forcing_func(x, y, z):
+        return 19.0 * math.pi**2 * np.sin(math.pi * x) * np.sin(
+            3 * math.pi * y) * np.sin(3 * math.pi * z)
+
+    @staticmethod
+    def exact(x, y, z):
+        return np.sin(math.pi * x) * np.sin(3 * math.pi * y) * np.sin(
+            3 * math.pi * z)
+
+
+def load_raw(file_prefix):
+    """Read a ``<prefix>inouts.raw`` uint8 voxelisation and its
+    ``<prefix>VoxelConfig.txt`` (a header line, the bounding box's min and
+    max corners, the voxel counts, the voxel size). Returns ``(inout,
+    numDiv, gridSize, bBoxMin)``, ``inout`` the 0/1 occupancy in Fortran
+    order."""
+    with open(file_prefix + "VoxelConfig.txt") as cfg:
+        cfg.readline()
+        bmin = np.array([float(v) for v in cfg.readline().split()])
+        cfg.readline()   # the bounding box's max corner
+        num_div = np.array([int(v) for v in cfg.readline().split()])
+        grid_size = np.array([float(v) for v in cfg.readline().split()])
+    raw = np.fromfile(file_prefix + "inouts.raw", dtype=np.uint8)
+    inout = (raw / 254.0 > 0.25).astype(float)
+    inout = np.reshape(inout, num_div, order="F")
+    return inout, num_div, grid_size, bmin
+
+
+class VoxelIMBackRAW(SingleInstanceDataset):
+    """A voxelised object embedded at `offset` into an n^3 background domain:
+    the object is the source (bc1), the six faces the sink (bc2). An object
+    larger than ``domain_size - offset`` is clipped to the window."""
+
+    def __init__(self, file_prefix, domain_size=64, offset=32):
+        vox, _, _, _ = load_raw(file_prefix)
+        n = domain_size
+        sx, sy, sz = (min(s, n - offset) for s in vox.shape)
+        o = offset
+        self.domain = np.ones((n, n, n))
+        self.domain[o:o + sx, o:o + sy, o:o + sz] = 1 - vox[:sx, :sy, :sz]
+        self.bc1 = np.zeros((n, n, n))
+        self.bc1[o:o + sx, o:o + sy, o:o + sz] = vox[:sx, :sy, :sz]
+        self.bc2 = _walls_3d(n)
+        self.forcing = np.zeros((n, n, n))

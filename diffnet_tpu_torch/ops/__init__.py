@@ -9,9 +9,14 @@ the plain version for CPU tensors), the plain version, a
 from .poisson_energy import poisson_energy_fused
 from .poisson_loss_grad import poisson_resmin_loss_fused
 from .poisson_residual import poisson_residual_fused, poisson_stiffness_action
+from .poisson_residual_3d import (poisson_residual_fused_3d,
+                                  poisson_stiffness_action_3d)
 # (``stencil_apply`` itself stays under its module's name, which it shares)
-from .stencil_apply import stencil_apply_2d, stencil_transpose_planes
+from .stencil_apply import (stencil_apply_2d, stencil_apply_3d,
+                            stencil_transpose_planes)
 
 __all__ = ["poisson_stiffness_action", "poisson_residual_fused",
+           "poisson_stiffness_action_3d", "poisson_residual_fused_3d",
            "poisson_resmin_loss_fused", "poisson_energy_fused",
-           "stencil_apply_2d", "stencil_transpose_planes"]
+           "stencil_apply_2d", "stencil_apply_3d",
+           "stencil_transpose_planes"]

@@ -26,7 +26,8 @@ from pathlib import Path
 __all__ = ["NVCC_FLAGS", "LINK_FLAGS", "SOURCES", "build", "load_library"]
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCES = (_PKG / "csrc" / "poisson2d.cu", _PKG / "csrc" / "stencil2d.cu")
+SOURCES = tuple(_PKG / "csrc" / name for name in (
+    "poisson2d.cu", "stencil2d.cu", "poisson3d.cu", "stencil3d.cu"))
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v", "-c")
@@ -43,6 +44,9 @@ _SIGNATURES = {
     "poisson_resmin_loss_grad_partials": (_LL, [_I, _I, _I]),
     "poisson_energy_partials": (_LL, [_I, _I, _I]),
     "stencil_apply_2d": (_I, [_P, _LL, _P, _P, _I, _I, _I, _I, _P]),
+    "poisson_stiffness_action_3d": (_I, [_P, _P, _P, _I, _I, _I, _I]
+                                    + [_F] * 7 + [_P]),
+    "stencil_apply_3d": (_I, [_P, _LL, _P, _P, _I, _I, _I, _I, _I, _P]),
     "poisson2d_error_string": (ctypes.c_char_p, [_I]),
 }
 

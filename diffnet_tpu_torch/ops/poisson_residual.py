@@ -109,11 +109,14 @@ def stiffness_action_plain(u: torch.Tensor, nu: torch.Tensor,
         u, nu, stiffness_consts(basis.basis)))
 
 
-def check_fields(op: str, u: torch.Tensor, **others: torch.Tensor) -> None:
-    """What the kernels take: float32, contiguous ``[B, ny, nx]`` fields with
-    ny, nx >= 2, all on one device and of one shape."""
-    if u.dim() != 3 or u.shape[0] < 1 or u.shape[1] < 2 or u.shape[2] < 2:
-        raise ValueError(f"{op}: u must be [B, ny, nx] with ny, nx >= 2, "
+def check_fields(op: str, u: torch.Tensor, nsd: int = 2,
+                 **others: torch.Tensor) -> None:
+    """What the kernels take: float32, contiguous ``[B, ny, nx]`` (nsd 2)
+    or ``[B, nz, ny, nx]`` (nsd 3) fields of at least 2 nodes an axis, all
+    on one device and of one shape."""
+    if u.dim() != nsd + 1 or u.shape[0] < 1 or min(u.shape[1:]) < 2:
+        dims = ("nz, ny, nx" if nsd == 3 else "ny, nx")
+        raise ValueError(f"{op}: u must be [B, {dims}] with {dims} >= 2, "
                          f"got {tuple(u.shape)}")
     for name, t in {"u": u, **others}.items():
         if t.dtype != torch.float32:
@@ -163,11 +166,12 @@ def stiffness_action(u: torch.Tensor, nu: torch.Tensor,
 def nu_projection(u: torch.Tensor, w: torch.Tensor,
                   basis: fem.BasisTables) -> torch.Tensor:
     """Assembled ``∫ N_c grad u . grad w``: the nu-cotangent of
-    ``<w, K(nu) u>``."""
-    gu = fem.gp_eval(u, basis, ("dx", "dy"))
-    gw = fem.gp_eval(w, basis, ("dx", "dy"))
-    return fem.galerkin_project(gu["dx"] * gw["dx"] + gu["dy"] * gw["dy"],
-                                basis, "N", u.shape[-2:])
+    ``<w, K(nu) u>`` (2D or 3D, as the basis)."""
+    grads = ("dx", "dy", "dz")[:basis.nsd]
+    gu = fem.gp_eval(u, basis, grads)
+    gw = fem.gp_eval(w, basis, grads)
+    return fem.galerkin_project(sum(gu[q] * gw[q] for q in grads), basis,
+                                "N", u.shape[-basis.nsd:])
 
 
 class _StiffnessAction(torch.autograd.Function):

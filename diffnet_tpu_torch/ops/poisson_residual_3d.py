@@ -1,0 +1,219 @@
+"""K5: the assembled deg-1 3D Poisson stiffness action K(nu) u.
+
+Replaces the TPU kernel ``diffnet_tpu/ops/poisson_residual_3d.py``
+(``_stiffness3d_fwd_impl`` / ``_stiffness3d_fwd_bs`` /
+``_stiffness3d_fwd_folded``, bodies ``_slab_assemble`` and
+``_slab_assemble_folded``):
+
+    Ku[b, k, j, i] = sum_{elements e adjacent to node (k, j, i)} sum_gp
+                     JxW_gp * nu(e, gp) * grad N_(k,j,i) . grad u (e, gp)
+
+for trilinear elements with 2x2x2 Gauss points on ``[B, nz, n, n]``
+fields (nz may differ from n; ny == nx, as the JAX op requires).
+
+The element body is the JAX package's sum-factorised algebra: for deg 1,
+dN/dxi is constant along its own axis, so each axis' part of the action
+needs only the four u differences D and four nu sums S along that axis;
+per Gauss pair of the two other axes the interpolated derivative and nu
+multiply, and the products project back onto the two test values of each
+of those axes. The eight corner contributions are the signed sums of the
+three axis parts.
+
+What bounds it on the card: operations. It moves u and nu in and Ku out,
+12 B a node (12.6 MB at 4 x 64^3, 3.8 us at 3.35 TB/s), against about 280
+fp32 operations an element in the sum-factorised body here, and 7 a node
+to assemble (0.29 GFLOP at 4 x 64^3, 4.3 us at 67 TFLOP/s; JAX's cost
+estimate says 800 an element). The kernel (``csrc/poisson3d.cu``) gives each 16 x 8 x 4 tile
+of output nodes one block: the block stages u and nu with a one-node halo
+in shared memory, computes each of the tile's 17 x 9 x 5 elements once
+(design (b): no element is recomputed for each of its eight nodes, as a
+gather form would), keeps their eight corner contributions in shared
+memory, and each thread sums its node's eight. No atomics, and the same
+result on every run. The TPU tiling (z slabs, folded z, VMEM budgets, DMA
+halos) is not carried over. Measured: 0.032 ms at 4 x 64^3 on an H100
+(700 W), 8.9 TFLOP/s or 13% of the operation bound, against 3.9 ms for the
+plain version (PERF.md).
+
+``poisson_stiffness_action_3d`` is differentiable: the action is
+self-adjoint in u, so du = K(nu) g runs the same kernel, and d/dnu is one
+Galerkin projection of grad u . grad g.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..core import fem
+from ..core.quadrature import FEMBasis
+from ._build import check, load_library
+from .poisson_residual import check_fields, nu_projection, require_cuda
+
+__all__ = ["poisson_stiffness_action_3d", "poisson_residual_fused_3d",
+           "stiffness_action_3d", "stiffness_action_3d_plain"]
+
+# Launches of the CUDA kernel (a plain count; callers reset it to 0).
+launches = 0
+
+# Output-node tile of one block (x, y, z); the block has one thread a node.
+TILE = (16, 8, 4)
+
+
+def stiffness_consts_3d(basis: FEMBasis) -> tuple[float, ...]:
+    """``(cN00, cN01, cN10, cN11, wx2, wy2, wz2)``: the 1D shape values
+    ``cN[g][node] = (1 -+ xi_g) / 2`` at the two Gauss points and the folded
+    scales ``W / h_axis^2`` (W the equal JxW of the eight Gauss points)."""
+    if not (basis.deg == 1 and basis.nsd == 3 and basis.ngp_1d == 2):
+        raise ValueError("the fused 3D Poisson kernel supports deg-1 3D with "
+                         "2x2x2 Gauss points only")
+    xi = np.asarray(basis.gp_1d, np.float64)
+    jxw = np.asarray(basis.jxw, np.float64)
+    W = float(jxw[0])
+    if not np.allclose(jxw, W):
+        raise ValueError("2x2x2 Gauss points must have equal JxW")
+    hx, hy, hz = (float(v) for v in basis.h)
+    cN = [((1.0 - x) / 2.0, (1.0 + x) / 2.0) for x in xi]
+    return (cN[0][0], cN[0][1], cN[1][0], cN[1][1],
+            W / hx**2, W / hy**2, W / hz**2)
+
+
+def _part(D, S, cN, scale):
+    """One axis' part: ``D[a][b]``, ``S[a][b]`` over the two other axes'
+    corner offsets -> ``p[ab][bb]``, the projection onto their test
+    values."""
+    t = {}
+    for ga in (0, 1):
+        for gb in (0, 1):
+            du = A = None
+            for a in (0, 1):
+                for b in (0, 1):
+                    c = cN[ga][a] * cN[gb][b]
+                    du = c * D[a][b] if du is None else du + c * D[a][b]
+                    A = c * S[a][b] if A is None else A + c * S[a][b]
+            t[ga, gb] = du * A
+    return [[scale * sum(cN[ga][ab] * cN[gb][bb] * t[ga, gb]
+                         for ga in (0, 1) for gb in (0, 1))
+             for bb in (0, 1)] for ab in (0, 1)]
+
+
+def element_contributions_3d(u: torch.Tensor, nu: torch.Tensor,
+                             k: tuple[float, ...]) -> list[torch.Tensor]:
+    """Per-element contributions to the eight corners, ordered by the local
+    dof id ``(kb * 2 + jb) * 2 + ib`` (x fastest), each ``[B, nz-1, ny-1,
+    nx-1]``: the plain torch form of the kernel's element body."""
+    c00, c01, c10, c11, wx2, wy2, wz2 = k
+    cN = ((c00, c01), (c10, c11))
+
+    def view(x, kk, j, i):
+        return x[..., kk:x.shape[-3] - 1 + kk, j:x.shape[-2] - 1 + j,
+                 i:x.shape[-1] - 1 + i]
+
+    uc = [[[view(u, kk, j, i) for i in (0, 1)] for j in (0, 1)]
+          for kk in (0, 1)]
+    nc = [[[view(nu, kk, j, i) for i in (0, 1)] for j in (0, 1)]
+          for kk in (0, 1)]
+    px = _part([[uc[kk][j][1] - uc[kk][j][0] for j in (0, 1)]
+                for kk in (0, 1)],
+               [[nc[kk][j][0] + nc[kk][j][1] for j in (0, 1)]
+                for kk in (0, 1)], cN, wx2)           # px[kb][jb]
+    py = _part([[uc[kk][1][i] - uc[kk][0][i] for i in (0, 1)]
+                for kk in (0, 1)],
+               [[nc[kk][0][i] + nc[kk][1][i] for i in (0, 1)]
+                for kk in (0, 1)], cN, wy2)           # py[kb][ib]
+    pz = _part([[uc[1][j][i] - uc[0][j][i] for i in (0, 1)]
+                for j in (0, 1)],
+               [[nc[0][j][i] + nc[1][j][i] for i in (0, 1)]
+                for j in (0, 1)], cN, wz2)            # pz[jb][ib]
+    sgn = (-1.0, 1.0)
+    return [sgn[ib] * px[kb][jb] + sgn[jb] * py[kb][ib] + sgn[kb] * pz[jb][ib]
+            for kb in (0, 1) for jb in (0, 1) for ib in (0, 1)]
+
+
+def assemble_corners_3d(a: list[torch.Tensor]) -> torch.Tensor:
+    """Trilinear node assembly of per-element corner contributions:
+    eight ``[..., nelz, nely, nelx]`` -> ``[..., nelz+1, nely+1, nelx+1]``."""
+    out = None
+    for m, x in enumerate(a):
+        kb, jb, ib = m >> 2, (m >> 1) & 1, m & 1
+        piece = F.pad(x, (ib, 1 - ib, jb, 1 - jb, kb, 1 - kb))
+        out = piece if out is None else out + piece
+    return out
+
+
+def stiffness_action_3d_plain(u: torch.Tensor, nu: torch.Tensor,
+                              basis: fem.BasisTables) -> torch.Tensor:
+    """Plain torch K(nu) u (any device): the kernel's reference."""
+    return assemble_corners_3d(element_contributions_3d(
+        u, nu, stiffness_consts_3d(basis.basis)))
+
+
+def stiffness_action_3d(u: torch.Tensor, nu: torch.Tensor,
+                        basis: fem.BasisTables) -> torch.Tensor:
+    """K(nu) u: the CUDA kernel for CUDA tensors, the plain version for CPU
+    tensors; any other device raises. Not differentiable (see
+    :func:`poisson_stiffness_action_3d`)."""
+    global launches
+    op = "poisson_stiffness_action_3d"
+    check_fields(op, u, 3, nu=nu)
+    if u.shape[2] != u.shape[3]:
+        raise ValueError(f"{op}: the 3D kernel needs ny == nx (as the JAX "
+                         f"op does), got {tuple(u.shape[2:])}")
+    if u.device.type == "cpu":
+        return stiffness_action_3d_plain(u, nu, basis)
+    require_cuda(op, u)
+    B, nz, ny, nx = u.shape
+    if B * -(-nz // TILE[2]) > 65535:
+        raise ValueError(f"{op}: batch x z-tiles {B} x {-(-nz // TILE[2])} "
+                         "exceeds the grid limit 65535")
+    lib = load_library()
+    out = torch.empty_like(u)
+    status = lib.poisson_stiffness_action_3d(
+        u.data_ptr(), nu.data_ptr(), out.data_ptr(), B, nz, ny, nx,
+        *stiffness_consts_3d(basis.basis),
+        torch.cuda.current_stream(u.device).cuda_stream)
+    check(status, op)
+    launches += 1
+    return out
+
+
+class _StiffnessAction3D(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, u, nu, basis):
+        ctx.basis = basis
+        ctx.save_for_backward(u, nu)
+        return stiffness_action_3d(u, nu, basis)
+
+    @staticmethod
+    def backward(ctx, g):
+        u, nu = ctx.saved_tensors
+        g = g.contiguous()
+        du = dnu = None
+        if ctx.needs_input_grad[0]:
+            # self-adjoint in u: the same kernel
+            du = stiffness_action_3d(g, nu, ctx.basis)
+        if ctx.needs_input_grad[1]:
+            dnu = nu_projection(u, g, ctx.basis)
+        return du, dnu, None
+
+
+def poisson_stiffness_action_3d(u: torch.Tensor, nu: torch.Tensor,
+                                basis: fem.BasisTables) -> torch.Tensor:
+    """Differentiable assembled ``∫ nu grad N_i . grad u``:
+    ``[B, nz, n, n] -> [B, nz, n, n]``."""
+    return _StiffnessAction3D.apply(u, nu, basis)
+
+
+def poisson_residual_fused_3d(u: torch.Tensor, nu: torch.Tensor,
+                              Nf: torch.Tensor, bc_mask: torch.Tensor,
+                              basis: fem.BasisTables) -> torch.Tensor:
+    """Assembled, Dirichlet-masked 3D residual
+    ``where(bc_mask > 0.5, 0, K(nu) u - Nf)``; `Nf` is the preassembled
+    load vector ``∫ N_i f``, `bc_mask` ``[nz, n, n]`` or ``[B, nz, n, n]``."""
+    if nu.shape != u.shape:
+        raise ValueError(f"nu.shape {tuple(nu.shape)} != u.shape "
+                         f"{tuple(u.shape)} (the fused kernel does not "
+                         "broadcast)")
+    R = poisson_stiffness_action_3d(u, nu, basis) - Nf
+    return torch.where(bc_mask > 0.5, torch.zeros_like(R), R)

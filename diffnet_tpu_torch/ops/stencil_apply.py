@@ -1,29 +1,32 @@
-"""K4: the assembled-stencil apply, 2D (9-point).
+"""K4: the assembled-stencil apply, 2D (9-point) and 3D (27-point).
 
-Replaces the TPU kernel ``diffnet_tpu/ops/stencil_apply.py``
-(``_apply2d_fwd``, body ``_apply_strip_2d``):
+Replaces the TPU kernels ``diffnet_tpu/ops/stencil_apply.py``
+(``_apply2d_fwd``, body ``_apply_strip_2d``; ``_apply3d_fwd`` /
+``_apply3d_fwd_folded``, bodies ``_apply_slab_3d`` / ``_kernel3d_dmaf``):
 
-    out[b, j, i] = sum_m C[m, b, j, i] * u[b, j + dj, i + di]
+    out[b, p] = sum_m C[m, b, p] * u[b, p + k_m]
 
-with ``m = (dj + 1) * 3 + (di + 1)`` in ``train.stencil._offsets`` order
-and a zero-pad boundary. C is ``[9, B or 1, ny, nx]`` and u ``[B, ny, nx]``,
-both float32. It is the iteration matvec of every assembled linear solve
-(``train.stencil.stencil_matvec(kernel="cuda")``, the multigrid levels of
+with the offsets ``k_m`` in ``train.stencil._offsets`` order (``m = (dj +
+1) * 3 + (di + 1)`` in 2D, ``((dk + 1) * 3 + (dj + 1)) * 3 + (di + 1)`` in
+3D) and a zero-pad boundary. C is ``[3**nsd, B or 1, *spatial]`` and u
+``[B, *spatial]``, both float32. It is the iteration matvec of every
+assembled linear solve (``train.stencil.stencil_matvec(kernel="cuda")``,
+the multigrid levels of
 ``train.linear.multigrid_preconditioner(stencil_kernel="cuda")``): the
 operator's coefficients are extracted once, then applied many times.
 
-What bounds it on the card: bytes, 44 B a node (9 C planes and u in, out
-out). The kernel (``csrc/stencil2d.cu``) gives each output node a thread,
-reads the C planes coalesced and the 3x3 u neighbourhood through L1, and
-reads a batch-1 C with a batch stride of 0 instead of materialising the
-broadcast, as the JAX ``stencil_matvec`` does. At 512^2 x 32 it takes
-0.131 ms on an H100 (700 W), 2.83 TB/s or 84% of peak bandwidth, against
-0.708 ms for the plain version (PERF.md).
+What bounds it on the card: bytes, 44 B a node in 2D and 116 B in 3D (the
+C planes and u in, out out). The kernels (``csrc/stencil2d.cu``,
+``csrc/stencil3d.cu``) give each output node a thread, read the C planes
+coalesced and the u neighbourhood through L1, and read a batch-1 C with a
+batch stride of 0 instead of materialising the broadcast, as the JAX
+``stencil_matvec`` does. On an H100 (700 W) the 2D kernel takes 0.125 ms at
+512^2 x 32 (88% of peak bandwidth) against 0.699 ms for the plain version,
+the 3D one 0.095 ms at 1 x 128^3 (77%) against 0.528 ms (PERF.md).
 
 ``stencil_apply`` is differentiable as the JAX op is: du is the kernel
 applied to the transposed planes (``stencil_transpose_planes``), dC is
-``g * shifted(u)`` in plain torch. The 27-point 3D apply is not ported yet
-(ROADMAP, the 3D slice).
+``g * shifted(u)`` in plain torch, summed over the batch for a batch-1 C.
 """
 
 from __future__ import annotations
@@ -37,20 +40,14 @@ import torch.nn.functional as F
 from ._build import check, load_library
 from .poisson_residual import require_cuda
 
-__all__ = ["stencil_apply", "stencil_apply_2d", "stencil_apply_plain",
-           "stencil_transpose_planes", "apply_2d"]
+__all__ = ["stencil_apply", "stencil_apply_2d", "stencil_apply_3d",
+           "stencil_apply_plain", "stencil_transpose_planes", "apply_2d",
+           "apply_3d"]
 
-# Launches of the CUDA kernel (a plain count; callers reset it to 0).
+# Launches of the CUDA kernels, 2D and 3D (plain counts; callers reset them
+# to 0).
 launches = 0
-
-
-def _require_2d(nsd: int) -> None:
-    if nsd == 3:
-        raise NotImplementedError(
-            "the 27-point 3D stencil apply is not ported yet (ROADMAP, the "
-            "3D slice: K4-3D with K5); drop kernel= for the plain path")
-    if nsd != 2:
-        raise ValueError(f"nsd must be 2 or 3, got {nsd}")
+launches_3d = 0
 
 
 def _shift(x: torch.Tensor, k: tuple[int, ...]) -> torch.Tensor:
@@ -105,16 +102,17 @@ def _shifted_u(u: torch.Tensor, nsd: int) -> torch.Tensor:
                         for idx in np.ndindex(*((3,) * nsd))])
 
 
-def _check(C: torch.Tensor, u: torch.Tensor) -> None:
+def _check(C: torch.Tensor, u: torch.Tensor, nsd: int) -> None:
     op = "stencil_apply"
-    if u.dim() != 3 or min(u.shape) < 1:
-        raise ValueError(f"{op}: u must be [B, ny, nx], got "
+    if u.dim() != nsd + 1 or min(u.shape) < 1:
+        dims = "nz, ny, nx" if nsd == 3 else "ny, nx"
+        raise ValueError(f"{op}: u must be [B, {dims}], got "
                          f"{tuple(u.shape)}")
     B = u.shape[0]
-    if C.dim() != 4 or C.shape[0] != 9 or C.shape[1] not in (1, B) \
-            or C.shape[2:] != u.shape[1:]:
-        raise ValueError(f"{op}: C must be [9, {B} or 1, "
-                         f"{u.shape[1]}, {u.shape[2]}], got "
+    if C.dim() != nsd + 2 or C.shape[0] != 3**nsd \
+            or C.shape[1] not in (1, B) or C.shape[2:] != u.shape[1:]:
+        raise ValueError(f"{op}: C must be [{3**nsd}, {B} or 1, "
+                         f"{', '.join(map(str, u.shape[1:]))}], got "
                          f"{tuple(C.shape)}")
     for name, t in (("C", C), ("u", u)):
         if t.dtype != torch.float32:
@@ -126,59 +124,82 @@ def _check(C: torch.Tensor, u: torch.Tensor) -> None:
             raise ValueError(f"{op}: {name} must be contiguous")
 
 
-def apply_2d(C: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+def _apply(C: torch.Tensor, u: torch.Tensor, nsd: int) -> torch.Tensor:
     """The apply: the CUDA kernel for CUDA tensors, the plain version for
     CPU tensors; any other device raises. Not differentiable (see
     :func:`stencil_apply`)."""
-    global launches
-    _check(C, u)
+    global launches, launches_3d
+    _check(C, u, nsd)
     if u.device.type == "cpu":
-        return stencil_apply_plain(C, u, nsd=2)
+        return stencil_apply_plain(C, u, nsd=nsd)
     require_cuda("stencil_apply", u)
-    B, ny, nx = u.shape
-    Bc = C.shape[1]
+    B, spatial, Bc = u.shape[0], tuple(u.shape[1:]), C.shape[1]
+    field = math.prod(spatial)
+    if nsd == 3 and B * spatial[0] > 65535:
+        raise ValueError(f"stencil_apply: batch x nz {B} x {spatial[0]} "
+                         "exceeds the grid limit 65535")
     lib = load_library()
     out = torch.empty_like(u)
-    status = lib.stencil_apply_2d(
-        C.data_ptr(), 0 if Bc == 1 else ny * nx, u.data_ptr(),
-        out.data_ptr(), B, Bc, ny, nx,
-        torch.cuda.current_stream(u.device).cuda_stream)
-    check(status, "stencil_apply_2d")
-    launches += 1
+    entry = lib.stencil_apply_2d if nsd == 2 else lib.stencil_apply_3d
+    status = entry(C.data_ptr(), 0 if Bc == 1 else field, u.data_ptr(),
+                   out.data_ptr(), B, Bc, *spatial,
+                   torch.cuda.current_stream(u.device).cuda_stream)
+    check(status, f"stencil_apply_{nsd}d")
+    if nsd == 2:
+        launches += 1
+    else:
+        launches_3d += 1
     return out
+
+
+def apply_2d(C: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """The 9-point apply (see :func:`_apply`)."""
+    return _apply(C, u, 2)
+
+
+def apply_3d(C: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """The 27-point apply (see :func:`_apply`)."""
+    return _apply(C, u, 3)
 
 
 class _StencilApply(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, C, u):
+    def forward(ctx, C, u, nsd):
+        ctx.nsd = nsd
         ctx.save_for_backward(C, u)
-        return apply_2d(C, u)
+        return _apply(C, u, nsd)
 
     @staticmethod
     def backward(ctx, g):
         C, u = ctx.saved_tensors
+        nsd = ctx.nsd
         g = g.contiguous()
         dC = du = None
         if ctx.needs_input_grad[0]:
-            dC = g[None] * _shifted_u(u, 2)
+            dC = g[None] * _shifted_u(u, nsd)
             if C.shape[1] == 1:
                 dC = dC.sum(1, keepdim=True)
         if ctx.needs_input_grad[1]:
-            du = apply_2d(stencil_transpose_planes(C, 2).contiguous(), g)
-        return dC, du
+            du = _apply(stencil_transpose_planes(C, nsd).contiguous(), g,
+                        nsd)
+        return dC, du, None
 
 
 def stencil_apply(C: torch.Tensor, u: torch.Tensor,
                   nsd: int = 2) -> torch.Tensor:
     """Differentiable width-3 stencil apply ``out[p] = sum_m C[m][p]
-    u[p + k_m]`` (see the module docstring); ``nsd=3`` raises
-    NotImplementedError."""
-    _require_2d(nsd)
+    u[p + k_m]`` on 2 or 3 spatial axes (see the module docstring)."""
+    if nsd not in (2, 3):
+        raise ValueError(f"nsd must be 2 or 3, got {nsd}")
     if torch.is_grad_enabled() and (C.requires_grad or u.requires_grad):
-        return _StencilApply.apply(C, u)
-    return apply_2d(C, u)
+        return _StencilApply.apply(C, u, nsd)
+    return _apply(C, u, nsd)
 
 
 def stencil_apply_2d(C: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     return stencil_apply(C, u, 2)
+
+
+def stencil_apply_3d(C: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    return stencil_apply(C, u, 3)

@@ -10,8 +10,9 @@ buffers, and the loss:
 
 The Trainer (:mod:`diffnet_tpu_torch.train`) owns the update loop.
 
-Layout, as in the JAX package: batches are channels-last ``[B, y, x, C]``,
-fields ``[B, y, x]``, Gauss-point arrays ``[..., nelY, nelX, ngp]``.
+Layout, as in the JAX package: batches are channels-last ``[B, (z,) y, x,
+C]``, fields ``[B, (z,) y, x]``, Gauss-point arrays ``[..., (nelZ,) nelY,
+nelX, ngp]``.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ from torch import nn
 from ..core import fem
 from ..core.quadrature import make_basis
 
-__all__ = ["PDEModule", "FEM2DModule"]
+__all__ = ["PDEModule", "FEM2DModule", "FEM3DModule"]
 
 
 class PDEModule(nn.Module):
@@ -50,6 +51,8 @@ class PDEModule(nn.Module):
         self.domain_sizes_nd = tuple(int(s) for s in sizes)
         self.domain_lengthX, self.domain_lengthY = lengths[0], lengths[1]
         self.domain_sizeX, self.domain_sizeY = sizes[0], sizes[1]
+        if self.nsd >= 3:
+            self.domain_lengthZ, self.domain_sizeZ = lengths[2], sizes[2]
 
     def loss(self, u, inputs_tensor, forcing_tensor):
         raise NotImplementedError
@@ -83,8 +86,10 @@ class _FEMMixin:
     def _setup_fem(self, **kwargs):
         self.fem_basis_deg = kwargs.get("fem_basis_deg", 1)
         deg = self.fem_basis_deg
-        for name, size in (("X", self.domain_sizeX),
-                           ("Y", self.domain_sizeY)):
+        axes = [("X", self.domain_sizeX), ("Y", self.domain_sizeY)]
+        if self.nsd == 3:
+            axes.append(("Z", self.domain_sizeZ))
+        for name, size in axes:
             if (size - 1) % deg:
                 raise ValueError(
                     f"domain_size{name}={size} incompatible with "
@@ -95,20 +100,47 @@ class _FEMMixin:
         self.nelemY = int((self.domain_sizeY - 1) / deg)
         self.hx = self.domain_lengthX / self.nelemX
         self.hy = self.domain_lengthY / self.nelemY
+        h = [self.hx, self.hy]
+        if self.nsd == 3:
+            self.nelemZ = int((self.domain_sizeZ - 1) / deg)
+            self.hz = self.domain_lengthZ / self.nelemZ
+            h.append(self.hz)
         self.nelem = self.nelemX
         self.h = self.hx
         self.basis = fem.BasisTables(make_basis(
-            self.nsd, deg, h=(self.hx, self.hy), ngp_1d=kwargs.get("ngp_1d")))
+            self.nsd, deg, h=tuple(h), ngp_1d=kwargs.get("ngp_1d")))
         fem_basis = self.basis.basis
         self.ngp_1d = fem_basis.ngp_1d
         self.ngp_total = fem_basis.ngp_total
         self.gpw = fem_basis.gpw          # [ngp_total] (numpy)
         self.jxw = fem_basis.jxw          # [ngp_total] (numpy)
-        self.node_shape = (self.domain_sizeY, self.domain_sizeX)
-        self.xgp, self.ygp = fem.gp_coords(fem_basis, self.node_shape)
-        self.xx, self.yy = np.meshgrid(
-            np.linspace(0, self.domain_lengthX, self.domain_sizeX),
-            np.linspace(0, self.domain_lengthY, self.domain_sizeY))
+        node_shape = (self.domain_sizeY, self.domain_sizeX)
+        if self.nsd == 3:
+            node_shape = (self.domain_sizeZ,) + node_shape
+        self.node_shape = node_shape
+        coords = fem.gp_coords(fem_basis, node_shape)
+        self.xgp, self.ygp = coords[0], coords[1]
+        lin = [np.linspace(0, self.domain_lengthX, self.domain_sizeX),
+               np.linspace(0, self.domain_lengthY, self.domain_sizeY)]
+        if self.nsd == 2:
+            self.xx, self.yy = np.meshgrid(*lin)
+        else:
+            self.zgp = coords[2]
+            lin.append(np.linspace(0, self.domain_lengthZ, self.domain_sizeZ))
+            self.zz, self.yy, self.xx = np.meshgrid(lin[2], lin[1], lin[0],
+                                                    indexing="ij")
+
+    def gp_coords_all(self) -> tuple[np.ndarray, ...]:
+        """The Gauss-point coordinate arrays ``(xgp, ygp[, zgp])``."""
+        if self.nsd == 3:
+            return self.xgp, self.ygp, self.zgp
+        return self.xgp, self.ygp
+
+    def node_coords_all(self) -> tuple[np.ndarray, ...]:
+        """The nodal coordinate grids ``(xx, yy[, zz])``."""
+        if self.nsd == 3:
+            return self.xx, self.yy, self.zz
+        return self.xx, self.yy
 
     def gp_all(self, u, quantities: Sequence[str]):
         """Several derivative quantities of `u` in one contraction:
@@ -124,14 +156,26 @@ class _FEMMixin:
     def gauss_pt_evaluation_der_y(self, u):
         return fem.gp_eval(u, self.basis, ("dy",))["dy"]
 
+    def gauss_pt_evaluation_der_z(self, u):
+        return fem.gp_eval(u, self.basis, ("dz",))["dz"]
+
     def gauss_pt_evaluation_der2_x(self, u):
         return fem.gp_eval(u, self.basis, ("d2x",))["d2x"]
 
     def gauss_pt_evaluation_der2_y(self, u):
         return fem.gp_eval(u, self.basis, ("d2y",))["d2y"]
 
+    def gauss_pt_evaluation_der2_z(self, u):
+        return fem.gp_eval(u, self.basis, ("d2z",))["d2z"]
+
     def gauss_pt_evaluation_der2_xy(self, u):
         return fem.gp_eval(u, self.basis, ("d2xy",))["d2xy"]
+
+    def gauss_pt_evaluation_der2_yz(self, u):
+        return fem.gp_eval(u, self.basis, ("d2yz",))["d2yz"]
+
+    def gauss_pt_evaluation_der2_zx(self, u):
+        return fem.gp_eval(u, self.basis, ("d2zx",))["d2zx"]
 
     def assemble(self, integrand_gp, quantity="N", apply_jxw=True):
         """Galerkin-project a Gauss-point integrand onto the test functions
@@ -153,11 +197,11 @@ class _FEMMixin:
     def calc_l2_err(self, u_sol, exact_solution: Callable | None = None,
                     verbose: bool = False):
         """Quadrature L2 norms of (u_sol - exact), u_sol and exact;
-        `exact_solution` takes Gauss-point coordinate arrays (x, y).
+        `exact_solution` takes Gauss-point coordinate arrays (x, y[, z]).
         Returns ``(eL2, uL2, u_exL2)`` as 0-dim tensors."""
         ex = exact_solution or self.exact_solution
         u_gp = self.gauss_pt_evaluation(u_sol)
-        u_ex_gp = torch.as_tensor(np.asarray(ex(self.xgp, self.ygp)),
+        u_ex_gp = torch.as_tensor(np.asarray(ex(*self.gp_coords_all())),
                                   dtype=u_sol.dtype, device=u_sol.device)
         jxw = self.jxw_c(u_sol.dtype)
 
@@ -179,4 +223,15 @@ class FEM2DModule(_FEMMixin, PDEModule):
         super().__init__(network, dataset, **kwargs)
         if self.nsd != 2:
             raise ValueError(f"FEM2DModule needs nsd=2, got {self.nsd}")
+        self._setup_fem(**kwargs)
+
+
+class FEM3DModule(_FEMMixin, PDEModule):
+    """3D FEM PDE base: fields ``[B, z, y, x]``."""
+
+    def __init__(self, network=None, dataset=None, **kwargs):
+        kwargs.setdefault("nsd", 3)
+        super().__init__(network, dataset, **kwargs)
+        if self.nsd != 3:
+            raise ValueError(f"FEM3DModule needs nsd=3, got {self.nsd}")
         self._setup_fem(**kwargs)

@@ -1,4 +1,4 @@
-"""2D Poisson / diffusion (port of ``diffnet_tpu/pde/poisson.py``).
+"""2D and 3D Poisson / diffusion (port of ``diffnet_tpu/pde/poisson.py``).
 
 Losses, as in the JAX package:
   * energy minimisation (Ritz), ``loss_type="energy"`` (the default);
@@ -9,9 +9,11 @@ Losses, as in the JAX package:
   * strong-form collocation via FEM second derivatives,
     ``loss_type="strong"`` (needs deg >= 2).
 
-``fused_kernels=True`` routes deg-1 energy and resmin through the CUDA
-kernels of :mod:`diffnet_tpu_torch.ops`, and ``fused_loss_grad=True`` the
-resmin loss through the single-launch loss-and-gradient kernel.
+``fused_kernels=True`` routes the deg-1 losses through the CUDA kernels of
+:mod:`diffnet_tpu_torch.ops`: 2D energy and resmin (K3, K1), 3D resmin
+(K5, the trilinear stiffness action); ``fused_loss_grad=True`` the 2D
+resmin loss through the single-launch loss-and-gradient kernel (K2). The
+JAX package's TPU kernel variants (``fused_variant``) are not carried over.
 
 Every loss takes ``(u, inputs, forcing)`` where ``inputs`` stacks
 channels-last masks ``[..., (nu, bc1, bc2)]``: bc1 nodes take
@@ -27,7 +29,8 @@ from ..core import fem
 from ..ops.poisson_energy import poisson_energy_fused
 from ..ops.poisson_loss_grad import poisson_resmin_loss_fused
 from ..ops.poisson_residual import poisson_residual_fused
-from .base import FEM2DModule
+from ..ops.poisson_residual_3d import poisson_residual_fused_3d
+from .base import FEM2DModule, FEM3DModule
 
 __all__ = [
     "poisson_energy_loss",
@@ -35,6 +38,7 @@ __all__ = [
     "poisson_resmin_residual_et",
     "poisson_strong_form_loss",
     "Poisson2D",
+    "Poisson3D",
 ]
 
 
@@ -52,13 +56,18 @@ def _buffer(x):
     return torch.as_tensor(np.asarray(x, np.float32))
 
 
+def _grads(nsd: int) -> tuple[str, ...]:
+    return ("dx", "dy", "dz")[:nsd]
+
+
 def poisson_energy_loss(module, u, nu, f, w):
     """Ritz energy: ``sum_gp w (0.5 nu |grad u|^2 - u f)`` per element, then
     the mean over elements and batch."""
-    gp = module.gp_all(u, ("N", "dx", "dy"))
+    grads = _grads(module.nsd)
+    gp = module.gp_all(u, ("N",) + grads)
     nu_gp = module.gauss_pt_evaluation(nu)
     f_gp = module.gauss_pt_evaluation(f)
-    grad2 = gp["dx"] ** 2 + gp["dy"] ** 2
+    grad2 = sum(gp[q] ** 2 for q in grads)
     res = w * (0.5 * nu_gp * grad2 - gp["N"] * f_gp)
     return torch.mean(torch.sum(res, dim=-1))
 
@@ -66,8 +75,9 @@ def poisson_energy_loss(module, u, nu, f, w):
 def poisson_resmin_residual(module, u, nu_gp, f_gp, bc_mask):
     """Assembled Galerkin residual ``R_i = ∫ nu grad N_i . grad u - ∫ N_i f``
     with the Dirichlet rows zeroed (Gauss-point pipeline)."""
-    gp = module.gp_all(u, ("dx", "dy"))
-    terms = [(nu_gp * gp[q], q) for q in ("dx", "dy")] + [(-f_gp, "N")]
+    grads = _grads(module.nsd)
+    gp = module.gp_all(u, grads)
+    terms = [(nu_gp * gp[q], q) for q in grads] + [(-f_gp, "N")]
     R = module.assemble_multi(terms)
     return torch.where(bc_mask > 0.5, torch.zeros_like(R), R)
 
@@ -84,21 +94,22 @@ def poisson_resmin_residual_et(module, u, nu, f_gp, bc_mask):
 def poisson_strong_form_loss(module, u, nu_gp, f_gp, w):
     """Collocation on the strong form: ``mean_elem sum_gp w (nu lap u +
     f)^2`` (needs deg >= 2)."""
-    gp = module.gp_all(u, ("d2x", "d2y"))
-    lap = gp["d2x"] + gp["d2y"]
+    seconds = ("d2x", "d2y", "d2z")[:module.nsd]
+    gp = module.gp_all(u, seconds)
+    lap = sum(gp[q] for q in seconds)
     res = w * (nu_gp * lap + f_gp) ** 2
     return torch.mean(torch.sum(res, dim=-1))
 
 
-class Poisson2D(FEM2DModule):
-    """2D Poisson with energy / resmin / strong loss (see module docstring).
+class _PoissonCommon:
+    """Losses and boundary handling shared by :class:`Poisson2D` and
+    :class:`Poisson3D`.
 
-    MMS convenience: ``exact_solution(x, y)`` and ``forcing(x, y)``
-    callables precompute ``f_gp`` at the Gauss points and, with
+    MMS convenience: ``exact_solution(x, y[, z])`` and ``forcing(x, y[,
+    z])`` callables precompute ``f_gp`` at the Gauss points and, with
     ``mms_dirichlet=True``, the Dirichlet data ``u_bc`` at the nodes."""
 
-    def __init__(self, network=None, dataset=None, **kwargs):
-        super().__init__(network, dataset, **kwargs)
+    def _setup_poisson(self, **kwargs):
         self.loss_type = kwargs.get("loss_type", "energy")
         default_form = "et" if self.basis.deg == 1 else "gp"
         self.residual_formulation = kwargs.get("residual_formulation",
@@ -109,22 +120,27 @@ class Poisson2D(FEM2DModule):
                 f"{self.residual_formulation!r}")
         if self.residual_formulation == "et":
             self._poisson_et_tensor = fem.element_tensor(self.basis.basis,
-                                                         ("dx", "dy"))
+                                                         _grads(self.nsd))
         self.energy_weighting = kwargs.get("energy_weighting", "jxw")
         self.fused_kernels = bool(kwargs.get("fused_kernels", False))
         self.fused_loss_grad = bool(kwargs.get("fused_loss_grad", False))
         if self.fused_loss_grad and not (
-                self.fused_kernels and self.loss_type == "resmin"
+                self.fused_kernels and self.nsd == 2
+                and self.loss_type == "resmin"
                 and kwargs.get("precond", None) is None):
             raise ValueError(
                 "fused_loss_grad requires fused_kernels=True, nsd=2, "
                 "loss_type='resmin' and no precond")
         if self.fused_kernels:
-            if not (self.basis.deg == 1 and self.ngp_1d == 2
-                    and self.loss_type in ("energy", "resmin")):
+            supported = (self.basis.deg == 1 and self.ngp_1d == 2
+                         and ((self.nsd == 2
+                               and self.loss_type in ("energy", "resmin"))
+                              or (self.nsd == 3
+                                  and self.loss_type == "resmin")))
+            if not supported:
                 raise ValueError(
-                    "fused_kernels supports deg-1 2-GP 2D energy/resmin "
-                    "only")
+                    "fused_kernels supports deg-1 2-GP 2D energy/resmin and "
+                    "3D resmin only")
             if self.loss_type == "energy" and self.energy_weighting != "jxw":
                 raise ValueError(
                     "fused_kernels energy path is jxw-weighted only")
@@ -134,13 +150,13 @@ class Poisson2D(FEM2DModule):
         forcing = kwargs.get("forcing", None)
         u_bc = kwargs.get("u_bc", None)
         if kwargs.get("mms_dirichlet", False) and self.exact_solution:
-            u_bc = self.exact_solution(self.xx, self.yy)
+            u_bc = self.exact_solution(*self.node_coords_all())
         # Dirichlet field on bc2 nodes (instead of bc2_value), the Gauss-
         # point forcing, and a dense left preconditioner [N, N] on vec(R)
         self.register_buffer("u_bc", _buffer(u_bc), persistent=False)
         self.register_buffer(
             "f_gp", _buffer(None if forcing is None
-                            else forcing(self.xgp, self.ygp)),
+                            else forcing(*self.gp_coords_all())),
             persistent=False)
         self.register_buffer("precond", _buffer(kwargs.get("precond")),
                              persistent=False)
@@ -161,6 +177,14 @@ class Poisson2D(FEM2DModule):
             return self.f_gp.to(dtype)
         return self.gauss_pt_evaluation(f)
 
+    def _fused_residual(self, u, nu, f_gp, bc_mask):
+        """The masked residual through K1 (2D) or K5 (3D)."""
+        Nf = fem.galerkin_project(f_gp, self.basis, "N",
+                                  u.shape[-self.nsd:]).contiguous()
+        fused = (poisson_residual_fused if self.nsd == 2
+                 else poisson_residual_fused_3d)
+        return fused(u, nu.contiguous(), Nf, bc_mask, self.basis)
+
     def apply_bcs(self, u, inputs_tensor):
         return self._substitute_bcs(_squeeze_field(u), inputs_tensor[..., 1],
                                     inputs_tensor[..., 2])
@@ -178,9 +202,7 @@ class Poisson2D(FEM2DModule):
         f_gp = self._f_gp(None if forcing_tensor is None
                           else _squeeze_field(forcing_tensor), u.dtype)
         if self.fused_kernels and self.loss_type == "resmin":
-            Nf = fem.galerkin_project(f_gp, self.basis, "N", u.shape[-2:])
-            return poisson_residual_fused(u, nu.contiguous(), Nf, bc_mask,
-                                          self.basis)
+            return self._fused_residual(u, nu, f_gp, bc_mask)
         if self.residual_formulation == "et":
             return poisson_resmin_residual_et(self, u, nu, f_gp, bc_mask)
         return poisson_resmin_residual(
@@ -203,14 +225,13 @@ class Poisson2D(FEM2DModule):
 
         f_gp = self._f_gp(f, u.dtype)
         if self.loss_type == "resmin":
-            if self.fused_kernels:
+            if self.fused_loss_grad:
                 Nf = fem.galerkin_project(f_gp, self.basis, "N",
                                           u.shape[-2:]).contiguous()
-                if self.fused_loss_grad:
-                    return poisson_resmin_loss_fused(
-                        u, nu.contiguous(), Nf, bc2.contiguous(), self.basis)
-                R = poisson_residual_fused(u, nu.contiguous(), Nf, bc2,
-                                           self.basis)
+                return poisson_resmin_loss_fused(
+                    u, nu.contiguous(), Nf, bc2.contiguous(), self.basis)
+            if self.fused_kernels:
+                R = self._fused_residual(u, nu, f_gp, bc2)
             elif self.residual_formulation == "et":
                 R = poisson_resmin_residual_et(self, u, nu, f_gp, bc2)
             else:
@@ -224,3 +245,22 @@ class Poisson2D(FEM2DModule):
                 self, u, self.gauss_pt_evaluation(nu), f_gp,
                 self._weights(u.dtype))
         raise ValueError(f"unknown loss_type {self.loss_type!r}")
+
+
+class Poisson2D(_PoissonCommon, FEM2DModule):
+    """2D Poisson with energy / resmin / strong loss (see module docstring);
+    fields ``[B, y, x]``."""
+
+    def __init__(self, network=None, dataset=None, **kwargs):
+        super().__init__(network, dataset, **kwargs)
+        self._setup_poisson(**kwargs)
+
+
+class Poisson3D(_PoissonCommon, FEM3DModule):
+    """3D Poisson with energy / resmin / strong loss (see module docstring);
+    fields ``[B, z, y, x]``. ``fused_kernels=True`` supports resmin only
+    (K5)."""
+
+    def __init__(self, network=None, dataset=None, **kwargs):
+        super().__init__(network, dataset, **kwargs)
+        self._setup_poisson(**kwargs)

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils.device import resolve_device
 from .trainer import Trainer
 
 __all__ = ["prolong_field", "coarse_to_fine"]
@@ -69,14 +70,16 @@ def coarse_to_fine(module_factory: Callable[[int], tuple],
                    grids: Sequence[int], epochs: Sequence[int] | int,
                    optimizer: str = "lbfgs", lbfgs_max_iter: int = 10,
                    dataloader_factory: Callable[[int], object] | None = None,
-                   device="cpu"):
+                   device="cuda"):
     """Nested-iteration solve over a grid hierarchy.
 
     module_factory(n) -> (module, network) for grid size n, the network a
     ``DirectField`` whose parameters are nodal fields ``[n, n]`` or
-    ``[n, n, n]``. Each grid trains with ``Trainer(device=device)`` from
+    ``[n, n, n]``. Each grid trains with ``Trainer(device=device)`` (the
+    card by default) from
     the previous grid's fields, prolongated. Returns the final
     ``(module, state)``."""
+    device = resolve_device(device, "coarse_to_fine")
     if isinstance(epochs, int):
         epochs = [epochs] * len(grids)
     params = None

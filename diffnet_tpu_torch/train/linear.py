@@ -9,8 +9,9 @@ builds a geometric-multigrid V-cycle for it, on the assembled stencil of
 every level (``train.stencil``), and ``stencil_kernel="cuda"`` runs those
 stencils through the K4 kernel.
 
-Everything of one solve lives on one ``device`` (``"cpu"`` by default, as
-``Trainer(device=)``): modules are moved there, fields are made there.
+Everything of one solve lives on one ``device`` (the card, ``"cuda"``, by
+default, as ``Trainer(device=)``; without CUDA the default raises): modules
+are moved there, fields are made there.
 The mixed Stokes / Navier-Stokes solvers (``stokes_*``, ``newton_*``,
 ``gauss_newton_solve``) wait for the flow slice (ROADMAP).
 """
@@ -22,6 +23,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from ..utils.device import resolve_device
 from . import krylov
 from .continuation import prolong_field
 from .stencil import check_kernel, extract_verified, stencil_diag, \
@@ -47,7 +49,7 @@ def solve_linear(residual_fn: Callable, shape, method: str = "cg",
                  M: Callable | None = None, x0=None,
                  restart: int | None = None,
                  assemble: str | None = None, stencil_width: int = 3,
-                 stencil_kernel: str | None = None, device="cpu"):
+                 stencil_kernel: str | None = None, device="cuda"):
     """Solve ``residual_fn(u) == 0`` for an affine ``residual_fn``.
 
     residual_fn: nodal field ``[*shape]`` on `device` -> residual of the
@@ -70,6 +72,7 @@ def solve_linear(residual_fn: Callable, shape, method: str = "cg",
             "solve_linear takes grid operators on one field; mixed systems "
             "(Stokes) wait for the flow slice (ROADMAP)")
     check_kernel(stencil_kernel)
+    device = resolve_device(device, "solve_linear")
     shape = tuple(int(s) for s in shape)
     zero = torch.zeros(shape, device=device)
     b = -residual_fn(zero)
@@ -124,7 +127,7 @@ def module_linear_solve(module, inputs_tensor=None, forcing_tensor=None,
                         maxiter: int | None = None, M=None,
                         assemble: str | None = None,
                         stencil_width: int | None = None,
-                        stencil_kernel: str | None = None, device="cpu"):
+                        stencil_kernel: str | None = None, device="cuda"):
     """Direct linear solve of a pde module's single-instance problem.
 
     The module must expose ``residual_for_field(u, inputs, forcing)``; it is
@@ -140,6 +143,7 @@ def module_linear_solve(module, inputs_tensor=None, forcing_tensor=None,
         raise ValueError(
             f"{type(module).__name__} does not expose residual_for_field; "
             "linear solves are wired for the Poisson family")
+    device = resolve_device(device, "module_linear_solve")
     module.to(device)
     if inputs_tensor is None:
         if module.dataset is None:
@@ -241,7 +245,7 @@ def multigrid_preconditioner(module_factory, n_fine, n_coarse: int = 9,
                              cheb_alpha: float = 4.0,
                              fine_matvec: Callable | None = None,
                              stencil_kernel: str | None = None,
-                             device="cpu"):
+                             device="cuda"):
     """Geometric-multigrid V-cycle preconditioner ``M ~ A^-1`` for
     :func:`solve_linear` on node-aligned grid hierarchies (n = 2^k + 1).
 
@@ -283,6 +287,7 @@ def multigrid_preconditioner(module_factory, n_fine, n_coarse: int = 9,
         raise ValueError(f"unknown assemble mode {assemble!r} (expected "
                          "'stencil', 'stencil_coarse', or None)")
     check_kernel(stencil_kernel)
+    device = resolve_device(device, "multigrid_preconditioner")
     if stencil_kernel is not None and assemble is None:
         raise ValueError("stencil_kernel requires an assembling mode "
                          "('stencil' or 'stencil_coarse')")

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from ..ops.stencil_apply import stencil_apply, stencil_apply_plain
+from ..utils.device import resolve_device
 
 __all__ = ["extract_stencil", "stencil_matvec", "stencil_diag",
            "extract_verified", "assemble_stencil"]
@@ -46,10 +47,11 @@ def check_kernel(kernel: str | None) -> None:
 
 @torch.no_grad()
 def extract_stencil(A: Callable, shape, width: int = 3,
-                    nsd: int | None = None, device="cpu") -> torch.Tensor:
+                    nsd: int | None = None, device="cuda") -> torch.Tensor:
     """The full stencil coefficient field of a linear operator.
 
-    A: linear map on float32 fields of ``shape`` on `device` (leading axes
+    A: linear map on float32 fields of ``shape`` on `device` (the card by
+        default; leading axes
         of ``shape`` are carried along, e.g. a batch of per-sample
         operators; the stencil acts on the trailing ``nsd`` axes). It is
         called once per probe, ``width**nsd`` times, with one field each.
@@ -58,6 +60,7 @@ def extract_stencil(A: Callable, shape, width: int = 3,
     Returns ``C`` ``[width**nsd, *shape]`` on `device`, ``C[m]`` the
     coefficient of offset ``_offsets(width, nsd)[m]``.
     """
+    device = resolve_device(device, "extract_stencil")
     shape = tuple(int(s) for s in shape)
     if nsd is None:
         nsd = len(shape)
@@ -93,7 +96,7 @@ def stencil_matvec(C: torch.Tensor, u: torch.Tensor, width: int = 3,
 
     kernel: ``"cuda"`` routes the apply through the K4 kernel
     (:mod:`diffnet_tpu_torch.ops.stencil_apply`; on CPU tensors its plain
-    version). Width 3 on 2 spatial axes; leading axes are collapsed into
+    version). Width 3 on 2 or 3 spatial axes; leading axes are collapsed into
     the kernel's batch axis, and a C shared by the batch is read with a
     batch stride of 0."""
     if nsd is None:
@@ -127,7 +130,7 @@ def stencil_diag(C: torch.Tensor, width: int = 3,
 
 def extract_verified(A: Callable, shape, width: int = 3,
                      nsd: int | None = None, probe=None, want=None,
-                     device="cpu"):
+                     device="cuda"):
     """:func:`extract_stencil` plus a one-probe defect check.
 
     probe/want: an already evaluated field and its image ``A(probe)``
@@ -139,6 +142,7 @@ def extract_verified(A: Callable, shape, width: int = 3,
     stencil matvec against ``A`` on the probe: above ~1e-4 the operator is
     wider than ``width`` or not a stencil.
     """
+    device = resolve_device(device, "extract_verified")
     shape = tuple(int(s) for s in shape)
     if nsd is None:
         nsd = len(shape)
@@ -157,13 +161,14 @@ def extract_verified(A: Callable, shape, width: int = 3,
 
 def assemble_stencil(residual_fn: Callable, shape, width: int = 3,
                      nsd: int | None = None, verify: bool = True,
-                     rtol: float = 1e-4, device="cpu"):
+                     rtol: float = 1e-4, device="cuda"):
     """Assemble an affine residual ``R(u) = A u - b`` into stencil form.
 
     Returns ``(matvec, b, C)`` with ``matvec(u) == A u`` through
     :func:`stencil_matvec` and ``b = -R(0)``. verify: raise ValueError when
     the stencil's defect on one random field exceeds ``rtol`` (an operator
     wider than ``width``, or not a stencil)."""
+    device = resolve_device(device, "assemble_stencil")
     shape = tuple(int(s) for s in shape)
     if nsd is None:
         nsd = len(shape)

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from ..data.loader import NumpyLoader
+from ..utils.device import resolve_device
 
 __all__ = ["TrainState", "Trainer", "Callback", "CSVLogger", "EarlyStopping",
            "save_params", "load_params", "save_state", "load_state"]
@@ -136,14 +137,6 @@ def _make_optimizer(name: str, params, learning_rate: float,
     raise ValueError(f"unknown optimizer {name!r}")
 
 
-def _resolve_device(device) -> torch.device:
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"Trainer(device={str(device)!r}): CUDA is not "
-                           "available")
-    return device
-
-
 class Trainer:
     """Explicit training loop.
 
@@ -157,8 +150,8 @@ class Trainer:
     checkpoint : save last/best/state checkpoints to `run_dir`
     fast_dev_run : one batch of one epoch
     seed : loader shuffle seed
-    device : where the module and the batches go; 'cuda' raises when no
-        GPU is available
+    device : where the module and the batches go (the card by default);
+        'cuda' raises when no GPU is available
     """
 
     def __init__(self, max_epochs: int = 1, optimizer: str = "adam",
@@ -166,7 +159,7 @@ class Trainer:
                  callbacks: Sequence[Callback] = (),
                  run_dir: str | None = None, log_every: int = 1,
                  checkpoint: bool = False, fast_dev_run: bool = False,
-                 seed: int = 42, device: str | torch.device = "cpu"):
+                 seed: int = 42, device: str | torch.device = "cuda"):
         self.max_epochs = 1 if fast_dev_run else max_epochs
         self.optimizer_spec = optimizer
         self.learning_rate = learning_rate
@@ -178,7 +171,7 @@ class Trainer:
         self.checkpoint = checkpoint and run_dir is not None
         self.fast_dev_run = fast_dev_run
         self.seed = seed
-        self.device = _resolve_device(device)
+        self.device = resolve_device(device, "Trainer")
         self.should_stop = False
         self.state: TrainState | None = None
         self.epoch_times: list[float] = []

@@ -104,13 +104,14 @@ def test_krylov_defaults_and_checks():
 
 def test_solve_linear_rejects_nonlinear_residual():
     with pytest.raises(ValueError, match="not affine"):
-        linear.solve_linear(lambda u: u**2 - 1.0, (8, 8))
+        linear.solve_linear(lambda u: u**2 - 1.0, (8, 8), device="cpu")
     with pytest.raises(ValueError, match="assemble='stencil'"):
-        linear.solve_linear(lambda u: u, (8, 8), stencil_kernel="cuda")
+        linear.solve_linear(lambda u: u, (8, 8), stencil_kernel="cuda",
+                            device="cpu")
     with pytest.raises(ValueError, match="restart"):
-        linear.solve_linear(lambda u: u, (8, 8), restart=5)
+        linear.solve_linear(lambda u: u, (8, 8), restart=5, device="cpu")
     with pytest.raises(NotImplementedError, match="flow slice"):
-        linear.solve_linear(lambda u: u, {"u": (8, 8)})
+        linear.solve_linear(lambda u: u, {"u": (8, 8)}, device="cpu")
 
 
 # ------------------------------------------------ module_linear_solve ----
@@ -137,7 +138,7 @@ def _mms_pair(n, **kw):
 
 def test_module_linear_solve_mms_65():
     jm, tm = _mms_pair(65)
-    u_t, _ = linear.module_linear_solve(tm, tol=1e-10)
+    u_t, _ = linear.module_linear_solve(tm, tol=1e-10, device="cpu")
     u_j, _ = jlin.module_linear_solve(jm, tol=1e-10)
     rel_t = float(np.divide(*[float(v) for v in tm.calc_l2_err(
         torch.from_numpy(u_t))[::2]]))
@@ -154,7 +155,8 @@ def test_module_linear_solve_without_forcing_tensor():
     used to squeeze the None before it looked at ``f_gp`` and failed."""
     jm, tm = _mms_pair(17)
     inputs = tm.dataset[0][0]
-    u_t, _ = linear.module_linear_solve(tm, inputs, None, tol=1e-10)
+    u_t, _ = linear.module_linear_solve(tm, inputs, None, tol=1e-10,
+                                        device="cpu")
     u_j, _ = jlin.module_linear_solve(jm, inputs, None, tol=1e-10)
     np.testing.assert_allclose(u_t, np.asarray(u_j), atol=1e-5)
 
@@ -171,13 +173,13 @@ def test_module_linear_solve_source_sink_33():
         ms.append(P(D((n, n)), ds, domain_size=n, batch_size=1,
                     loss_type="resmin"))
     u_j, _ = jlin.module_linear_solve(ms[0], tol=1e-10)
-    u_t, _ = linear.module_linear_solve(ms[1], tol=1e-10)
+    u_t, _ = linear.module_linear_solve(ms[1], tol=1e-10, device="cpu")
     np.testing.assert_allclose(u_t[0], 1.0, atol=1e-5)
     np.testing.assert_allclose(u_t[-1], 0.0, atol=1e-5)
     np.testing.assert_allclose(u_t, np.asarray(u_j), atol=1e-5)
     # the stencil-assembled solve, through K4's wrapper (plain on the CPU)
     u_s, _ = linear.module_linear_solve(ms[1], tol=1e-10, assemble="stencil",
-                                        stencil_kernel="cuda")
+                                        stencil_kernel="cuda", device="cpu")
     np.testing.assert_allclose(u_s, np.asarray(u_j), atol=1e-5)
 
 
@@ -185,7 +187,7 @@ def test_module_linear_solve_source_sink_33():
 def test_module_linear_solve_other_methods(method):
     jm, tm = _mms_pair(17)
     kw = {"tol": 1e-6, "maxiter": 8 if method == "gmres" else 200}
-    u_t, _ = linear.module_linear_solve(tm, method=method, **kw)
+    u_t, _ = linear.module_linear_solve(tm, method=method, device="cpu", **kw)
     u_j, _ = jlin.module_linear_solve(jm, method=method, **kw)
     np.testing.assert_allclose(u_t, np.asarray(u_j), atol=1e-5)
 
@@ -195,7 +197,7 @@ def test_stokes_route_waits_for_the_flow_slice():
         eq_type = "stokes"
 
     with pytest.raises(NotImplementedError, match="flow slice"):
-        linear.module_linear_solve(Stokes())
+        linear.module_linear_solve(Stokes(), device="cpu")
 
 
 # ------------------------------------------------------ transfers ----
@@ -245,7 +247,8 @@ def test_coarse_to_fine_trains_each_grid_from_the_last():
                       mms_dirichlet=True)
         return m, m.network
 
-    m, state = continuation.coarse_to_fine(factory, [9, 17], [15, 3])
+    m, state = continuation.coarse_to_fine(factory, [9, 17], [15, 3],
+                                           device="cpu")
     assert tuple(state.params["field"].shape) == (17, 17)
     with torch.no_grad():
         u = m.network()[0]
@@ -355,7 +358,8 @@ def test_multigrid_preconditioner_matches_jax(case):
     b = _rhs(shape)
     info_j, Mb_j = _jax_mg(jax_kw, b)
     _, tf, _ = _factories(shape)
-    Mt, info_t = linear.multigrid_preconditioner(tf, n_fine, **port_kw)
+    Mt, info_t = linear.multigrid_preconditioner(tf, n_fine, device="cpu",
+                                                 **port_kw)
     assert info_t["levels"] == info_j["levels"]
     assert info_t["smoother"] == info_j["smoother"]
     _close(info_t["omegas"], info_j["omegas"])
@@ -378,7 +382,7 @@ def test_multigrid_fine_matvec_through_k1():
 
     Mk, _ = linear.multigrid_preconditioner(
         tf, n, n_coarse=5, inputs_per_level="restrict", fine_matvec=Ak,
-        stencil_kernel="cuda")
+        stencil_kernel="cuda", device="cpu")
     b = _rhs((n, n))
     _, Mb_j = _jax_mg(dict(n_fine=n, n_coarse=5, inputs_per_level="restrict"),
                       b)
@@ -393,7 +397,7 @@ def test_multigrid_rejects_bad_options():
                        "assembling"),
                       ({"cheb_alpha": 1.0}, "cheb_alpha")):
         with pytest.raises(ValueError, match=match):
-            linear.multigrid_preconditioner(tf, 9, **kw)
+            linear.multigrid_preconditioner(tf, 9, device="cpu", **kw)
 
 
 def test_mgcg_65_bench_nu_relres_within_2x_of_jax():
@@ -403,19 +407,21 @@ def test_mgcg_65_bench_nu_relres_within_2x_of_jax():
     jf, tf, ds = _factories((n, n))
     b = _rhs((n, n))
     rel = {}
-    for name, mglib, m, asarr, norm in (
-            ("jax", jlin, jf(n), jnp.asarray, jnp.linalg.norm),
-            ("torch", linear, tf(n), torch.from_numpy, torch.linalg.norm)):
+    for name, mglib, m, asarr, norm, dev in (
+            ("jax", jlin, jf(n), jnp.asarray, jnp.linalg.norm, {}),
+            ("torch", linear, tf(n), torch.from_numpy, torch.linalg.norm,
+             {"device": "cpu"})):
         M, _ = mglib.multigrid_preconditioner(
             jf if name == "jax" else tf, n, n_coarse=33,
-            inputs_per_level="restrict")
+            inputs_per_level="restrict", **dev)
         inputs, forcing = asarr(ds.inputs)[None], asarr(ds.forcing)[None]
         bb = asarr(b)
 
         def resfn(u, m=m, inputs=inputs, forcing=forcing, bb=bb):
             return m.residual_for_field(u[None], inputs, forcing)[0] - bb
 
-        u, _ = mglib.solve_linear(resfn, (n, n), tol=0.0, maxiter=10, M=M)
+        u, _ = mglib.solve_linear(resfn, (n, n), tol=0.0, maxiter=10, M=M,
+                                  **dev)
         rel[name] = float(norm(resfn(u)) / norm(bb))
     assert rel["jax"] < 1e-4, rel
     assert rel["torch"] < 2 * rel["jax"], rel

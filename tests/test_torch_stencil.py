@@ -103,8 +103,11 @@ def test_autograd_matches_jax_vjp(B, ny, nx, shared_c):
 
 def test_apply_rejects_what_the_kernel_does_not_take():
     C, u = torch.zeros(9, 2, 5, 6), torch.zeros(2, 5, 6)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        k4.stencil_apply(torch.zeros(27, 1, 4, 4, 4), torch.zeros(1, 4, 4, 4),
+    with pytest.raises(ValueError, match="nsd must be 2 or 3"):
+        k4.stencil_apply(torch.zeros(81, 1, 3, 3, 3, 3),
+                         torch.zeros(1, 3, 3, 3, 3), nsd=4)
+    with pytest.raises(ValueError, match="C must be"):   # 2D planes, 3D u
+        k4.stencil_apply(torch.zeros(9, 1, 4, 4, 4), torch.zeros(1, 4, 4, 4),
                          nsd=3)
     with pytest.raises(ValueError, match="C must be"):
         k4.stencil_apply(C[:, :, :, :5], u)
@@ -184,7 +187,7 @@ def test_extract_stencil_matches_jax(batch):
     operator and a batch of per-sample operators."""
     jA, tA, shape = _operators(17, batch=batch)
     Cj = jst.extract_stencil(jA, shape, nsd=2)
-    Ct = tst.extract_stencil(tA, shape, nsd=2)
+    Ct = tst.extract_stencil(tA, shape, nsd=2, device="cpu")
     assert tuple(Ct.shape) == (9,) + shape
     _close(Ct, Cj)
     np.testing.assert_array_equal(np.asarray(tst.stencil_diag(Ct, nsd=2)),
@@ -202,13 +205,14 @@ def test_extract_from_a_module_on_the_k1_path():
     element path is."""
     _, tA, shape = _operators(17)
     _, tAk, _ = _operators(17, fused_kernels=True)
-    _close(tst.extract_stencil(tAk, shape), tst.extract_stencil(tA, shape))
+    _close(tst.extract_stencil(tAk, shape, device="cpu"),
+           tst.extract_stencil(tA, shape, device="cpu"))
 
 
 def test_extract_verified_and_assemble_match_jax():
     jA, tA, shape = _operators(17)
     Cj, dj = jst.extract_verified(jA, shape)
-    Ct, dt = tst.extract_verified(tA, shape)
+    Ct, dt = tst.extract_verified(tA, shape, device="cpu")
     _close(Ct, Cj)
     assert dj < 1e-5 and dt < 1e-5, (dj, dt)
 
@@ -222,7 +226,7 @@ def test_extract_verified_and_assemble_match_jax():
         return tA(u) - torch.from_numpy(rhs)
 
     mv_j, b_j, C_j = jst.assemble_stencil(jres, shape)
-    mv_t, b_t, C_t = tst.assemble_stencil(tres, shape)
+    mv_t, b_t, C_t = tst.assemble_stencil(tres, shape, device="cpu")
     _close(C_t, C_j)
     _close(b_t, b_j)
     u = _rand(rng, shape)
@@ -234,13 +238,13 @@ def test_deg2_needs_width_5():
     exactly (as in JAX), width 3 is rejected by the defect check."""
     jA, tA, shape = _operators(17, deg=2)
     Cj, dj = jst.extract_verified(jA, shape, width=5)
-    Ct, dt = tst.extract_verified(tA, shape, width=5)
+    Ct, dt = tst.extract_verified(tA, shape, width=5, device="cpu")
     assert Ct.shape[0] == 25
     _close(Ct, Cj)
     assert dt < 1e-5, dt
     with pytest.raises(ValueError, match="width-3 stencil"):
-        tst.assemble_stencil(tA, shape, width=3)
-    _, d3 = tst.extract_verified(tA, shape, width=3)
+        tst.assemble_stencil(tA, shape, width=3, device="cpu")
+    _, d3 = tst.extract_verified(tA, shape, width=3, device="cpu")
     _, d3j = jst.extract_verified(jA, shape, width=3)
     assert d3 > 1e-2 and d3j > 1e-2, (d3, d3j)
 
@@ -260,9 +264,12 @@ def test_kernel_cuda_on_cpu_tensors_is_the_plain_path():
     with pytest.raises(ValueError, match="width-3"):
         tst.stencil_matvec(torch.zeros(25, 9, 9), torch.zeros(9, 9), width=5,
                            kernel="cuda")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tst.stencil_matvec(torch.zeros(27, 5, 5, 5), torch.zeros(5, 5, 5),
-                           kernel="cuda")
+    # 27-point (K4-3D's wrapper): the plain path too
+    C3 = torch.from_numpy(_rand(rng, (27, 2, 5, 6, 7)))
+    u3 = torch.from_numpy(_rand(rng, (2, 5, 6, 7)))
+    np.testing.assert_array_equal(
+        np.asarray(tst.stencil_matvec(C3, u3, nsd=3, kernel="cuda")),
+        np.asarray(tst.stencil_matvec(C3, u3, nsd=3)))
 
 
 @pytest.mark.parametrize("name", ["dma", "blockspec", "dmaf", "triton"])
@@ -272,7 +279,7 @@ def test_tpu_variant_names_raise(name):
         tst.stencil_matvec(C, u, kernel=name)
     with pytest.raises(ValueError, match="cuda"):
         linear.solve_linear(lambda v: v, (9, 9), assemble="stencil",
-                            stencil_kernel=name)
+                            stencil_kernel=name, device="cpu")
     with pytest.raises(ValueError, match="cuda"):
         linear.multigrid_preconditioner(lambda n: None, 9,
-                                        stencil_kernel=name)
+                                        stencil_kernel=name, device="cpu")

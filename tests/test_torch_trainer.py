@@ -9,6 +9,7 @@ reach agrees.
 """
 
 import csv
+import inspect
 from functools import partial
 
 import numpy as np
@@ -27,7 +28,11 @@ from diffnet_tpu_torch.data import NumpyLoader, RectangleManufactured
 from diffnet_tpu_torch.models import DirectField
 from diffnet_tpu_torch.pde import Poisson2D
 from diffnet_tpu_torch.train import (Callback, EarlyStopping, Trainer,
-                                     load_params, load_state)
+                                     assemble_stencil, coarse_to_fine,
+                                     extract_stencil, extract_verified,
+                                     load_params, load_state,
+                                     module_linear_solve,
+                                     multigrid_preconditioner, solve_linear)
 
 
 @pytest.fixture(autouse=True)
@@ -93,7 +98,7 @@ def test_adam_matches_jax_trainer(loss_type, fused):
         tm = Poisson2D(DirectField((n, n), init=init), tm.dataset,
                        **dict(tm.kwargs, fused_kernels=True))
     tst = Trainer(max_epochs=5, optimizer="adam", learning_rate=1e-3,
-                  callbacks=[tcb]).fit(tm)
+                  callbacks=[tcb], device="cpu").fit(tm)
     np.testing.assert_allclose(tcb.losses, jcb.losses, rtol=1e-5)
     np.testing.assert_allclose(tst.params["field"].numpy(),
                                np.asarray(jst.params["field"]), rtol=1e-5)
@@ -110,7 +115,8 @@ def test_lbfgs_final_l2_matches_jax_trainer():
     jm, tm = _modules(n, np.zeros((n, n)), loss_type="resmin")
     jst = JTrainer(max_epochs=40, optimizer="lbfgs",
                    lbfgs_max_iter=10).fit(jm)
-    Trainer(max_epochs=40, optimizer="lbfgs", lbfgs_max_iter=10).fit(tm)
+    Trainer(max_epochs=40, optimizer="lbfgs", lbfgs_max_iter=10,
+            device="cpu").fit(tm)
     rel_j = _rel_l2(jm, jm.network.apply(jst.params)[0])
     with torch.no_grad():
         rel_t = _rel_l2(tm, tm.network()[0])
@@ -123,7 +129,8 @@ def test_sgd_lowers_the_loss_and_logs(tmp_path):
     _, tm = _modules(n, init, n_samples=2, loss_type="energy")
     cb = _TLosses()
     tr = Trainer(max_epochs=3, optimizer="sgd", learning_rate=100.0,
-                 run_dir=str(tmp_path), checkpoint=True, callbacks=[cb])
+                 run_dir=str(tmp_path), checkpoint=True, callbacks=[cb],
+                 device="cpu")
     st = tr.fit(tm)
     assert cb.losses[-1] < cb.losses[0]
     assert len(tr.step_losses) == 2 and len(tr.epoch_times) == 3
@@ -149,7 +156,8 @@ def test_fit_takes_params_val_loader_and_early_stopping():
     tm.network.load_state_dict({"field": torch.zeros(n, n)})
     cb = _TLosses()
     stop = EarlyStopping(monitor="loss", min_delta=1e9, patience=2)
-    tr = Trainer(max_epochs=10, optimizer="adam", callbacks=[stop, cb])
+    tr = Trainer(max_epochs=10, optimizer="adam", callbacks=[stop, cb],
+                 device="cpu")
     tr.fit(tm, params=start, val_dataloader=val)
     assert cb.losses[0] == pytest.approx(loss_at_start, rel=1e-6)
     assert len(cb.losses) == 3 and tr.should_stop
@@ -159,7 +167,7 @@ def test_fit_takes_params_val_loader_and_early_stopping():
 def test_fast_dev_run_takes_one_step():
     n = 9
     _, tm = _modules(n, np.zeros((n, n)), n_samples=4, loss_type="resmin")
-    tr = Trainer(max_epochs=5, fast_dev_run=True)
+    tr = Trainer(max_epochs=5, fast_dev_run=True, device="cpu")
     assert tr.fit(tm).step == 1
 
 
@@ -200,4 +208,43 @@ def test_zero_batches_raise():
     _, tm = _modules(n, np.zeros((n, n)), n_samples=1, loss_type="resmin")
     tm.batch_size = 2
     with pytest.raises(ValueError, match="zero batches"):
-        Trainer().fit(tm)
+        Trainer(device="cpu").fit(tm)
+
+
+def _tiny_module(n=9):
+    _, tm = _modules(n, np.zeros((n, n)), loss_type="resmin")
+    return tm
+
+
+ENTRY_POINTS = {   # entry point -> a call that leaves `device` at its default
+    "Trainer": (Trainer, lambda: Trainer()),
+    "solve_linear": (solve_linear,
+                     lambda: solve_linear(lambda u: u - 1.0, (5, 5))),
+    "module_linear_solve": (module_linear_solve,
+                            lambda: module_linear_solve(_tiny_module())),
+    "multigrid_preconditioner": (
+        multigrid_preconditioner,
+        lambda: multigrid_preconditioner(_tiny_module, 9, n_coarse=5)),
+    "coarse_to_fine": (coarse_to_fine, lambda: coarse_to_fine(
+        lambda n: (lambda m: (m, m.network))(_tiny_module(n)), [9], 1)),
+    "extract_stencil": (extract_stencil,
+                        lambda: extract_stencil(lambda u: 2.0 * u, (5, 5))),
+    "extract_verified": (extract_verified,
+                         lambda: extract_verified(lambda u: 2.0 * u, (5, 5))),
+    "assemble_stencil": (assemble_stencil,
+                         lambda: assemble_stencil(lambda u: u - 1.0, (5, 5))),
+}
+
+
+@pytest.mark.parametrize("name", list(ENTRY_POINTS))
+def test_entry_points_default_to_the_card(name):
+    """Every entry point runs on the card unless the caller asks for the
+    CPU: its ``device`` defaults to "cuda", and without CUDA the default
+    raises instead of falling back to the CPU."""
+    fn, call = ENTRY_POINTS[name]
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if torch.cuda.is_available():
+        call()
+    else:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
