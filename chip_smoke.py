@@ -10,8 +10,8 @@ exits non-zero (it also does so, printing no result, without CUDA):
 
   0. device: the card, ``nvidia-smi`` name and power limit; TF32 off.
   1. build: nvcc builds ``diffnet_tpu_torch/csrc/poisson2d.cu``,
-     ``stencil2d.cu``, ``poisson3d.cu`` and ``stencil3d.cu`` (sm_90a, one
-     process each, all started together) into one library.
+     ``stencil2d.cu``, ``poisson3d.cu``, ``stencil3d.cu`` and ``ns2d.cu``
+     (sm_90a, one process each, all started together) into one library.
   2. kernels: K1 (stiffness action and masked residual), K2 (resmin loss
      and gradient) and K3 (Ritz energy) against their plain torch versions
      at 33^2 (anisotropic h), 40^2, 24x49 (K1 only), 1x513^2 (slice D2's
@@ -27,10 +27,14 @@ exits non-zero (it also does so, printing no result, without CUDA):
      4x64^3 and 1x128^3, timed at the last two; K4-3D (the 27-point apply)
      at 2x9^3, 1x10x12x14, slice F's levels 1x129^3, 65^3, 33^3, 17^3 and
      1x128^3, per-sample and batch-1 C, timed at 1x128^3.
+     K6 (the fused VMS Navier-Stokes residual) at 2x33^2 (anisotropic h),
+     2x40^2 with forcing, 2x65^2, 1x129^2 (slice G1's grid), 8x256^2 and
+     8x512^2, visco 0.01, each residual within 2e-5 x max(1, max |plain|)
+     (the JAX package's kernel-vs-XLA tolerance), timed at the last two.
   3. gradients: the K1 du/dnu, K3 du, K2 du and K4 dC/du VJPs against
      autograd through the plain versions, at 65^2; the K5 du/dnu and K4-3D
-     dC/du VJPs at 17^3.
-  4-9. the main paths (launch counts set to 0 first, read after each):
+     dC/du VJPs at 17^3; the K6 VJP and its JVP (``torch.func.jvp``) at 33^2.
+  4-10. the main paths (launch counts set to 0 first, read after each):
      A. the README quick start through ``Trainer.fit``, 64^2 MMS resmin
         with LBFGS; rel L2 vs the exact solution must be <= 2.6e-4 (the JAX
         package gives 2.046e-4);
@@ -64,6 +68,23 @@ exits non-zero (it also does so, printing no result, without CUDA):
         each relative residual, under its own operator and under F1's
         element-path operator, <= 2x the JAX package's; F2 must launch K5,
         F3 K4-3D; one profiled solve of each.
+     G. the flow path, through K6: G1 the lid-driven cavity at Re 100 on
+        129^2 nodes (the reference's 128 x 128 elements) solved from rest
+        by ``ns_newton_solve`` (15 Newton iterations, the defaults),
+        ``fused_kernels=True``, held to the JAX package's figures on the
+        same problem (scripts/torch_port_reference_flow.py): final |F| <=
+        max(1e-6, 2x JAX's), accepted steps <= JAX's + 2, the midline
+        extrema of u and v and the pressure on y = 0.5 within 2e-3, the lid
+        within 1e-5; the solve timed (median of 3 after the entry point's
+        run, preconditioner setup apart); the same solve without the
+        kernel once through the entry point; one Newton iteration of each
+        profiled. G2 examples/ns_ldc.py's training
+        configuration at 64^2 (three-field DirectField from zeros, squared
+        norm, LBFGS x 10) through ``Trainer.fit``: the loss below 0.05x its
+        first value, the first loss within 1e-5 of the unfused module's, K6
+        launched at least once an evaluation. G3 10 Adam steps at 8 x 256^2
+        from seeded random fields: the loss falls, K6 launches once a step,
+        the first loss matches the unfused path.
   Then the kernel table line and, last, ``{"ok": true, "device": ...}``.
 """
 
@@ -81,17 +102,22 @@ import torch
 
 from diffnet_tpu_torch.core import fem
 from diffnet_tpu_torch.core.quadrature import make_basis
-from diffnet_tpu_torch.data import CuboidManufactured, RectangleManufactured
+from diffnet_tpu_torch.data import (CuboidManufactured, NSLDCDataset,
+                                    RectangleManufactured)
 from diffnet_tpu_torch.models import DirectField
 from diffnet_tpu_torch.ops import _build
+from diffnet_tpu_torch.ops import ns_residual as k6
 from diffnet_tpu_torch.ops import poisson_energy as k3
 from diffnet_tpu_torch.ops import poisson_loss_grad as k2
 from diffnet_tpu_torch.ops import poisson_residual as k1
 from diffnet_tpu_torch.ops import poisson_residual_3d as k5
 from diffnet_tpu_torch.ops import stencil_apply as k4
-from diffnet_tpu_torch.pde import Poisson2D, Poisson3D
+from diffnet_tpu_torch.pde import NavierStokes, Poisson2D, Poisson3D, ldc_bcs
 from diffnet_tpu_torch.train import (Trainer, cg, extract_verified,
-                                     multigrid_preconditioner, stencil_matvec)
+                                     multigrid_preconditioner, newton_solve,
+                                     ns_newton_solve,
+                                     stokes_block_preconditioner,
+                                     stencil_matvec)
 
 POISSON_SRC = "diffnet_tpu_torch/csrc/poisson2d.cu"
 KERNELS = {   # name -> (module, its launch count, its source, the TPU kernel)
@@ -109,6 +135,8 @@ KERNELS = {   # name -> (module, its launch count, its source, the TPU kernel)
     "stencil_apply_3d": (k4, "launches_3d",
                          "diffnet_tpu_torch/csrc/stencil3d.cu",
                          "diffnet_tpu/ops/stencil_apply.py:425"),
+    "ns_vms_residual": (k6, "launches", "diffnet_tpu_torch/csrc/ns2d.cu",
+                        "diffnet_tpu/ops/ns_residual.py:375"),
 }
 # Tolerances, kernel against plain version (float32, sums in other orders):
 FIELD_ATOL = 2e-6      # K1/K4/K5 fields, times max(1, max |ref|): O(1) terms
@@ -127,6 +155,22 @@ JAX_F_RELRES = 3.352927819832985e-07
 E1_LIMIT = 1.3 * JAX_E1_REL_L2
 RELRES_LIMIT_3D = 2.0 * JAX_F_RELRES
 SOLVE_GRID_3D, N_COARSE_3D = 129, 9   # slice F: levels 129-65-33-17-9
+K6_ATOL = 2e-5         # K6 residuals, times max(1, max |plain|): the JAX
+#                        package's kernel-vs-XLA tolerance (test_pallas_kernel)
+# Slice G1, the lid-driven cavity (scripts/torch_port_reference_flow.py
+# builds the same problem and gives the JAX package's figures on a CPU).
+G1_GRID, G1_RE, G1_NEWTON_ITERS = 129, 100.0, 15
+JAX_G1 = {"final_F": 1.326517917732417e-07, "newton_steps": 4,
+          "u_min_x05": -0.20309318602085114,
+          "v_min_y05": -0.24506235122680664,
+          "v_max_y05": 0.171223983168602,
+          "p_min_y05": -0.03475015237927437,
+          "p_max_y05": -0.0009885188192129135}
+MIDLINE_ATOL = 2e-3    # G1 midline extrema and pressure, against JAX's
+LID_ATOL = 1e-5        # G1, G2: the lid profile
+G2_GRID, G2_EPOCHS, G2_DROP = 64, 20, 0.05
+G3_GRID, G3_BATCH = 256, 8
+FIRST_LOSS_RTOL_FLOW = 1e-5   # G2, G3: kernel vs unfused first loss
 
 # The card's peaks for the bound (NVIDIA's H100 SXM data sheet, at 700 W):
 # HBM bytes/s and fp32 operations/s outside the tensor cores.
@@ -138,13 +182,16 @@ PEAK_FP32_PER_S = 67e12
 # element energy and load (~61 an element), K4 one FMA a tap, K5 the
 # sum-factorised trilinear body of csrc/poisson3d.cu (3 axis parts of 88
 # plus the 16 of the signed corner sums, 280 an element, and 7 adds a node
-# to assemble the eight corners).
+# to assemble the eight corners), K6 the VMS body of csrc/ns2d.cu (3 x 44
+# Gauss-point values, 4 x 70 a Gauss point, 3 x 40 projection tails: 532
+# an element, FMA as two, and 9 adds a node).
 FLOPS = {"poisson_stiffness_action": (49, 0),      # (a element, a node)
          "poisson_resmin_loss_grad": (98, 5),
          "poisson_energy": (61, 0),
          "stencil_apply_2d": (0, 18),
          "poisson_stiffness_action_3d": (280, 7),
-         "stencil_apply_3d": (0, 54)}
+         "stencil_apply_3d": (0, 54),
+         "ns_vms_residual": (532, 9)}
 
 
 def emit(obj: dict) -> None:
@@ -498,6 +545,56 @@ def phase_stencil3d_kernel(dev) -> dict:
     return {"err": err, "times": times}
 
 
+# (B, n, anisotropic h, forcing): 1 x 129^2 is slice G1's grid; 8 x 256^2
+# bench.py's NS shape (bench.py:1358), 8 x 512^2 its NS throughput shape
+# (bench.py:1591-1601)
+K6_SHAPES = ((2, 33, True, False), (2, 40, False, True), (2, 65, False, False),
+             (1, 129, False, False), (8, 256, False, False),
+             (8, 512, False, False))
+K6_TIMED = ((8, 256), (8, 512))
+
+
+def phase_k6(dev) -> dict:
+    """K6 against its plain version, each residual; times at 8 x 256^2 and
+    8 x 512^2."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    err, times = 0.0, {}
+    visco = 0.01
+    for B, n, aniso, with_f in K6_SHAPES:
+        tb = basis_for(n, n, aniso, dev)
+        u, v, p, fx, fy = (torch.rand((B, n, n), generator=g, device=dev)
+                           for _ in range(5))
+        if not with_f:
+            fx = fy = None
+        row = {"phase": "kernels_K6", "shape": [B, n, n], "forcing": with_f,
+               "visco": visco, "tolerance": {"K6_atol": K6_ATOL}}
+        R = k6.ns_vms_residual(u, v, p, fx, fy, tb, visco)
+        Rp = k6.ns_vms_residual_plain(u, v, p, fx, fy, tb, visco)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("R1", "R2", "R3"), R, Rp):
+            e = float((a - b).abs().max())
+            ref = float(b.abs().max())
+            row[name] = {"max_abs_err": e, "rel_err": e / ref}
+            err = max(err, e)
+            if not e <= K6_ATOL * max(1.0, ref):
+                fail(f"K6 {name} at {row['shape']}: max abs err {e}")
+        if (B, n) in K6_TIMED:
+            t = cuda_ms({"K6_plain": lambda: k6.ns_vms_residual_plain(
+                u, v, p, None, None, tb, visco),
+                "K6": lambda: k6.ns_vms_residual(u, v, p, None, None, tb,
+                                                 visco)})
+            b = bound("ns_vms_residual", (u, v, p) + tuple(R), (B, n, n))
+            times[(B, n)] = dict(ms=t["K6"], plain_ms=t["K6_plain"], **b)
+            row["ms"] = t
+            row.update(b)
+            row["kernel_GBps"] = b["bytes"] / (t["K6"] * 1e-3) / 1e9
+            row["kernel_GFLOPps"] = b["operations"] / (t["K6"] * 1e-3) / 1e9
+        emit(row)
+        del u, v, p, fx, fy, R, Rp
+    return {"err": err, "times": times[(8, 512)], "by_shape": {
+        f"{B}x{n}x{n}": v for (B, n), v in times.items()}}
+
+
 def phase_gradients(dev) -> None:
     g = torch.Generator(device=dev).manual_seed(1)
     n = 65
@@ -549,6 +646,26 @@ def phase_gradients(dev) -> None:
                   C, u3),
             grads(lambda C, u: (k4.stencil_apply_plain(C, u) * w3).sum(),
                   C, u3))
+    # K6 at 33^2 (anisotropic h): its VJP, and its JVP through
+    # torch.func.jvp (the Jacobian action of the Newton-Krylov solve)
+    n6, visco = 33, 0.01
+    tb6 = basis_for(n6, n6, True, dev)
+    uvp = [torch.rand((2, n6, n6), generator=g, device=dev)
+           for _ in range(3)]
+    tang = [torch.rand((2, n6, n6), generator=g, device=dev) - 0.5
+            for _ in range(3)]
+    w6 = [torch.rand((2, n6, n6), generator=g, device=dev) for _ in range(3)]
+
+    def weighted(fn):
+        return lambda u, v, p: sum((R * w).sum() for R, w in zip(
+            fn(u, v, p, None, None, tb6, visco), w6))
+
+    pairs["K6_vjp_33sq"] = (grads(weighted(k6.ns_vms_residual_fused), *uvp),
+                            grads(weighted(k6.ns_vms_residual_plain), *uvp))
+    pairs["K6_jvp_33sq"] = tuple(
+        list(torch.func.jvp(lambda u, v, p, fn=fn: fn(
+            u, v, p, None, None, tb6, visco), tuple(uvp), tuple(tang))[1])
+        for fn in (k6.ns_vms_residual_fused, k6.ns_vms_residual_plain))
     torch.cuda.synchronize()
     for name, (got, ref) in pairs.items():
         err = max(float((a - b).abs().max()) for a, b in zip(got, ref))
@@ -1031,9 +1148,247 @@ def slice_f(dev) -> None:
     emit(out)
 
 
+def ldc_module(n: int, fused: bool, network=None, batch_size: int = 1,
+               **kw) -> NavierStokes:
+    """The lid-driven cavity at Re = G1_RE on n^2 nodes: NSLDCDataset, the
+    regularised lid of ldc_bcs, the mean-control pressure gauge. The same
+    problem as scripts/torch_port_reference_flow.py's at n = G1_GRID."""
+    ds = NSLDCDataset(domain_sizes=(n, n), Re=G1_RE)
+    ds.n_samples = 1
+    u_bc, v_bc, p_bc = ldc_bcs((n, n))
+    return NavierStokes(network, ds, domain_size=n, batch_size=batch_size,
+                        Re=G1_RE,
+                        u_bc=u_bc, v_bc=v_bc, p_bc=p_bc, fused_kernels=fused,
+                        **kw)
+
+
+def midline_figures(u, v, p) -> dict:
+    """The figures a solve is held to, from nodal [n, n] fields: as
+    scripts/torch_port_reference_flow.py's."""
+    m = u.shape[0] // 2
+    return {"u_min_x05": float(u[:, m].min()),
+            "v_min_y05": float(v[m, :].min()),
+            "v_max_y05": float(v[m, :].max()),
+            "p_min_y05": float(p[m, :].min()),
+            "p_max_y05": float(p[m, :].max())}
+
+
+def _lid_err(u: np.ndarray) -> float:
+    x = np.linspace(0.0, 1.0, u.shape[1])
+    return float(np.abs(u[-1] - (1.0 - 16.0 * (x - 0.5) ** 4)).max())
+
+
+def slice_g1(dev) -> dict:
+    """The Newton-Krylov LDC solve (see the module docstring), with and
+    without K6."""
+    n = G1_GRID
+    out = {"phase": "slice_G1", "grid": [n, n], "Re": G1_RE,
+           "newton_iters": G1_NEWTON_ITERS, "jax_reference": JAX_G1,
+           "midline_atol": MIDLINE_ATOL}
+    for fused in (True, False):
+        name = "G1_fused" if fused else "G1_unfused"
+        m = ldc_module(n, fused)
+        before = counts()
+        t0 = time.perf_counter()
+        (u, v, p), info = ns_newton_solve(m, newton_iters=G1_NEWTON_ITERS,
+                                          device=dev)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        launches = since(before)
+        figs = midline_figures(u, v, p)
+        final_F = info["residual_history"][-1]
+        row = {"final_F": final_F, "newton_steps": info["newton_iters"],
+               "residual_history": info["residual_history"], **figs,
+               "lid_max_err": _lid_err(u), "entry_point_s": first_s,
+               "launches": launches}
+        if not all(np.isfinite(a).all() and a.shape == (n, n)
+                   for a in (u, v, p)):
+            fail(f"slice {name}: the fields are not finite {n}x{n} arrays")
+        if not final_F <= max(1e-6, 2.0 * JAX_G1["final_F"]):
+            fail(f"slice {name}: final |F| {final_F}")
+        if not info["newton_iters"] <= JAX_G1["newton_steps"] + 2:
+            fail(f"slice {name}: {info['newton_iters']} Newton steps")
+        for key, val in figs.items():
+            if not abs(val - JAX_G1[key]) <= MIDLINE_ATOL:
+                fail(f"slice {name}: {key} {val} vs JAX {JAX_G1[key]}")
+        if not row["lid_max_err"] <= LID_ATOL:
+            fail(f"slice {name}: lid error {row['lid_max_err']}")
+        if fused and launches["ns_vms_residual"] <= 0:
+            fail("slice G1: K6 never launched")
+
+        # the same solve from its parts: the preconditioner setup apart,
+        # then newton_solve on the module's mixed residual, timed three
+        # times with the kernel (once without: its entry-point run above,
+        # a solve takes about a minute on the card)
+        inputs = torch.from_numpy(m.dataset[0][0])[None].to(dev)
+        evals = [0]   # residual evaluations: F's and one a Jacobian action
+
+        def F(f, m=m, inputs=inputs, evals=evals):
+            evals[0] += 1
+            R = m.mixed_residual({k: a[None] for k, a in f.items()}, inputs,
+                                 None)
+            return {k: a[0] for k, a in R.items()}
+
+        t0 = time.perf_counter()
+        M = stokes_block_preconditioner(m, device=dev)
+        torch.cuda.synchronize()
+        row["setup_s"] = time.perf_counter() - t0
+        x0 = {k: torch.zeros((n, n), device=dev) for k in ("u", "v", "p")}
+        if fused:
+            solve_s, hist = [], None
+            for _ in range(3):
+                evals[0] = 0
+                t0 = time.perf_counter()
+                _, inf = newton_solve(F, x0, M=M,
+                                      newton_iters=G1_NEWTON_ITERS,
+                                      device=dev)
+                torch.cuda.synchronize()
+                solve_s.append(time.perf_counter() - t0)
+                hist = inf["residual_history"]
+            row["solve_s"] = statistics.median(solve_s)
+            row["solve_s_all"] = solve_s
+            row["timed_final_F"] = hist[-1]
+            row["residual_evaluations_a_solve"] = evals[0]
+            if not hist[-1] <= max(1e-6, 2.0 * JAX_G1["final_F"]):
+                fail(f"slice {name}: the timed solve's final |F| {hist[-1]}")
+        # one Newton iteration (F, one GMRES direction, the line search)
+        evals[0] = 0
+        row["profile_one_newton_iteration"] = _device_idle_share(
+            lambda x: newton_solve(F, x, M=M, newton_iters=1, device=dev),
+            x0)
+        row["profile_one_newton_iteration"]["residual_evaluations"] = \
+            evals[0]
+        out[name] = row
+        emit({"phase": f"slice_{name}", **row})
+        del M
+    # the entry point's run (setup included) of each, in like conditions
+    out["entry_point_s"] = {k: out[k]["entry_point_s"]
+                            for k in ("G1_fused", "G1_unfused")}
+    out["fused_speedup"] = out["G1_unfused"]["entry_point_s"] / \
+        out["G1_fused"]["entry_point_s"]
+    emit({"phase": "slice_G1", **{k: v for k, v in out.items()
+                                  if not k.startswith("G1_")},
+          "solve_s_fused": out["G1_fused"]["solve_s"]})
+    return out["G1_fused"]["launches"]
+
+
+def slice_g2(dev) -> dict:
+    """examples/ns_ldc.py's training configuration at 64^2, through
+    Trainer.fit and K6."""
+    n = G2_GRID
+    m = ldc_module(n, True, DirectField((n, n), init=np.zeros((n, n)),
+                                        n_fields=3), loss_norm="squared")
+    ref = ldc_module(n, False, DirectField((n, n), init=np.zeros((n, n)),
+                                          n_fields=3),
+                     loss_norm="squared").to(dev)
+    batch = tuple(torch.from_numpy(a)[None].to(dev) for a in m.dataset[0])
+    m.to(dev)
+    with torch.no_grad():
+        first = float(m.training_loss(batch))
+        first_ref = float(ref.training_loss(batch))
+    before = counts()
+    t0 = time.perf_counter()
+    opt = Trainer(max_epochs=G2_EPOCHS, optimizer="lbfgs", lbfgs_max_iter=10,
+                  device=dev).fit(m).optimizer
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = since(before)
+    # LBFGS's own count of its closure's evaluations, over all epochs
+    evaluations = opt.state[opt.param_groups[0]["params"][0]]["func_evals"]
+    with torch.no_grad():
+        final = float(m.training_loss(batch))
+        u, v, p = (a[0].cpu().numpy() for a in m.apply_bcs(
+            m.network(batch[0]), batch[0]))
+    row = {"phase": "slice_G2", "grid": [n, n], "epochs": G2_EPOCHS,
+           "first_loss": first, "first_loss_unfused": first_ref,
+           "final_loss": final, "drop": final / first, "limit": G2_DROP,
+           "evaluations": evaluations, "seconds": dt,
+           "lid_max_err": _lid_err(u), "launches": launches,
+           **midline_figures(u, v, p)}
+    emit(row)
+    if not all(np.isfinite(a).all() for a in (u, v, p)):
+        fail("slice G2: the fields are not finite")
+    if abs(first - first_ref) > FIRST_LOSS_RTOL_FLOW * abs(first_ref):
+        fail(f"slice G2: first loss {first} vs unfused {first_ref}")
+    if not final < G2_DROP * first:
+        fail(f"slice G2: loss {first} -> {final}")
+    if not row["lid_max_err"] <= LID_ATOL:
+        fail(f"slice G2: lid error {row['lid_max_err']}")
+    if not launches["ns_vms_residual"] >= evaluations > 0:
+        fail(f"slice G2: K6 launched {launches['ns_vms_residual']} times "
+             f"in {evaluations} evaluations")
+    return launches
+
+
+def _ns_field_module(fused: bool) -> NavierStokes:
+    """Slice G3's module: 8 x 256^2 LDC training from seeded random fields
+    (the params)."""
+    n = G3_GRID
+    m = ldc_module(n, fused, DirectField((n, n), n_fields=3),
+                   loss_norm="squared", batch_size=G3_BATCH)
+    m.dataset.n_samples = 10 * G3_BATCH
+    rng = np.random.default_rng(0)
+    params = {f"field_{i}": torch.from_numpy(
+        rng.random((n, n)).astype(np.float32)) for i in range(3)}
+    m.network.load_state_dict(params)
+    return m
+
+
+def slice_g3(dev) -> dict:
+    """10 Adam steps at 8 x 256^2 through Trainer.fit and K6."""
+    n, bs = G3_GRID, G3_BATCH
+    m = _ns_field_module(True)
+    ref = _ns_field_module(False).to(dev)
+    batch = _resident_batch(ref, bs, dev)
+    with torch.no_grad():
+        first_ref = float(ref.training_loss(batch))
+    del ref, batch
+    before = counts()
+    tr, dt = _train_10(m, dev)
+    launches = since(before)
+    losses = tr.step_losses
+    emit({"phase": "slice_G3", "grid": [n, n], "batch": bs,
+          "losses": losses, "first_loss_unfused": first_ref, "seconds": dt,
+          "fit_steps_per_s": 10 / dt, "launches": launches})
+    _check_losses("slice G3", losses)
+    if launches["ns_vms_residual"] != 10:
+        fail(f"slice G3: K6 launched {launches['ns_vms_residual']} "
+             "times, not once a step")
+    if abs(losses[0] - first_ref) > FIRST_LOSS_RTOL_FLOW * abs(first_ref):
+        fail(f"slice G3: first loss {losses[0]} vs unfused {first_ref}")
+    return launches
+
+
+def _resident_rate(m, batch) -> float:
+    """Adam steps/s of `m` on a batch already on the card: 20 steps timed
+    after 3."""
+    opt = torch.optim.Adam(m.parameters(), lr=1e-3)
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        m.training_loss(batch).backward()
+        opt.step()
+
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        step()
+    torch.cuda.synchronize()
+    return 20 / (time.perf_counter() - t0)
+
+
+def _resident_batch(m, bs, dev) -> tuple:
+    inputs, frc = m.dataset[0]
+    return tuple(torch.from_numpy(np.broadcast_to(a, (bs,) + a.shape).copy())
+                 .to(dev) for a in (inputs, frc))
+
+
 def resident_steps_per_s(dev) -> dict:
-    """Steps/s of the two 512^2 x 32 training steps with the batch already
-    on the card (no loader): Adam on the fused losses."""
+    """Steps/s with the batch already on the card (no loader), Adam: the
+    two 512^2 x 32 training steps on the fused losses and unfused, and
+    slice G3's 8 x 256^2 NS step with and without K6."""
     out = {}
     for name, loss_type, kw in (
             ("resmin_fused_loss_grad", "resmin",
@@ -1041,24 +1396,10 @@ def resident_steps_per_s(dev) -> dict:
             ("resmin_unfused", "resmin", {}),
             ("energy_fused", "energy", {"fused_kernels": True})):
         m = _field_module(512, 32, loss_type, **kw).to(dev)
-        inputs, frc = m.dataset[0]
-        batch = tuple(torch.from_numpy(np.broadcast_to(a, (32,) + a.shape)
-                                       .copy()).to(dev) for a in (inputs, frc))
-        opt = torch.optim.Adam(m.parameters(), lr=1e-3)
-
-        def step():
-            opt.zero_grad(set_to_none=True)
-            m.training_loss(batch).backward()
-            opt.step()
-
-        for _ in range(3):
-            step()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(20):
-            step()
-        torch.cuda.synchronize()
-        out[name] = 20 / (time.perf_counter() - t0)
+        out[name] = _resident_rate(m, _resident_batch(m, 32, dev))
+    for name, fused in (("ns_vms_fused", True), ("ns_vms_unfused", False)):
+        m = _ns_field_module(fused).to(dev)
+        out[name] = _resident_rate(m, _resident_batch(m, G3_BATCH, dev))
     return out
 
 
@@ -1076,6 +1417,9 @@ def main() -> int:
     k43_res = phase_stencil3d_kernel(dev)
     k["errs"]["stencil_apply_3d"] = k43_res["err"]
     k["times"]["stencil_apply_3d"] = k43_res["times"]
+    k6_res = phase_k6(dev)
+    k["errs"]["ns_vms_residual"] = k6_res["err"]
+    k["times"]["ns_vms_residual"] = k6_res["times"]
     phase_gradients(dev)
 
     paths = {}               # each path: counts set to 0 before, read after
@@ -1094,17 +1438,24 @@ def main() -> int:
     reset_counts()           # the 3D linear-solver path
     slice_f(dev)
     paths["solver_3d"] = counts()
+    reset_counts()           # the flow path
+    lg1 = slice_g1(dev)
+    lg2 = slice_g2(dev)
+    lg3 = slice_g3(dev)
+    paths["flow_2d"] = counts()
     total = {name: sum(p[name] for p in paths.values()) for name in KERNELS}
     emit({"phase": "main_path_launches", "total": total, **paths,
           "slice_A": la, "slice_B": lb, "slice_C": lc, "slice_E1": le1,
-          "slice_E2": le2})
+          "slice_E2": le2, "slice_G1": lg1, "slice_G2": lg2,
+          "slice_G3": lg3})
     for path, names in (("training_2d", ("poisson_stiffness_action",
                                          "poisson_resmin_loss_grad",
                                          "poisson_energy")),
                         ("solver_2d", ("stencil_apply_2d",)),
                         ("training_3d", ("poisson_stiffness_action_3d",)),
                         ("solver_3d", ("poisson_stiffness_action_3d",
-                                       "stencil_apply_3d"))):
+                                       "stencil_apply_3d")),
+                        ("flow_2d", ("ns_vms_residual",))):
         for name in names:
             if paths[path][name] <= 0:
                 fail(f"{name} was never launched on the {path} path")
@@ -1118,8 +1469,9 @@ def main() -> int:
          "plain_ms": k["times"][name]["plain_ms"],
          "bound_ms": k["times"][name]["bound_ms"],
          "bound_by": k["times"][name]["bound_by"],
-         # no single PyTorch call computes any of these: each has a
-         # coefficient that varies by node (nu, or the stencil planes C)
+         # no single PyTorch call computes any of these: K1-K5 have a
+         # coefficient that varies by node (nu, or the stencil planes C),
+         # K6 is nonlinear in (u, v, p) with a tau per Gauss point
          "library_ms": None}
         for name, (_, _, source, replaces) in KERNELS.items()]})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,3 +1,6 @@
+from .flow import (FlowPastObjectDataset, FlowPastObjectEnsemble,
+                   NSFPSChannelDataset, NSLDCDataset, StokesMMSDataset,
+                   synthetic_obstacles)
 from .loader import NumpyLoader
 from .single_instances import (Cuboid, CuboidManufactured, Rectangle,
                                RectangleManufactured, SingleInstanceDataset,
@@ -5,4 +8,6 @@ from .single_instances import (Cuboid, CuboidManufactured, Rectangle,
 
 __all__ = ["NumpyLoader", "SingleInstanceDataset", "Rectangle",
            "RectangleManufactured", "Cuboid", "CuboidManufactured",
-           "load_raw", "VoxelIMBackRAW"]
+           "load_raw", "VoxelIMBackRAW", "StokesMMSDataset", "NSLDCDataset",
+           "FlowPastObjectDataset", "FlowPastObjectEnsemble",
+           "NSFPSChannelDataset", "synthetic_obstacles"]

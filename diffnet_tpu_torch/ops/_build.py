@@ -27,7 +27,8 @@ __all__ = ["NVCC_FLAGS", "LINK_FLAGS", "SOURCES", "build", "load_library"]
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = tuple(_PKG / "csrc" / name for name in (
-    "poisson2d.cu", "stencil2d.cu", "poisson3d.cu", "stencil3d.cu"))
+    "poisson2d.cu", "stencil2d.cu", "poisson3d.cu", "stencil3d.cu",
+    "ns2d.cu"))
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v", "-c")
@@ -47,6 +48,7 @@ _SIGNATURES = {
     "poisson_stiffness_action_3d": (_I, [_P, _P, _P, _I, _I, _I, _I]
                                     + [_F] * 7 + [_P]),
     "stencil_apply_3d": (_I, [_P, _LL, _P, _P, _I, _I, _I, _I, _I, _P]),
+    "ns_vms_residual": (_I, [_P] * 8 + [_I] * 4 + [_F] * 14 + [_P]),
     "poisson2d_error_string": (ctypes.c_char_p, [_I]),
 }
 

@@ -9,19 +9,27 @@ builds a geometric-multigrid V-cycle for it, on the assembled stencil of
 every level (``train.stencil``), and ``stencil_kernel="cuda"`` runs those
 stencils through the K4 kernel.
 
+The mixed Stokes / Navier-Stokes systems solve over ``{'u', 'v', 'p'}``
+fields, stacked into one ``[3, ny, nx]`` tensor for the Krylov solvers
+(which take any tensor shape): :func:`stokes_linear_solve` runs
+block-preconditioned GMRES (:func:`stokes_block_preconditioner`) on the
+PSPG Stokes system, :func:`ns_newton_solve` Jacobian-free Newton-Krylov
+(:func:`newton_solve`, Jacobian actions by ``torch.func.jvp``) on the VMS
+Navier-Stokes system, whose residual runs K6 with ``fused_kernels=True``.
+``gauss_newton_solve`` waits for the remaining-physics slice (ROADMAP).
+
 Everything of one solve lives on one ``device`` (the card, ``"cuda"``, by
 default, as ``Trainer(device=)``; without CUDA the default raises): modules
 are moved there, fields are made there.
-The mixed Stokes / Navier-Stokes solvers (``stokes_*``, ``newton_*``,
-``gauss_newton_solve``) wait for the flow slice (ROADMAP).
 """
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Mapping
 
 import numpy as np
 import torch
+from torch import nn
 
 from ..utils.device import resolve_device
 from . import krylov
@@ -29,7 +37,9 @@ from .continuation import prolong_field
 from .stencil import check_kernel, extract_verified, stencil_diag, \
     stencil_matvec
 
-__all__ = ["solve_linear", "module_linear_solve", "multigrid_preconditioner"]
+__all__ = ["solve_linear", "module_linear_solve", "multigrid_preconditioner",
+           "newton_solve", "ns_newton_solve", "stokes_block_preconditioner",
+           "stokes_linear_solve"]
 
 
 def _as_field(x, device) -> torch.Tensor:
@@ -43,6 +53,26 @@ def _norm(x: torch.Tensor) -> torch.Tensor:
     return torch.linalg.vector_norm(x)
 
 
+class _Stacked:
+    """Mixed fields ``{name: [ny, nx]}`` as one ``[k, ny, nx]`` tensor, in
+    the keys' order, and back."""
+
+    def __init__(self, keys):
+        self.keys = tuple(keys)
+
+    def pack(self, fields: Mapping) -> torch.Tensor:
+        return torch.stack([fields[k] for k in self.keys])
+
+    def unpack(self, x: torch.Tensor) -> dict:
+        return {k: x[i] for i, k in enumerate(self.keys)}
+
+    def wrap(self, fn: Callable | None) -> Callable | None:
+        """A map of field dicts as a map of stacked tensors."""
+        if fn is None:
+            return None
+        return lambda x: self.pack(fn(self.unpack(x)))
+
+
 @torch.no_grad()
 def solve_linear(residual_fn: Callable, shape, method: str = "cg",
                  tol: float = 1e-8, maxiter: int | None = None,
@@ -53,7 +83,10 @@ def solve_linear(residual_fn: Callable, shape, method: str = "cg",
     """Solve ``residual_fn(u) == 0`` for an affine ``residual_fn``.
 
     residual_fn: nodal field ``[*shape]`` on `device` -> residual of the
-        same shape (Dirichlet rows masked to zero).
+        same shape (Dirichlet rows masked to zero). `shape` may also be a
+        template dict of equal-shaped arrays (a mixed system such as Stokes'
+        ``{'u','v','p'}``): residual_fn, M and x0 then map dicts, and the
+        solution is a dict.
     method: ``'cg'`` (SPD), ``'bicgstab'`` or ``'gmres'`` (nonsymmetric).
     M: optional preconditioner ``v -> M v``.
     assemble: ``'stencil'`` extracts the operator's stencil once and
@@ -66,13 +99,28 @@ def solve_linear(residual_fn: Callable, shape, method: str = "cg",
     the residual is not affine (one extra residual evaluation at a random
     field, to float tolerance).
     """
-    if not (isinstance(shape, (tuple, list))
-            and all(isinstance(s, (int, np.integer)) for s in shape)):
-        raise NotImplementedError(
-            "solve_linear takes grid operators on one field; mixed systems "
-            "(Stokes) wait for the flow slice (ROADMAP)")
     check_kernel(stencil_kernel)
     device = resolve_device(device, "solve_linear")
+    if isinstance(shape, Mapping):
+        shapes = {tuple(a.shape) for a in shape.values()}
+        if len(shapes) != 1:
+            raise ValueError("a mixed system's fields must share one shape, "
+                             f"got {sorted(shapes)}")
+        if assemble is not None:
+            raise ValueError("assemble='stencil' supports grid operators "
+                             "only, not mixed systems")
+        st = _Stacked(shape)
+        x0 = None if x0 is None else st.pack(
+            {k: _as_field(x0[k], device) for k in st.keys})
+        x, info = solve_linear(st.wrap(residual_fn),
+                               (len(st.keys),) + shapes.pop(), method, tol,
+                               maxiter, st.wrap(M), x0, restart, None,
+                               stencil_width, stencil_kernel, device)
+        return st.unpack(x), info
+    if not (isinstance(shape, (tuple, list))
+            and all(isinstance(s, (int, np.integer)) for s in shape)):
+        raise ValueError("shape must be a tuple of ints or a dict of "
+                         f"equal-shaped fields, got {shape!r}")
     shape = tuple(int(s) for s in shape)
     zero = torch.zeros(shape, device=device)
     b = -residual_fn(zero)
@@ -135,14 +183,32 @@ def module_linear_solve(module, inputs_tensor=None, forcing_tensor=None,
     module's Dirichlet values substituted, and the solver's info.
     """
     if getattr(module, "eq_type", None) == "stokes":
-        raise NotImplementedError(
-            "Stokes modules route to stokes_linear_solve, which waits for "
-            "the flow slice (ROADMAP)")
+        # mixed systems route to the block-preconditioned solver, which has
+        # its own method, preconditioner and assembly: explicitly passed
+        # scalar-path knobs raise instead of being ignored
+        if method != "cg" or M is not None or assemble is not None \
+                or forcing_tensor is not None:
+            raise ValueError(
+                "Stokes modules route to stokes_linear_solve "
+                "(block-preconditioned gmres over the mixed residual); "
+                "method/M/assemble/forcing_tensor do not apply - call "
+                "stokes_linear_solve directly to set its parameters")
+        if tol < 1e-6:
+            import warnings
+            warnings.warn(
+                f"Stokes route clamps tol {tol:g} -> 1e-6: the f32 "
+                "preconditioned GMRES hits the float Arnoldi floor there; "
+                "run stokes_linear_solve yourself to override", stacklevel=2)
+            tol = 1e-6
+        return stokes_linear_solve(module, inputs_tensor=inputs_tensor,
+                                   maxiter=maxiter or 100, tol=tol,
+                                   device=device)
     res_hook = getattr(module, "residual_for_field", None)
     if res_hook is None:
         raise ValueError(
             f"{type(module).__name__} does not expose residual_for_field; "
-            "linear solves are wired for the Poisson family")
+            "linear solves are wired for the Poisson family (Stokes routes "
+            "to stokes_linear_solve; NS to ns_newton_solve)")
     device = resolve_device(device, "module_linear_solve")
     module.to(device)
     if inputs_tensor is None:
@@ -449,3 +515,303 @@ def multigrid_preconditioner(module_factory, n_fine, n_coarse: int = 9,
         return vcycle(0, v)
 
     return M, {"levels": ns, "omegas": omegas, "smoother": smoother}
+
+
+class _FieldDataset:
+    """One sample of prescribed (nu, bc1[, bc2]) channels: the glue that
+    builds Poisson multigrid hierarchies over a mixed system's blocks."""
+
+    def __init__(self, nu, bc1, bc2=None):
+        if bc2 is None:
+            bc2 = np.zeros_like(nu)
+        self.inputs = np.stack([nu, bc1, bc2], -1).astype(np.float32)
+        self.forcing = np.zeros(nu.shape + (1,), np.float32)
+
+    def __len__(self):
+        return 1
+
+    def __getitem__(self, idx):
+        return self.inputs, self.forcing
+
+
+class _ReactionShifted(nn.Module):
+    """Screened Poisson for multigrid hierarchies: the inner Poisson
+    module's residual plus ``sigma * M u`` (the consistent Galerkin mass,
+    Dirichlet rows and columns masked, so the shift is a symmetric PSD
+    perturbation), rediscretised on every level."""
+
+    def __init__(self, inner, sigma):
+        super().__init__()
+        self.inner = inner
+        self.sigma = float(sigma)
+
+    @property
+    def dataset(self):
+        return self.inner.dataset
+
+    def residual_for_field(self, u, inputs_tensor, forcing_tensor):
+        from ..pde.poisson import _squeeze_field
+
+        inner = self.inner
+        R = inner.residual_for_field(u, inputs_tensor, forcing_tensor)
+        mask = torch.maximum(inputs_tensor[..., 1], inputs_tensor[..., 2])
+        uu = torch.where(mask > 0.5, 0.0, _squeeze_field(u))
+        gpN = inner.gp_all(uu, ("N",))["N"]
+        Mu = inner.assemble_multi([(gpN, "N")])
+        return R + self.sigma * torch.where(mask > 0.5, 0.0, Mu)
+
+
+def stokes_block_preconditioner(module, inputs_tensor=None, n_coarse=9,
+                                n_smooth=3, momentum_reaction=0.0,
+                                device="cuda"):
+    """Block-diagonal preconditioner ``M = diag(MG_visc, MG_visc,
+    S_hat^-1)`` for a flow module's mixed ``{'u','v','p'}`` residual:
+
+    * momentum blocks: the geometric-multigrid V-cycle
+      (:func:`multigrid_preconditioner`) on the viscous Laplacian
+      ``visco * K`` with that field's Dirichlet mask (one V-cycle serves
+      both when the u and v masks coincide);
+    * pressure block: the inverse diagonal of the PSPG Schur surrogate
+      ``S_hat = pspg * K_p + M_p / visco``, both diagonals probed exactly by
+      3^2 colouring.
+
+    ``momentum_reaction = sigma > 0`` shifts the momentum hierarchy to the
+    screened Laplacian ``visco K + sigma M`` (the pseudo-transient surrogate
+    of an NS Jacobian's advection block at ``sigma ~ |u| / h``). Returns
+    ``M`` mapping a residual dict to a dict; the module is moved to
+    `device`. For Stokes the preconditioned operator is nonsymmetric: use
+    GMRES.
+    """
+    from ..core import fem
+    from ..pde.poisson import Poisson2D
+
+    if getattr(module, "eq_type", None) not in ("stokes", "ns"):
+        raise ValueError("stokes_block_preconditioner expects a mixed-"
+                         "system flow module (eq_type 'stokes' or 'ns')")
+    device = resolve_device(device, "stokes_block_preconditioner")
+    module.to(device)
+    if inputs_tensor is None:
+        inputs_tensor, _ = module.dataset[0]
+    inputs = (inputs_tensor.cpu().numpy()
+              if isinstance(inputs_tensor, torch.Tensor)
+              else np.asarray(inputs_tensor))
+    node_shape = tuple(module.node_shape)
+    lengths = (module.domain_lengthX, module.domain_lengthY)
+    visco = module.viscosity
+
+    def momentum_mg(mask):
+        ds_fine = _FieldDataset(np.full(node_shape, visco, np.float32), mask)
+
+        def factory(m_shape):
+            if np.isscalar(m_shape):
+                m_shape = (int(m_shape),) * 2
+            ny_l, nx_l = m_shape
+            m_p = Poisson2D(None, ds_fine if tuple(m_shape) == node_shape
+                            else None, domain_sizes=(nx_l, ny_l),
+                            domain_lengths=lengths, batch_size=1,
+                            loss_type="resmin")
+            if momentum_reaction:
+                return _ReactionShifted(m_p, momentum_reaction)
+            return m_p
+
+        M, _ = multigrid_preconditioner(
+            factory, node_shape, n_coarse=n_coarse, n_smooth=n_smooth,
+            inputs_per_level="restrict", device=device)
+        return M
+
+    bc_u, bc_v = inputs[..., 2], inputs[..., 3]
+    M_u = momentum_mg(bc_u)
+    M_v = M_u if np.array_equal(bc_u, bc_v) else momentum_mg(bc_v)
+
+    # the pressure block: no bc_p masking, since the solver paths replace
+    # the pin by the mean control (pde/flow.py mixed_residual)
+    basis = module.basis
+
+    def KP(p):
+        gp = fem.gp_eval(p, basis, ("dx", "dy"))
+        return fem.galerkin_project_multi(
+            [(gp["dx"], "dx"), (gp["dy"], "dy")], basis, node_shape)
+
+    def MP(p):
+        gp = fem.gp_eval(p, basis, ("N",))["N"]
+        return fem.galerkin_project(gp, basis, "N", node_shape)
+
+    s_diag = (module.pspg_param * _colored_diag(KP, node_shape, device=device)
+              + _colored_diag(MP, node_shape, device=device) / visco)
+    safe = np.abs(s_diag) > 1e-12
+    inv_s = _as_field(np.where(safe, 1.0 / np.where(safe, s_diag, 1.0), 1.0),
+                      device)
+
+    @torch.no_grad()
+    def M(r):
+        return {"u": M_u(r["u"]), "v": M_v(r["v"]), "p": inv_s * r["p"]}
+
+    return M
+
+
+def stokes_linear_solve(module, inputs_tensor=None, tol=1e-6, maxiter=100,
+                        restart=10, n_coarse=9, n_smooth=3, device="cuda"):
+    """Block-preconditioned GMRES on a PSPG Stokes module's mixed residual,
+    then the pinned pressure gauge restored by a constant shift (the
+    mean-controlled solve leaves p mean-free). Returns ``((u, v, p)`` numpy
+    nodal fields with Dirichlet data substituted, ``info)``."""
+    device = resolve_device(device, "stokes_linear_solve")
+    module.to(device)
+    if inputs_tensor is None:
+        inputs_tensor, _ = module.dataset[0]
+    inputs = _as_field(inputs_tensor, device)[None]
+
+    def resfn(fields):
+        R = module.residual_for_field({k: v[None] for k, v in fields.items()},
+                                      inputs, None)
+        return {k: v[0] for k, v in R.items()}
+
+    M = stokes_block_preconditioner(module, inputs_tensor=inputs_tensor,
+                                    n_coarse=n_coarse, n_smooth=n_smooth,
+                                    device=device)
+    tmpl = {k: torch.zeros(module.node_shape) for k in ("u", "v", "p")}
+    sol, info = solve_linear(resfn, tmpl, method="gmres", tol=tol,
+                             maxiter=maxiter, M=M, restart=restart,
+                             device=device)
+    return _substitute_and_restore_gauge(module, inputs_tensor, inputs,
+                                         sol), info
+
+
+@torch.no_grad()
+def _substitute_and_restore_gauge(module, inputs_tensor, inputs, sol):
+    """The mixed solvers' tail: substitute the Dirichlet data, then restore
+    the pinned pressure gauge by a constant shift of the non-pin nodes (a
+    constant is null for every other equation of the masked system)."""
+    u, v, p = (t[0].cpu().numpy() for t in module.apply_bcs(
+        (sol["u"][None], sol["v"][None], sol["p"][None]), inputs))
+    if getattr(module, "pressure_gauge", "mean-control") == "dirichlet":
+        return (u, v, p)   # real p rows: apply_bcs substituted them
+    bc3 = inputs[0, ..., 4].cpu().numpy() > 0.5
+    if bc3.any():
+        p_bc = np.broadcast_to(module.p_bc.cpu().numpy(), p.shape)
+        sol_p = sol["p"].cpu().numpy()
+        offset = float((p_bc[bc3] - sol_p[bc3]).mean())
+        p = np.where(bc3, p, p + offset)
+    return (u, v, p)
+
+
+@torch.no_grad()
+def newton_solve(residual_fn, x0, M=None, newton_iters=20, tol=1e-6,
+                 gmres_iters=40, restart=10, lm0=0.0, verbose=False,
+                 device="cuda"):
+    """Jacobian-free Newton-Krylov: solve ``residual_fn(x) == 0`` for a
+    nonlinear residual of a tensor, or of a dict of equal-shaped tensors
+    (then M maps dicts too, and x comes back as a dict).
+
+    The Jacobian action is one ``torch.func.jvp`` through the residual (no
+    Jacobian is formed), each direction preconditioned GMRES
+    (``restart``-step cycles, at most ``gmres_iters`` of them, tol 1e-4),
+    each step globalised by a backtracking line search on |F| (8 halvings,
+    sufficient decrease 1e-4). ``lm0 > 0`` adds Levenberg damping
+    ``(J + lam I) dx = -F``, lam x0.3 after a full step and x10 (at least
+    lm0) after a failed search, stopping above 1e4.
+
+    Returns ``(x, info)``: ``info['residual_history']`` (|F| per outer
+    iteration, ending at the returned iterate) and ``info['newton_iters']``
+    (accepted steps).
+    """
+    device = resolve_device(device, "newton_solve")
+    if isinstance(x0, Mapping):
+        st = _Stacked(x0)
+        x, info = newton_solve(st.wrap(residual_fn),
+                               st.pack({k: _as_field(x0[k], device)
+                                        for k in st.keys}),
+                               st.wrap(M), newton_iters, tol, gmres_iters,
+                               restart, lm0, verbose, device)
+        return st.unpack(x), info
+
+    def newton_dir(x, Fx, lam):
+        def Jv(v):
+            return torch.func.jvp(residual_fn, (x,), (v,))[1] + lam * v
+
+        dx, _ = krylov.gmres(Jv, -Fx, M=M, tol=1e-4, maxiter=gmres_iters,
+                             restart=restart)
+        return dx
+
+    x = _as_field(x0, device)
+    hist = []
+    Fx = residual_fn(x)
+    n0 = float(_norm(Fx))
+    newton_done = 0
+    lam = float(lm0)
+    for it in range(newton_iters):
+        hist.append(n0)
+        if verbose:
+            print(f"newton {it}: |F| = {n0:.3e} lam = {lam:.1e}")
+        if n0 < tol:
+            break
+        dx = newton_dir(x, Fx, lam)
+        alpha = 1.0
+        accepted = False
+        for _ in range(8):
+            x_try = x + alpha * dx
+            F_try = residual_fn(x_try)
+            n_try = float(_norm(F_try))
+            if n_try < (1.0 - 1e-4 * alpha) * n0:
+                x, Fx, n0 = x_try, F_try, n_try
+                newton_done += 1
+                accepted = True
+                break
+            alpha *= 0.5
+        if accepted:
+            if lm0 and alpha == 1.0:
+                lam *= 0.3   # a trustworthy model: anneal toward Newton
+        elif lm0:
+            lam = max(lam * 10.0, float(lm0))
+            if lam > 1e4:
+                break        # damping saturated: return the best iterate
+        else:
+            break            # undamped and no descent direction
+    else:
+        hist.append(n0)      # budget spent: |F| of the returned iterate
+    return x, {"residual_history": hist, "newton_iters": newton_done}
+
+
+def ns_newton_solve(module, inputs_tensor=None, newton_iters=20, tol=1e-6,
+                    gmres_iters=40, restart=10, n_coarse=9, n_smooth=3,
+                    x0=None, lm0=0.0, momentum_reaction=0.0, verbose=False,
+                    device="cuda"):
+    """Newton-Krylov solve of the full-VMS Navier-Stokes mixed system
+    (the module's ``mixed_residual``; K6 with ``fused_kernels=True``),
+    preconditioned by :func:`stokes_block_preconditioner`, from `x0` (a
+    ``{'u','v','p'}`` dict; rest by default).
+
+    ``momentum_reaction="auto"`` shifts the momentum multigrid by
+    ``sigma = max |u_bc|, |v_bc| / h`` (needed near Re 1000, with
+    ``lm0=1e-3``); a number sets sigma; 0 keeps the viscous multigrid.
+    Returns ``((u, v, p)`` numpy nodal fields with Dirichlet data and the
+    pressure gauge restored, ``info)`` as :func:`newton_solve`.
+    """
+    device = resolve_device(device, "ns_newton_solve")
+    module.to(device)
+    if inputs_tensor is None:
+        inputs_tensor, _ = module.dataset[0]
+    inputs = _as_field(inputs_tensor, device)[None]
+
+    def F(fields):
+        R = module.mixed_residual({k: v[None] for k, v in fields.items()},
+                                  inputs, None)
+        return {k: v[0] for k, v in R.items()}
+
+    if momentum_reaction == "auto":
+        # sigma = |u|/h caps the preconditioned advection spectrum at O(1);
+        # |u| from the Dirichlet data (the velocity scale of a driven flow)
+        u_scale = max(float(module.u_bc.abs().max()),
+                      float(module.v_bc.abs().max()), 1e-30)
+        momentum_reaction = u_scale / module.h
+    M = stokes_block_preconditioner(module, inputs_tensor=inputs_tensor,
+                                    n_coarse=n_coarse, n_smooth=n_smooth,
+                                    momentum_reaction=momentum_reaction,
+                                    device=device)
+    if x0 is None:
+        x0 = {k: torch.zeros(module.node_shape) for k in ("u", "v", "p")}
+    x, info = newton_solve(F, x0, M=M, newton_iters=newton_iters, tol=tol,
+                           gmres_iters=gmres_iters, restart=restart, lm0=lm0,
+                           verbose=verbose, device=device)
+    return _substitute_and_restore_gauge(module, inputs_tensor, inputs,
+                                         x), info

@@ -12,7 +12,10 @@ the K2 gradient at 1e-5 of its largest entry, the VJPs as the fields; the
 MG-CG solution through K4 within the plain solve's (14 float32 CG
 iterations, each matvec summed in another order) at 1e-3 of its largest
 entry, both at a relative residual below 1e-4; the 17^3 3D MMS fit through
-K5 within 1.3x the JAX package's final rel L2.
+K5 within 1.3x the JAX package's final rel L2; K6's residuals at 2e-5 times
+max(1, max |ref|) (the JAX package's kernel-vs-XLA tolerance), its VJP and
+JVP as the other VJPs; the 33^2 Newton solve through K6 at |F| < 1e-6 and
+within 1e-4 of the plain solve.
 """
 
 import numpy as np
@@ -21,15 +24,18 @@ import torch
 
 from diffnet_tpu_torch.core import fem
 from diffnet_tpu_torch.core.quadrature import make_basis
-from diffnet_tpu_torch.data import CuboidManufactured, RectangleManufactured
+from diffnet_tpu_torch.data import (CuboidManufactured, NSLDCDataset,
+                                    RectangleManufactured)
 from diffnet_tpu_torch.models import DirectField
+from diffnet_tpu_torch.ops import ns_residual as k6
 from diffnet_tpu_torch.ops import poisson_energy as k3
 from diffnet_tpu_torch.ops import poisson_loss_grad as k2
 from diffnet_tpu_torch.ops import poisson_residual as k1
 from diffnet_tpu_torch.ops import poisson_residual_3d as k5
 from diffnet_tpu_torch.ops import stencil_apply as k4
-from diffnet_tpu_torch.pde import Poisson2D, Poisson3D
-from diffnet_tpu_torch.train import Trainer, cg, multigrid_preconditioner
+from diffnet_tpu_torch.pde import NavierStokes, Poisson2D, Poisson3D, ldc_bcs
+from diffnet_tpu_torch.train import (Trainer, cg, multigrid_preconditioner,
+                                     ns_newton_solve)
 
 pytestmark = pytest.mark.cuda
 
@@ -337,3 +343,78 @@ def test_poisson3d_fit_on_the_card_goes_through_k5(dev):
         eL2, _, uex = m.calc_l2_err(m.network()[0])
     # the JAX package reaches 2.75e-2 on this run (a CPU run)
     assert float(eL2 / uex) < 1.3 * 2.752e-2
+
+
+# ---- flow: K6 --------------------------------------------------------------
+
+K6_SHAPES = [(2, 33, True, False), (2, 40, False, True), (2, 65, False, False),
+             (1, 129, False, False), (8, 256, False, False),
+             (8, 512, False, False), (1, 2, False, False)]
+
+
+@pytest.mark.parametrize("B,n,aniso,with_f", K6_SHAPES)
+def test_ns_kernel_matches_plain(dev, B, n, aniso, with_f):
+    tb = _basis(n, n, dev, aniso)
+    u, v, p, fx, fy = _fields((B, n, n), dev, n=5, seed=n)
+    if not with_f:
+        fx = fy = None
+    before = k6.launches
+    R = k6.ns_vms_residual(u, v, p, fx, fy, tb, 0.01)
+    assert k6.launches == before + 1
+    for a, b in zip(R, k6.ns_vms_residual_plain(u, v, p, fx, fy, tb, 0.01)):
+        torch.testing.assert_close(
+            a, b, rtol=0, atol=2e-5 * max(1.0, float(b.abs().max())))
+
+
+def test_ns_vjp_and_jvp_match_the_plain_version(dev):
+    n = 33
+    tb = _basis(n, n, dev, aniso=True)
+    uvp = _fields((2, n, n), dev, n=3, seed=1)
+    tang = _fields((2, n, n), dev, n=3, seed=2)
+    w = _fields((2, n, n), dev, n=3, seed=3)
+
+    def grads(fn):
+        xs = [x.clone().requires_grad_(True) for x in uvp]
+        sum((R * ww).sum() for R, ww in zip(
+            fn(*xs, None, None, tb, 0.01), w)).backward()
+        return [x.grad for x in xs]
+
+    def tangent(fn):
+        return torch.func.jvp(lambda *a: fn(*a, None, None, tb, 0.01),
+                              tuple(uvp), tuple(tang))[1]
+
+    for got, want in ((grads(k6.ns_vms_residual_fused),
+                       grads(k6.ns_vms_residual_plain)),
+                      (tangent(k6.ns_vms_residual_fused),
+                       tangent(k6.ns_vms_residual_plain))):
+        for a, b in zip(got, want):
+            _field_close(a, b)
+
+
+def test_ns_wrapper_raises_on_what_the_kernel_does_not_take(dev):
+    tb = _basis(9, 9, dev)
+    x = torch.zeros(1, 9, 9, device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        k6.ns_vms_residual(x, x.transpose(1, 2), x, None, None, tb, 0.01)
+    with pytest.raises(ValueError, match="v is on cpu"):
+        k6.ns_vms_residual(x, x.cpu(), x, None, None, tb, 0.01)
+    with pytest.raises(TypeError, match="float32"):
+        k6.ns_vms_residual(x.half(), x.half(), x.half(), None, None, tb,
+                           0.01)
+
+
+def test_ns_newton_solve_on_the_card_goes_through_k6(dev):
+    n = 33
+    u_bc, v_bc, p_bc = ldc_bcs((n, n))
+    sols = {}
+    for fused in (True, False):
+        ds = NSLDCDataset(domain_sizes=(n, n), Re=100)
+        ds.n_samples = 1
+        m = NavierStokes(None, ds, domain_size=n, batch_size=1, Re=100,
+                         u_bc=u_bc, v_bc=v_bc, p_bc=p_bc, fused_kernels=fused)
+        before = k6.launches
+        sols[fused], info = ns_newton_solve(m, newton_iters=8, device=dev)
+        assert (k6.launches > before) == fused
+        assert info["residual_history"][-1] < 1e-6, info
+    for a, b in zip(sols[True], sols[False]):
+        np.testing.assert_allclose(a, b, atol=1e-4)

@@ -307,13 +307,14 @@ def test_build_compiles_once_per_source_and_renames_atomically(
     from diffnet_tpu_torch.ops import _build
 
     assert [s.name for s in _build.SOURCES] == [
-        "poisson2d.cu", "stencil2d.cu", "poisson3d.cu", "stencil3d.cu"]
+        "poisson2d.cu", "stencil2d.cu", "poisson3d.cu", "stencil3d.cu",
+        "ns2d.cu"]
     assert all(s.exists() for s in _build.SOURCES)
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "_build")
     _fake_nvcc(monkeypatch, 0)
     so, log = _build.build()
     assert so.parent == tmp_path / "_build" and "registers" in log
-    # one compile per source, then the link: five ptxas lines
+    # one compile per source, then the link: a ptxas line each
     assert log.count("registers") == len(_build.SOURCES) + 1
     assert [p.name for p in so.parent.iterdir()] == [so.name]  # no temp left
     assert _build.build() == (so, "")   # built already: nothing compiled

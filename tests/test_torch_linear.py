@@ -110,8 +110,10 @@ def test_solve_linear_rejects_nonlinear_residual():
                             device="cpu")
     with pytest.raises(ValueError, match="restart"):
         linear.solve_linear(lambda u: u, (8, 8), restart=5, device="cpu")
-    with pytest.raises(NotImplementedError, match="flow slice"):
-        linear.solve_linear(lambda u: u, {"u": (8, 8)}, device="cpu")
+    # a mixed system's template (a dict of fields) is checked the same way
+    with pytest.raises(ValueError, match="not affine"):
+        linear.solve_linear(lambda f: {k: a**2 - 1.0 for k, a in f.items()},
+                            {"u": torch.zeros(8, 8)}, device="cpu")
 
 
 # ------------------------------------------------ module_linear_solve ----
@@ -193,11 +195,16 @@ def test_module_linear_solve_other_methods(method):
 
 
 def test_stokes_route_waits_for_the_flow_slice():
+    """The flow slice is ported: Stokes modules route to
+    stokes_linear_solve, and scalar-path knobs raise instead of being
+    ignored (the solve itself: tests/test_torch_flow.py)."""
     class Stokes:
         eq_type = "stokes"
 
-    with pytest.raises(NotImplementedError, match="flow slice"):
-        linear.module_linear_solve(Stokes(), device="cpu")
+    for kw in ({"method": "gmres"}, {"M": lambda r: r},
+               {"assemble": "stencil"}, {"forcing_tensor": np.zeros(1)}):
+        with pytest.raises(ValueError, match="stokes_linear_solve"):
+            linear.module_linear_solve(Stokes(), device="cpu", **kw)
 
 
 # ------------------------------------------------------ transfers ----

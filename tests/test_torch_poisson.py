@@ -211,13 +211,15 @@ def test_datasets_match_jax():
 
 
 def test_port_imports_no_jax():
-    """Importing every module of the port leaves jax and diffnet_tpu out of
-    sys.modules."""
+    """Importing every module of the port, and chip_smoke.py (without
+    running its main), leaves jax and diffnet_tpu out of sys.modules."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import diffnet_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
+        "sys.path.insert(0, '.')\n"
+        "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'diffnet_tpu', 'flax', 'optax'))\n"
         "assert not bad, bad\n"

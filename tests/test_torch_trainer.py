@@ -32,7 +32,10 @@ from diffnet_tpu_torch.train import (Callback, EarlyStopping, Trainer,
                                      extract_stencil, extract_verified,
                                      load_params, load_state,
                                      module_linear_solve,
-                                     multigrid_preconditioner, solve_linear)
+                                     multigrid_preconditioner, newton_solve,
+                                     ns_newton_solve, solve_linear,
+                                     stokes_block_preconditioner,
+                                     stokes_linear_solve)
 
 
 @pytest.fixture(autouse=True)
@@ -216,6 +219,15 @@ def _tiny_module(n=9):
     return tm
 
 
+def _tiny_stokes(kind="stokes"):
+    from diffnet_tpu_torch.data import StokesMMSDataset
+    from diffnet_tpu_torch.pde import NavierStokes, StokesMMS
+
+    ds = StokesMMSDataset(9)
+    return (StokesMMS if kind == "stokes" else NavierStokes)(
+        None, ds, domain_size=9, batch_size=1)
+
+
 ENTRY_POINTS = {   # entry point -> a call that leaves `device` at its default
     "Trainer": (Trainer, lambda: Trainer()),
     "solve_linear": (solve_linear,
@@ -233,6 +245,15 @@ ENTRY_POINTS = {   # entry point -> a call that leaves `device` at its default
                          lambda: extract_verified(lambda u: 2.0 * u, (5, 5))),
     "assemble_stencil": (assemble_stencil,
                          lambda: assemble_stencil(lambda u: u - 1.0, (5, 5))),
+    "newton_solve": (newton_solve,
+                     lambda: newton_solve(lambda x: x - 1.0, torch.zeros(3))),
+    "stokes_block_preconditioner": (
+        stokes_block_preconditioner,
+        lambda: stokes_block_preconditioner(_tiny_stokes())),
+    "stokes_linear_solve": (stokes_linear_solve,
+                            lambda: stokes_linear_solve(_tiny_stokes())),
+    "ns_newton_solve": (ns_newton_solve,
+                        lambda: ns_newton_solve(_tiny_stokes("ns"))),
 }
 
 
