@@ -14,23 +14,29 @@ exits non-zero (it also does so, printing no result, without CUDA):
      (sm_90a, one process each, all started together) into one library.
   2. kernels: K1 (stiffness action and masked residual), K2 (resmin loss
      and gradient) and K3 (Ritz energy) against their plain torch versions
-     at 33^2 (anisotropic h), 40^2, 24x49 (K1 only), 1x513^2 (slice D2's
-     fine level) and 512^2 x 32; K4 (the assembled 9-point stencil apply)
+     at 33^2 (anisotropic h), 40^2, 1x513^2 (slice D2's fine level) and
+     512^2 x 32; K1 also at 24x49 and at shapes on its tile edges (1x2^2,
+     3x129x257, 1x100x77: a width no multiple of its 32-column tile). K1
+     and K3 also take bf16 fields: both against their bf16 plain versions
+     at every K1 shape, within 8e-3 x max(1, |plain|) (each rounds once
+     from float32). K4 (the assembled 9-point stencil apply)
      against its plain version at 2x33^2, 1x40x56, 3x17x129, slice D's
      levels 1x513^2, 1x257^2, 1x129^2, 1x65^2, and 32x512^2, each with
      per-sample and batch-1 C.
-     The time of each at 512^2 x 32 beside its plain version's and its
-     bound (CUDA events around 10 back-to-back calls queued behind a spin
-     kernel, median of 20 runs; see ``cuda_ms``).
+     The time of each at 512^2 x 32 (K1 in float32 and bf16) beside its
+     plain version's and its bound (CUDA events around 10 back-to-back
+     calls queued behind a spin kernel, median of 20 runs; see
+     ``cuda_ms``).
      K5 (the trilinear stiffness action and its masked residual) at 2x9^3
      (anisotropic h), 2x17^3, 2x20x17x17, 1x129^3 (slice F's fine level),
      4x64^3 and 1x128^3, timed at the last two; K4-3D (the 27-point apply)
      at 2x9^3, 1x10x12x14, slice F's levels 1x129^3, 65^3, 33^3, 17^3 and
      1x128^3, per-sample and batch-1 C, timed at 1x128^3.
      K6 (the fused VMS Navier-Stokes residual) at 2x33^2 (anisotropic h),
-     2x40^2 with forcing, 2x65^2, 1x129^2 (slice G1's grid), 8x256^2 and
-     8x512^2, visco 0.01, each residual within 2e-5 x max(1, max |plain|)
-     (the JAX package's kernel-vs-XLA tolerance), timed at the last two.
+     2x40^2 with forcing, 2x65^2, 1x2^2 and 1x97^2 (its tile edges),
+     1x129^2 (slice G1's grid), 8x256^2 and 8x512^2, visco 0.01, each
+     residual within 2e-5 x max(1, max |plain|) (the JAX package's
+     kernel-vs-XLA tolerance), timed at the last two.
   3. gradients: the K1 du/dnu, K3 du, K2 du and K4 dC/du VJPs against
      autograd through the plain versions, at 65^2; the K5 du/dnu and K4-3D
      dC/du VJPs at 17^3; the K6 VJP and its JVP (``torch.func.jvp``) at 33^2.
@@ -85,7 +91,13 @@ exits non-zero (it also does so, printing no result, without CUDA):
         launched at least once an evaluation. G3 10 Adam steps at 8 x 256^2
         from seeded random fields: the loss falls, K6 launches once a step,
         the first loss matches the unfused path.
-  Then the kernel table line and, last, ``{"ok": true, "device": ...}``.
+  11. path shapes: each kernel timed again at the shape where most of its
+     launches on the paths above ran (the slice with the most launches, by
+     ``SLICE_SHAPES``): ``ms_path_shape`` and ``path_shape`` on the kernel
+     table line.
+  Then the kernel table line (all seven kernels; K1's also carries its
+  bf16 time, bound and largest error) and, last, ``{"ok": true, "device":
+  ...}``.
 """
 
 from __future__ import annotations
@@ -155,6 +167,8 @@ JAX_F_RELRES = 3.352927819832985e-07
 E1_LIMIT = 1.3 * JAX_E1_REL_L2
 RELRES_LIMIT_3D = 2.0 * JAX_F_RELRES
 SOLVE_GRID_3D, N_COARSE_3D = 129, 9   # slice F: levels 129-65-33-17-9
+BF16_ATOL = 8e-3       # bf16 K1 field, K3 energy, times max(1, |plain|):
+#                        kernel and plain version each round once from f32
 K6_ATOL = 2e-5         # K6 residuals, times max(1, max |plain|): the JAX
 #                        package's kernel-vs-XLA tolerance (test_pallas_kernel)
 # Slice G1, the lid-driven cavity (scripts/torch_port_reference_flow.py
@@ -322,14 +336,22 @@ def phase_build() -> None:
           "library": so.name, "ptxas": ptxas})
 
 
+# K1 (float32 and bf16) at each shape; K2 and K3 on the square ones but
+# 1 x 2^2. 1 x 513^2 is slice D2's fine level; 1 x 2^2, 3 x 129 x 257 and
+# 1 x 100 x 77 hit K1's tile edges (a width not a multiple of 32).
+K1_SHAPES = ((2, 33, 33, True), (2, 40, 40, False), (2, 24, 49, False),
+             (1, 2, 2, False), (3, 129, 257, False), (1, 100, 77, False),
+             (1, 513, 513, False), (32, 512, 512, False))
+K2_K3_SHAPES = ((2, 33, 33), (2, 40, 40), (1, 513, 513), (32, 512, 512))
+
+
 def phase_kernels(dev) -> dict:
-    """Each kernel against its plain version; times at 512^2 x 32."""
+    """K1-K3 against their plain versions, K1 and K3 in float32 and bf16;
+    times at 512^2 x 32."""
     g = torch.Generator(device=dev).manual_seed(0)
     errs = {name: 0.0 for name in KERNELS}
     times = {}
-    for B, ny, nx, aniso in ((2, 33, 33, True), (2, 40, 40, False),
-                             (2, 24, 49, False), (1, 513, 513, False),
-                             (32, 512, 512, False)):
+    for B, ny, nx, aniso in K1_SHAPES:
         tb = basis_for(ny, nx, aniso, dev)
         u, nu, Nf, f = (torch.rand((B, ny, nx), generator=g, device=dev)
                         for _ in range(4))
@@ -348,13 +370,31 @@ def phase_kernels(dev) -> dict:
         torch.cuda.synchronize()
         for name, a, b in (("K1", K, Kp), ("K1_residual", R, Rp)):
             err = float((a - b).abs().max())
-            ref = float(b.abs().max())
-            row[name] = {"max_abs_err": err, "rel_err": err / ref}
+            ref = float(b.abs().max())   # 0 for the residual at 2^2
+            row[name] = {"max_abs_err": err, "rel_err": err / max(ref, 1.0)}
             errs["poisson_stiffness_action"] = max(
                 errs["poisson_stiffness_action"], err)
             if err > FIELD_ATOL * max(1.0, ref):
                 fail(f"{name} at {row['shape']}: max abs err {err}")
-        if ny == nx:
+        # bf16 fields (K1 and K3 take them): one rounding from f32 each
+        ub, nub, fb = u.bfloat16(), nu.bfloat16(), f.bfloat16()
+        Kb = k1.stiffness_action(ub, nub, tb)
+        Kbp = k1.stiffness_action_plain(ub, nub, tb)
+        Eb = float(k3.energy(ub, nub, fb, tb))
+        Ebp = float(k3.energy_plain(ub, nub, fb, tb))
+        torch.cuda.synchronize()
+        err = float((Kb.float() - Kbp.float()).abs().max())
+        ref = float(Kbp.float().abs().max())
+        row["K1_bf16"] = {"dtype": str(Kb.dtype), "max_abs_err": err,
+                          "rel_err": err / max(ref, 1.0)}
+        row["K3_bf16"] = {"energy": Eb, "abs_err": abs(Eb - Ebp)}
+        errs["poisson_stiffness_action_bf16"] = max(
+            errs.get("poisson_stiffness_action_bf16", 0.0), err)
+        if Kb.dtype != torch.bfloat16 or err > BF16_ATOL * max(1.0, ref):
+            fail(f"K1 bf16 at {row['shape']}: {row['K1_bf16']}")
+        if abs(Eb - Ebp) > BF16_ATOL * max(1.0, abs(Ebp)):
+            fail(f"K3 bf16 at {row['shape']}: {row['K3_bf16']}")
+        if (B, ny, nx) in K2_K3_SHAPES:
             loss, grad = k2.resmin_loss_grad(u, nu, Nf, bc, tb)
             loss_p, grad_p = k2.resmin_loss_grad_plain(u, nu, Nf, bc, tb)
             E = k3.energy(u, nu, f, tb)
@@ -380,6 +420,7 @@ def phase_kernels(dev) -> dict:
             t = cuda_ms({
                 "K1_plain": lambda: k1.stiffness_action_plain(u, nu, tb),
                 "K1": lambda: k1.stiffness_action(u, nu, tb),
+                "K1_bf16": lambda: k1.stiffness_action(ub, nub, tb),
                 "K2_plain": lambda: k2.resmin_loss_grad_plain(u, nu, Nf, bc,
                                                               tb),
                 "K2": lambda: k2.resmin_loss_grad(u, nu, Nf, bc, tb),
@@ -390,7 +431,10 @@ def phase_kernels(dev) -> dict:
             times = {
                 "poisson_stiffness_action": dict(
                     ms=t["K1"], plain_ms=t["K1_plain"],
-                    **bound("poisson_stiffness_action", (u, nu, K), shape)),
+                    **bound("poisson_stiffness_action", (u, nu, K), shape),
+                    ms_bf16=t["K1_bf16"], bound_ms_bf16=bound(
+                        "poisson_stiffness_action", (ub, nub, Kb),
+                        shape)["bound_ms"]),
                 "poisson_resmin_loss_grad": dict(
                     ms=t["K2"], plain_ms=t["K2_plain"],
                     **bound("poisson_resmin_loss_grad",
@@ -400,11 +444,14 @@ def phase_kernels(dev) -> dict:
                     **bound("poisson_energy", (u, nu, f), shape))}
             row["ms"] = t
             row["bound_ms"] = {k: v["bound_ms"] for k, v in times.items()}
+            row["bound_ms"]["poisson_stiffness_action_bf16"] = times[
+                "poisson_stiffness_action"]["bound_ms_bf16"]
             gb = 1e-9 * B * ny * nx * 4
             row["kernel_GBps"] = {"K1": 3 * gb / (t["K1"] * 1e-3),
                                   "K2": 5 * gb / (t["K2"] * 1e-3),
                                   "K3": 3 * gb / (t["K3"] * 1e-3)}
         emit(row)
+        del u, nu, Nf, f, ub, nub, fb, K, Kp, R, Rp, Kb, Kbp
     return {"errs": errs, "times": times}
 
 
@@ -545,10 +592,12 @@ def phase_stencil3d_kernel(dev) -> dict:
     return {"err": err, "times": times}
 
 
-# (B, n, anisotropic h, forcing): 1 x 129^2 is slice G1's grid; 8 x 256^2
+# (B, n, anisotropic h, forcing): 1 x 2^2 and 1 x 97^2 hit K6's tile edges
+# (31 node columns a warp); 1 x 129^2 is slice G1's grid; 8 x 256^2
 # bench.py's NS shape (bench.py:1358), 8 x 512^2 its NS throughput shape
 # (bench.py:1591-1601)
 K6_SHAPES = ((2, 33, True, False), (2, 40, False, True), (2, 65, False, False),
+             (1, 2, False, False), (1, 97, False, False),
              (1, 129, False, False), (8, 256, False, False),
              (8, 512, False, False))
 K6_TIMED = ((8, 256), (8, 512))
@@ -840,7 +889,7 @@ def _device_idle_share(solve, b) -> dict:
             "top_ms": {k: v / 1e3 for k, v in top}}
 
 
-def slice_d(dev) -> None:
+def slice_d(dev) -> dict:
     """The MG-CG solve of bench.py's ``_solve_time``, in its three
     variants (see the module docstring)."""
     n, iters = SOLVE_GRID, SOLVE_ITERS
@@ -944,6 +993,7 @@ def slice_d(dev) -> None:
                                                 "setup_s", "solve_ms")}
                        for k, v in variants.items()}
     emit(out)
+    return {k: v["launches"] for k, v in variants.items()}
 
 
 def slice_e1(dev) -> dict:
@@ -1052,7 +1102,7 @@ class _VarNuInstance3D:
         return self.inputs, self.forcing
 
 
-def slice_f(dev) -> None:
+def slice_f(dev) -> dict:
     """The 129^3 MG-CG solve in its three variants (see the module
     docstring)."""
     n, iters = SOLVE_GRID_3D, SOLVE_ITERS
@@ -1146,6 +1196,7 @@ def slice_f(dev) -> None:
                                                 "setup_s", "solve_ms")}
                        for k, v in variants.items()}
     emit(out)
+    return {k: v["launches"] for k, v in variants.items()}
 
 
 def ldc_module(n: int, fused: bool, network=None, batch_size: int = 1,
@@ -1403,11 +1454,75 @@ def resident_steps_per_s(dev) -> dict:
     return out
 
 
+# The shape each slice runs each kernel at. D3 and F3 run K4 / K4-3D on
+# every multigrid level; the fine level stands for them, since it takes the
+# outer Krylov matvec on top of the V-cycle's visits that every level takes.
+SLICE_SHAPES = {
+    "poisson_stiffness_action": {"A": (1, 64, 64), "B": (32, 512, 512),
+                                 "C": (32, 512, 512), "D2": (1, 513, 513)},
+    "poisson_resmin_loss_grad": {"B": (32, 512, 512)},
+    "poisson_energy": {"C": (32, 512, 512)},
+    "stencil_apply_2d": {"D3": (1, 513, 513)},
+    "poisson_stiffness_action_3d": {"E1": (1, 17, 17, 17),
+                                    "E2": (4, 64, 64, 64),
+                                    "F2": (1, 129, 129, 129)},
+    "stencil_apply_3d": {"F3": (1, 129, 129, 129)},
+    "ns_vms_residual": {"G1": (1, 129, 129), "G2": (1, 64, 64),
+                        "G3": (8, 256, 256)},
+}
+
+
+def _kernel_call(name: str, shape, dev):
+    """A call of kernel `name` on seeded random inputs of `shape`."""
+    g = torch.Generator(device=dev).manual_seed(6)
+
+    def rand(*s):
+        return torch.rand(s, generator=g, device=dev)
+
+    u, nu = rand(*shape), rand(*shape) + 0.5
+    if name in ("stencil_apply_2d", "stencil_apply_3d"):
+        C = rand(9 if len(shape) == 3 else 27, *shape) - 0.5
+        fn = k4.apply_2d if len(shape) == 3 else k4.apply_3d
+        return lambda: fn(C, u)
+    if name == "poisson_stiffness_action_3d":
+        tb = basis_3d(shape, False, dev)
+        return lambda: k5.stiffness_action_3d(u, nu, tb)
+    tb = basis_for(shape[1], shape[2], False, dev)
+    if name == "poisson_stiffness_action":
+        return lambda: k1.stiffness_action(u, nu, tb)
+    if name == "poisson_resmin_loss_grad":
+        Nf, bc = rand(*shape), (rand(*shape[1:]) > 0.9).float()
+        return lambda: k2.resmin_loss_grad(u, nu, Nf, bc, tb)
+    if name == "poisson_energy":
+        f = rand(*shape)
+        return lambda: k3.energy(u, nu, f, tb)
+    v, p = rand(*shape), rand(*shape)
+    return lambda: k6.ns_vms_residual(u, v, p, None, None, tb, 0.01)
+
+
+def phase_path_shapes(dev, by_slice: dict) -> dict:
+    """Each kernel's time at the shape where most of its main-path
+    launches ran: the slice (SLICE_SHAPES) with the most launches."""
+    out = {}
+    for name, shapes in SLICE_SHAPES.items():
+        runs = {sl: by_slice[sl][name] for sl in shapes}
+        sl = max(runs, key=runs.get)
+        if runs[sl] <= 0:
+            fail(f"{name}: no launch on its slices {runs}")
+        ms = cuda_ms({name: _kernel_call(name, shapes[sl], dev)})[name]
+        out[name] = {"shape": list(shapes[sl]), "slice": sl, "ms": ms,
+                     "launches_by_slice": runs}
+    emit({"phase": "path_shapes", **out})
+    return out
+
+
 def main() -> int:
     dev = torch.device("cuda:0")
     phase_device(dev)
     phase_build()
     k = phase_kernels(dev)
+    k["times"]["poisson_stiffness_action"]["max_abs_err_bf16"] = \
+        k["errs"].pop("poisson_stiffness_action_bf16")
     k4_res = phase_stencil_kernel(dev)
     k["errs"]["stencil_apply_2d"] = k4_res["err"]
     k["times"]["stencil_apply_2d"] = k4_res["times"]
@@ -1429,14 +1544,14 @@ def main() -> int:
     lc = slice_c(dev)
     paths["training_2d"] = counts()
     reset_counts()           # the 2D linear-solver path
-    slice_d(dev)
+    ld = slice_d(dev)
     paths["solver_2d"] = counts()
     reset_counts()           # the 3D training path
     le1 = slice_e1(dev)
     le2 = slice_e2(dev)
     paths["training_3d"] = counts()
     reset_counts()           # the 3D linear-solver path
-    slice_f(dev)
+    lf = slice_f(dev)
     paths["solver_3d"] = counts()
     reset_counts()           # the flow path
     lg1 = slice_g1(dev)
@@ -1462,6 +1577,9 @@ def main() -> int:
 
     emit({"phase": "resident_steps_per_s",
           "steps_per_s": resident_steps_per_s(dev)})
+    by_slice = {"A": la, "B": lb, "C": lc, **ld, "E1": le1, "E2": le2, **lf,
+                "G1": lg1, "G2": lg2, "G3": lg3}
+    path = phase_path_shapes(dev, by_slice)
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": source,
          "replaces": replaces, "launches": total[name],
@@ -1469,6 +1587,11 @@ def main() -> int:
          "plain_ms": k["times"][name]["plain_ms"],
          "bound_ms": k["times"][name]["bound_ms"],
          "bound_by": k["times"][name]["bound_by"],
+         "ms_path_shape": path[name]["ms"],
+         "path_shape": path[name]["shape"],
+         **{key: k["times"][name][key] for key in (
+             "ms_bf16", "bound_ms_bf16", "max_abs_err_bf16")
+            if key in k["times"][name]},
          # no single PyTorch call computes any of these: K1-K5 have a
          # coefficient that varies by node (nu, or the stencil planes C),
          # K6 is nonlinear in (u, v, p) with a tau per Gauss point

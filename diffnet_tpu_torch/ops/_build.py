@@ -23,7 +23,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-__all__ = ["NVCC_FLAGS", "LINK_FLAGS", "SOURCES", "build", "load_library"]
+__all__ = ["NVCC_FLAGS", "LINK_FLAGS", "SOURCES", "build", "load_library",
+           "sm_count"]
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = tuple(_PKG / "csrc" / name for name in (
@@ -37,18 +38,18 @@ LINK_FLAGS = ("-shared",)
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
 _SIGNATURES = {
-    "poisson_stiffness_action": (_I, [_P, _P, _P, _I, _I, _I] + [_F] * 4
+    "poisson_stiffness_action": (_I, [_P, _P, _P] + [_I] * 5 + [_F] * 4
                                  + [_P]),
     "poisson_resmin_loss_grad": (_I, [_P, _P, _P, _LL, _P, _LL, _P, _P, _I,
                                       _I, _I] + [_F] * 4 + [_P]),
-    "poisson_energy": (_I, [_P, _P, _P, _P, _I, _I, _I] + [_F] * 7 + [_P]),
+    "poisson_energy": (_I, [_P, _P, _P, _P] + [_I] * 4 + [_F] * 7 + [_P]),
     "poisson_resmin_loss_grad_partials": (_LL, [_I, _I, _I]),
     "poisson_energy_partials": (_LL, [_I, _I, _I]),
     "stencil_apply_2d": (_I, [_P, _LL, _P, _P, _I, _I, _I, _I, _P]),
     "poisson_stiffness_action_3d": (_I, [_P, _P, _P, _I, _I, _I, _I]
                                     + [_F] * 7 + [_P]),
     "stencil_apply_3d": (_I, [_P, _LL, _P, _P, _I, _I, _I, _I, _I, _P]),
-    "ns_vms_residual": (_I, [_P] * 8 + [_I] * 4 + [_F] * 14 + [_P]),
+    "ns_vms_residual": (_I, [_P] * 8 + [_I] * 4 + [_F] * 18 + [_P]),
     "poisson2d_error_string": (ctypes.c_char_p, [_I]),
 }
 
@@ -122,6 +123,22 @@ def load_library() -> ctypes.CDLL:
         fn.restype = restype
         fn.argtypes = argtypes
     return lib
+
+
+@functools.cache
+def _sms(index: int) -> int:
+    import torch
+
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device) -> int:
+    """Streaming multiprocessors of a CUDA device (the kernels with a
+    per-launch tiling choice size it by them)."""
+    import torch
+
+    index = device.index
+    return _sms(torch.cuda.current_device() if index is None else index)
 
 
 def check(status: int, name: str) -> None:

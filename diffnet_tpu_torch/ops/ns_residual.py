@@ -18,16 +18,26 @@ summed over gx, X: the dx part summed over gx, Y: the dy part summed over
 gy) before a 1D projection tail gives the element's four corner values of
 each residual.
 
-What bounds it on the card: at 8 x 512^2 it moves u, v, p in and R1-R3
-out, 24 B a node (50.3 MB, 15.0 us at 3.35 TB/s), against 532 fp32
-operations an element in ``csrc/ns2d.cu``'s body and 9 a node (FMA counted
-as two; 1.11 GFLOP, 16.6 us at 67 TFLOP/s): the two floors nearly tie. The kernel
-gives each block 32 x 8 elements, one a thread: it stages u, v, p (and f)
-on their 33 x 9 nodes in shared memory, computes each element once, keeps
-its 12 corner values (4 corners x 3 residuals) in shared memory, and each
-thread of the block's 31 x 7 output nodes sums its node's four corners of
-each residual. No atomics, the same result on every run; the TPU strips,
-VMEM scratch and DMA semaphores are not carried over.
+What bounds it on the card: instruction issue. At 8 x 512^2 it moves u, v,
+p in and R1-R3 out, 24 B a node (50.3 MB, 15.0 us at 3.35 TB/s), against
+532 fp32 operations an element in the algorithm and 9 a node (FMA counted
+as two; 1.11 GFLOP, 16.6 us at 67 TFLOP/s): the two floors nearly tie, and
+the fp32 floor assumes all-FMA code. The first kernel (a block of 32 x 8
+elements staged in shared memory, the corner values through shared memory,
+1.18 element bodies an output node) ran at 0.0662 ms there on an H100
+(700 W), 25% of that floor (PERF.md). The kernel (``csrc/ns2d.cu``) now
+gives each block four warps stacked in y, each writing 31 node columns
+and walking a strip of ``strip_rows`` element rows: each lane walks down a
+column of elements, computes each once from node rows it loads straight
+into registers, carries the bottom-corner sums down the column and takes
+its neighbour's corner sums by shuffle; only a strip's last sums pass to
+the warp below through shared memory, after the block's one barrier. The
+strip is long where the grid fills the card and one element row where it
+does not (a 129^2 grid). The body folds each
+symmetric Gauss pair into sum/difference form (``tests/test_torch_flow.py``
+holds a float64 transcription of it to the plain version). No atomics, the
+same result on every run; the TPU strips, VMEM scratch and DMA semaphores
+are not carried over.
 
 ``ns_vms_residual_fused`` is differentiable in both modes, as the JAX op
 (a ``custom_jvp`` whose tangent runs the XLA path): its forward is the
@@ -45,7 +55,7 @@ import torch
 
 from ..core import fem
 from ..core.quadrature import FEMBasis
-from ._build import check, load_library
+from ._build import check, load_library, sm_count
 from .poisson_residual import check_fields, require_cuda
 
 __all__ = ["calc_tau", "ns_vms_residual", "ns_vms_residual_fused",
@@ -55,9 +65,15 @@ __all__ = ["calc_tau", "ns_vms_residual", "ns_vms_residual_fused",
 # Launches of the CUDA kernel (a plain count; callers reset it to 0).
 launches = 0
 
-# Elements a block computes (x, y), one a thread; it writes the 31 x 7
-# output nodes whose four elements all lie among them.
-TILE = (32, 8)
+# The kernel's tiling (csrc/ns2d.cu): a block is WARPS warps stacked in y,
+# each writing COLS node columns and walking a strip of element rows, one
+# of STRIPS long. On an H100, 7 rows are fastest at 8 x 512^2, 5 at
+# 8 x 256^2 (where 7 leave the SMs 22 warps each) and one row a lane on a
+# 129^2 grid (PERF.md).
+COLS = 31
+WARPS = 4
+STRIPS = (7, 5, 3, 1)
+MIN_WARPS_PER_SM = 24
 
 
 def calc_tau(h, u, v, visco):
@@ -76,11 +92,13 @@ def calc_tau(h, u, v, visco):
 
 
 def ns_consts(basis: FEMBasis, visco: float) -> tuple[float, ...]:
-    """The kernel's constants: ``(c00, c01, c10, c11)``, the 1D shape values
-    ``cN[g][node] = (1 -+ xi_g) / 2`` at the two Gauss points; ``1/hx,
-    1/hy``; ``W, W/hx, W/hy`` (W the equal JxW of the four Gauss points);
-    visco; ``Gxx = 4/hx^2, Gyy = 4/hy^2``; the diffusive part of tau's
-    metric ``36 visco^2 (Gxx^2 + Gyy^2)``; ``1 / (Gxx + Gyy)``."""
+    """The kernel's constants (``csrc/ns2d.cu``'s ``NSConsts``): with p, q
+    the 1D shape values at the first Gauss point (p + q = 1), h = (p - q)/2
+    and W the equal JxW of the four Gauss points: ``h, h^2, -1/(2 hx),
+    h/hx, -1/(2 hy), h/hy``; visco; ``Gxx = 4/hx^2, Gyy = 4/hy^2``; the
+    diffusive part of tau's metric ``36 visco^2 (Gxx^2 + Gyy^2)``;
+    ``1 / (Gxx + Gyy)``; ``W/4, W h, W h^2, W/(2 hx), W/(2 hy), W h/hx,
+    W h/hy``."""
     if not (basis.deg == 1 and basis.nsd == 2 and basis.ngp_1d == 2):
         raise ValueError("the fused NS kernel supports deg-1 2D with 2x2 "
                          "Gauss points only")
@@ -90,11 +108,24 @@ def ns_consts(basis: FEMBasis, visco: float) -> tuple[float, ...]:
     if not np.allclose(jxw, W):
         raise ValueError("2x2 Gauss points must have equal JxW")
     hx, hy = (float(h) for h in basis.h)
-    cN = [((1.0 - x) / 2.0, (1.0 + x) / 2.0) for x in xi]
+    h = -float(xi[0]) / 2.0     # ((1 - xi) - (1 + xi)) / 4
     Gxx, Gyy = 4.0 / hx**2, 4.0 / hy**2
-    return (cN[0][0], cN[0][1], cN[1][0], cN[1][1], 1.0 / hx, 1.0 / hy,
-            W, W / hx, W / hy, float(visco), Gxx, Gyy,
-            36.0 * visco**2 * (Gxx**2 + Gyy**2), 1.0 / (Gxx + Gyy))
+    return (h, h * h, -0.5 / hx, h / hx, -0.5 / hy, h / hy, float(visco),
+            Gxx, Gyy, 36.0 * visco**2 * (Gxx**2 + Gyy**2), 1.0 / (Gxx + Gyy),
+            W / 4.0, W * h, W * h * h, W / (2.0 * hx), W / (2.0 * hy),
+            W * h / hx, W * h / hy)
+
+
+def strip_rows(B: int, n: int, sms: int) -> int:
+    """Element rows a warp walks for a ``[B, n, n]`` launch on `sms` SMs:
+    the longest strip whose launch still gives each SM ``MIN_WARPS_PER_SM``
+    warps, else one element row a lane."""
+    cols = -(-n // COLS)
+    for ty in STRIPS:
+        blocks = B * cols * -(-n // (WARPS * ty - 1))
+        if blocks * WARPS >= MIN_WARPS_PER_SM * sms:
+            return ty
+    return STRIPS[-1]
 
 
 def _gauss_values(u, v, p, fx, fy, basis: fem.BasisTables):
@@ -243,18 +274,18 @@ def ns_vms_residual(u, v, p, fx, fy, basis: fem.BasisTables, visco: float):
     if u.device.type == "cpu":
         return ns_vms_residual_plain(u, v, p, fx, fy, basis, visco)
     require_cuda(op, u)
-    B, ny, nx = u.shape
-    tiles_y = -(-ny // (TILE[1] - 1))
-    if B * tiles_y > 65535:
-        raise ValueError(f"{op}: batch x y-tiles {B} x {tiles_y} exceeds "
-                         "the grid limit 65535")
+    B, n, _ = u.shape
+    ty = strip_rows(B, n, sm_count(u.device))
+    if -(-n // (WARPS * ty - 1)) > 65535:
+        raise ValueError(f"{op}: {-(-n // (WARPS * ty - 1))} blocks of "
+                         f"{WARPS * ty - 1} rows exceed the grid limit 65535")
     lib = load_library()
     outs = [torch.empty_like(u) for _ in range(3)]
     has_f = fx is not None
     status = lib.ns_vms_residual(
         u.data_ptr(), v.data_ptr(), p.data_ptr(),
         fx.data_ptr() if has_f else None, fy.data_ptr() if has_f else None,
-        *(o.data_ptr() for o in outs), B, ny, nx, int(has_f), *consts,
+        *(o.data_ptr() for o in outs), B, n, ty, int(has_f), *consts,
         torch.cuda.current_stream(u.device).cuda_stream)
     check(status, op)
     launches += 1

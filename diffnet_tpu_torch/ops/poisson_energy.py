@@ -21,6 +21,12 @@ The gradient reuses K1: dE/du = (K(nu) u - Nf) / (B nely nelx) is the
 assembled Galerkin residual, so the backward runs the stiffness kernel; the
 nu and f cotangents are Galerkin projections.
 
+u, nu and f are all float32 or all bfloat16, as the JAX kernel's fields may
+be; the energy has their type. The bfloat16 kernel loads the narrow type
+and sums in float32 registers and partials, rounding once at the end (the
+plain version upcasts, computes and casts back); its backward runs the
+stiffness kernel in the fields' type and the projections in float32.
+
 The JAX kernel takes square fields only; this one takes rectangular fields
 too, with the mean over all elements as in the XLA path
 (``poisson_energy_loss``).
@@ -33,8 +39,8 @@ import torch
 from ..core import fem
 from ..core.quadrature import FEMBasis
 from ._build import check, load_library
-from .poisson_residual import (check_fields, q1_geometry, require_cuda,
-                               stiffness_action)
+from .poisson_residual import (FIELD_TYPES, check_fields, q1_geometry,
+                               require_cuda, stiffness_action)
 
 __all__ = ["poisson_energy_fused", "energy", "energy_plain"]
 
@@ -81,8 +87,10 @@ def element_energy(u, nu, f, c) -> torch.Tensor:
 
 
 def energy_plain(u, nu, f, basis: fem.BasisTables) -> torch.Tensor:
-    """Plain torch Ritz energy on any device: the kernel's reference."""
-    return element_energy(u, nu, f, energy_consts(basis.basis)).mean()
+    """Plain torch Ritz energy on any device: the kernel's reference.
+    Narrower types than float32 are computed in float32 and cast back."""
+    return element_energy(u.float(), nu.float(), f.float(),
+                          energy_consts(basis.basis)).mean().to(u.dtype)
 
 
 def energy(u, nu, f, basis: fem.BasisTables) -> torch.Tensor:
@@ -90,21 +98,22 @@ def energy(u, nu, f, basis: fem.BasisTables) -> torch.Tensor:
     for CPU tensors; any other device raises. Not differentiable (see
     :func:`poisson_energy_fused`)."""
     global launches
-    check_fields("poisson_energy_fused", u, nu=nu, f=f)
+    check_fields("poisson_energy_fused", u, dtypes=FIELD_TYPES, nu=nu, f=f)
     if u.device.type == "cpu":
         return energy_plain(u, nu, f, basis)
     require_cuda("poisson_energy_fused", u)
     lib = load_library()
     B, ny, nx = u.shape
     partials = torch.empty(lib.poisson_energy_partials(B, ny, nx),
-                           dtype=u.dtype, device=u.device)
+                           dtype=torch.float32, device=u.device)
     status = lib.poisson_energy(
         u.data_ptr(), nu.data_ptr(), f.data_ptr(), partials.data_ptr(),
-        B, ny, nx, *energy_consts(basis.basis),
+        B, ny, nx, int(u.dtype == torch.bfloat16),
+        *energy_consts(basis.basis),
         torch.cuda.current_stream(u.device).cuda_stream)
     check(status, "poisson_energy_fused")
     launches += 1
-    return partials.sum() / (B * (ny - 1) * (nx - 1))
+    return (partials.sum() / (B * (ny - 1) * (nx - 1))).to(u.dtype)
 
 
 class _Energy(torch.autograd.Function):
@@ -121,20 +130,25 @@ class _Energy(torch.autograd.Function):
         basis = ctx.basis
         B, ny, nx = u.shape
         shape = (ny, nx)
-        scale = g / (B * (ny - 1) * (nx - 1))
+        # projections in float32 (a no-op for float32 fields), each
+        # cotangent cast to its field's type
+        scale = g.float() / (B * (ny - 1) * (nx - 1))
         du = dnu = df = None
         if ctx.needs_input_grad[0]:
             # dE/du = K(nu) u - Nf: the stiffness kernel plus one projection
-            f_gp = fem.gp_eval(f, basis, ("N",))["N"]
+            f_gp = fem.gp_eval(f.float(), basis, ("N",))["N"]
             Nf = fem.galerkin_project(f_gp, basis, "N", shape)
-            du = scale * (stiffness_action(u, nu, basis) - Nf)
+            du = (scale * (stiffness_action(u, nu, basis).float() - Nf)
+                  ).to(u.dtype)
         if ctx.needs_input_grad[1]:
-            gu = fem.gp_eval(u, basis, ("dx", "dy"))
-            dnu = scale * fem.galerkin_project(
+            gu = fem.gp_eval(u.float(), basis, ("dx", "dy"))
+            dnu = (scale * fem.galerkin_project(
                 0.5 * (gu["dx"] ** 2 + gu["dy"] ** 2), basis, "N", shape)
+                ).to(nu.dtype)
         if ctx.needs_input_grad[2]:
-            u_gp = fem.gp_eval(u, basis, ("N",))["N"]
-            df = -scale * fem.galerkin_project(u_gp, basis, "N", shape)
+            u_gp = fem.gp_eval(u.float(), basis, ("N",))["N"]
+            df = (-scale * fem.galerkin_project(u_gp, basis, "N", shape)
+                  ).to(f.dtype)
         return du, dnu, df, None
 
 

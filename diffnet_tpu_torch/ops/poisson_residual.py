@@ -9,19 +9,25 @@ Replaces the TPU kernel ``diffnet_tpu/ops/poisson_residual.py``
 for bilinear elements with 2x2 Gauss points, on square or rectangular
 ``[B, ny, nx]`` fields.
 
-What bounds it on the card: bytes, in principle. It moves u and nu in and
-Ku out, 12 B a node (about 101 MB at 512^2, batch 32). The kernel
-(``csrc/poisson2d.cu::stiffness_kernel``) gives each output node a thread
-that sums its (up to four) adjacent elements in gather form, reading the
-3x3 neighbourhood of u and nu: each input is read from device memory once,
-the neighbour re-reads hit L1/L2, no Gauss-point value leaves registers, and
-no atomics are needed, so every run gives the same result. The element body
-is the sum-factorised algebra of ``_strip_lr`` (exact, ~49 flops an
-element); the TPU tiling, padding and DMA pipelining are not carried over.
-The gather form computes every element once for each of its four nodes, so
-this first design is bound by instruction issue rather than bytes: 0.12 ms
-at 512^2 x 32 on an H100 (700 W), about a quarter of peak bandwidth
-(PERF.md). Computing each element once per tile is the next step.
+u and nu are both float32 or both bfloat16, as the JAX kernel's fields may
+be; the output has their type. The bfloat16 path loads the narrow type,
+computes in float32 and rounds once on the store (the plain version
+upcasts, computes and casts back).
+
+What bounds it on the card: bytes. It moves u and nu in and Ku out, 12 B a
+node in float32 (about 101 MB at 512^2, batch 32) and 6 B in bfloat16,
+against ~49 operations an element. The first kernel, a thread a node
+summing its four elements in gather form, computed each element body four
+times and ran at 0.112 ms at 512^2 x 32 on an H100 (700 W), 27% of its byte
+bound (PERF.md). The kernel (``csrc/poisson2d.cu::stiffness_kernel``) now
+gives each warp a tile of 64 node columns and ``strip_rows`` node rows: it
+stages u and nu on the tile and a one-node halo in shared memory with
+asynchronous copies, computes each element of the tile once (a lane walks
+down two columns of elements, its neighbour's corner sums come by
+shuffle), and writes each row of the tile with one coalesced store, a node
+pair a lane. It sums in the first kernel's order, so float32 results are
+bit-for-bit the same. No atomics, the same result on every run; the TPU
+tiling, padding and DMA pipelining are not carried over.
 
 ``poisson_stiffness_action`` is differentiable: the action is self-adjoint
 in u, so du = K(nu) g runs the same kernel, and d/dnu is one Galerkin
@@ -35,13 +41,36 @@ import torch.nn.functional as F
 
 from ..core import fem
 from ..core.quadrature import FEMBasis
-from ._build import check, load_library
+from ._build import check, load_library, sm_count
 
 __all__ = ["poisson_stiffness_action", "poisson_residual_fused",
            "stiffness_action", "stiffness_action_plain"]
 
 # Launches of the CUDA kernel (a plain count; callers reset it to 0).
 launches = 0
+
+# The kernel's tiling (csrc/poisson2d.cu): a block is one warp that owns
+# COLS node columns and a strip of node rows, one of STRIPS long (the
+# kernel takes 1 to 31). On an H100, 5 rows beat longer and shorter strips
+# at 512^2 x 32 and 1 x 513^2, and shorter strips win on grids that give
+# the card fewer than two warps an SM: 2 rows at 257^2, one at 64^2
+# (PERF.md).
+COLS = 64
+STRIPS = (5, 2, 1)
+MIN_WARPS_PER_SM = 2
+# the field types K1 and K3 take (the others take float32 only)
+FIELD_TYPES = (torch.float32, torch.bfloat16)
+
+
+def strip_rows(B: int, ny: int, nx: int, sms: int) -> int:
+    """Node rows of a K1 tile for a ``[B, ny, nx]`` launch on `sms` SMs:
+    the longest strip whose launch still gives each SM ``MIN_WARPS_PER_SM``
+    warps, else the shortest."""
+    cols = -(-nx // COLS)
+    for ty in STRIPS:
+        if B * cols * -(-ny // ty) >= MIN_WARPS_PER_SM * sms:
+            return ty
+    return STRIPS[-1]
 
 
 def q1_geometry(basis: FEMBasis) -> tuple[float, float, float, float]:
@@ -104,23 +133,32 @@ def assemble_corners(a0, a1, a2, a3) -> torch.Tensor:
 
 def stiffness_action_plain(u: torch.Tensor, nu: torch.Tensor,
                            basis: fem.BasisTables) -> torch.Tensor:
-    """Plain torch K(nu) u (any device): the kernel's reference."""
+    """Plain torch K(nu) u (any device): the kernel's reference. Narrower
+    types than float32 are computed in float32 and cast back."""
+    if u.dtype == torch.bfloat16:
+        return stiffness_action_plain(u.float(), nu.float(),
+                                      basis).to(u.dtype)
     return assemble_corners(*element_contributions(
         u, nu, stiffness_consts(basis.basis)))
 
 
 def check_fields(op: str, u: torch.Tensor, nsd: int = 2,
+                 dtypes: tuple[torch.dtype, ...] = (torch.float32,),
                  **others: torch.Tensor) -> None:
-    """What the kernels take: float32, contiguous ``[B, ny, nx]`` (nsd 2)
-    or ``[B, nz, ny, nx]`` (nsd 3) fields of at least 2 nodes an axis, all
-    on one device and of one shape."""
+    """What the kernels take: contiguous ``[B, ny, nx]`` (nsd 2) or
+    ``[B, nz, ny, nx]`` (nsd 3) fields of at least 2 nodes an axis, all on
+    one device, of one shape and of one type among `dtypes`."""
     if u.dim() != nsd + 1 or u.shape[0] < 1 or min(u.shape[1:]) < 2:
         dims = ("nz, ny, nx" if nsd == 3 else "ny, nx")
         raise ValueError(f"{op}: u must be [B, {dims}] with {dims} >= 2, "
                          f"got {tuple(u.shape)}")
+    names = " or ".join(str(d).removeprefix("torch.") for d in dtypes)
     for name, t in {"u": u, **others}.items():
-        if t.dtype != torch.float32:
-            raise TypeError(f"{op}: {name} must be float32, got {t.dtype}")
+        if t.dtype not in dtypes:
+            raise TypeError(f"{op}: {name} must be {names}, got {t.dtype}")
+        if t.dtype != u.dtype:
+            raise TypeError(f"{op}: {name} is {t.dtype}, u {u.dtype} (one "
+                            "type for all fields)")
         if t.device != u.device:
             raise ValueError(f"{op}: {name} is on {t.device}, u on "
                              f"{u.device}")
@@ -141,22 +179,34 @@ def require_cuda(op: str, t: torch.Tensor) -> None:
                          "65535")
 
 
+def aligned16(t: torch.Tensor) -> torch.Tensor:
+    """`t`, or a copy of it when its data does not start on a 16-B boundary
+    (a view at an offset): the kernels' 16-B copies need aligned bases."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def stiffness_action(u: torch.Tensor, nu: torch.Tensor,
                      basis: fem.BasisTables) -> torch.Tensor:
-    """K(nu) u: the CUDA kernel for CUDA tensors, the plain version for CPU
-    tensors; any other device raises. Not differentiable (see
+    """K(nu) u for float32 or bfloat16 fields, in their type: the CUDA
+    kernel for CUDA tensors, the plain version for CPU tensors; any other
+    device raises. Not differentiable (see
     :func:`poisson_stiffness_action`)."""
     global launches
-    check_fields("poisson_stiffness_action", u, nu=nu)
+    check_fields("poisson_stiffness_action", u, dtypes=FIELD_TYPES, nu=nu)
     if u.device.type == "cpu":
         return stiffness_action_plain(u, nu, basis)
     require_cuda("poisson_stiffness_action", u)
+    if u[0].numel() * u.element_size() > 2**31 - 64:
+        raise ValueError("poisson_stiffness_action: a sample's bytes must "
+                         "fit in 31 bits (the kernel's offsets)")
     lib = load_library()
+    u, nu = aligned16(u), aligned16(nu)
     out = torch.empty_like(u)
     B, ny, nx = u.shape
     status = lib.poisson_stiffness_action(
         u.data_ptr(), nu.data_ptr(), out.data_ptr(), B, ny, nx,
-        *stiffness_consts(basis.basis),
+        strip_rows(B, ny, nx, sm_count(u.device)),
+        int(u.dtype == torch.bfloat16), *stiffness_consts(basis.basis),
         torch.cuda.current_stream(u.device).cuda_stream)
     check(status, "poisson_stiffness_action")
     launches += 1
@@ -166,7 +216,10 @@ def stiffness_action(u: torch.Tensor, nu: torch.Tensor,
 def nu_projection(u: torch.Tensor, w: torch.Tensor,
                   basis: fem.BasisTables) -> torch.Tensor:
     """Assembled ``∫ N_c grad u . grad w``: the nu-cotangent of
-    ``<w, K(nu) u>`` (2D or 3D, as the basis)."""
+    ``<w, K(nu) u>`` (2D or 3D, as the basis); bfloat16 fields are
+    projected in float32 and the result cast back."""
+    if u.dtype == torch.bfloat16:
+        return nu_projection(u.float(), w.float(), basis).to(u.dtype)
     grads = ("dx", "dy", "dz")[:basis.nsd]
     gu = fem.gp_eval(u, basis, grads)
     gw = fem.gp_eval(w, basis, grads)

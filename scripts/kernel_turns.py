@@ -1,0 +1,246 @@
+#!/usr/bin/env python3
+"""Time K1 (the 2D stiffness action) and K6 (the fused VMS residual)
+against an earlier build of the same kernels, in turns, on one CUDA card.
+
+    python3 scripts/kernel_turns.py --parent DIR [--out FILE]
+
+DIR holds ``poisson2d.cu`` and ``ns2d.cu`` of the version before K1 and K6
+were redesigned (e.g. from ``git archive <commit> diffnet_tpu_torch/csrc``),
+with the C interfaces they had then: ``poisson_stiffness_action(u, nu, out,
+B, nrows, ncols, k1x, k2x, k1y, k2y, stream)`` and ``ns_vms_residual(u, v,
+p, fx, fy, r1, r2, r3, B, ny, nx, has_f, c00, c01, c10, c11, 1/hx, 1/hy, W,
+W/hx, W/hy, visco, Gxx, Gyy, diff, 1/(Gxx + Gyy), stream)``. They are
+built with the port's nvcc flags into ``DIR/earlier.so``.
+
+It prints the card's name and power limit, both builds' ptxas lines,
+then, as JSON lines: every strip length of the current kernels against
+their plain versions (K1 in float32 and bf16, K6 with and without forcing;
+the run fails on a miss), and CUDA-event times (``chip_smoke.cuda_ms``: 10
+calls queued behind a spin kernel, median of 20, the callables in turns)
+of the earlier kernel (twice, first and last), the current one through its
+wrapper (the strip it picks) and at each strip, at the timed shapes of
+``chip_smoke.py`` and at the shapes most main-path launches run at.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+import chip_smoke as cs  # noqa: E402
+from diffnet_tpu_torch.ops import _build  # noqa: E402
+from diffnet_tpu_torch.ops import ns_residual as k6  # noqa: E402
+from diffnet_tpu_torch.ops import poisson_residual as k1  # noqa: E402
+
+STRIPS = (31, 15, 10, 7, 5, 3, 2, 1)
+K1_SHAPES = ((32, 512, 512), (1, 513, 513), (1, 257, 257), (1, 64, 64))
+K6_SHAPES = ((8, 512), (8, 256), (1, 129), (1, 65))
+VISCO = 0.01
+
+
+def earlier_consts(basis, visco):
+    """The earlier K6's constants."""
+    xi = np.asarray(basis.gp_1d, np.float64)
+    W = float(np.asarray(basis.jxw, np.float64)[0])
+    hx, hy = (float(h) for h in basis.h)
+    cN = [((1.0 - x) / 2.0, (1.0 + x) / 2.0) for x in xi]
+    Gxx, Gyy = 4.0 / hx**2, 4.0 / hy**2
+    return (cN[0][0], cN[0][1], cN[1][0], cN[1][1], 1.0 / hx, 1.0 / hy,
+            W, W / hx, W / hy, float(visco), Gxx, Gyy,
+            36.0 * visco**2 * (Gxx**2 + Gyy**2), 1.0 / (Gxx + Gyy))
+
+
+def build_earlier(src_dir: str) -> tuple[ctypes.CDLL, list[str]]:
+    nvcc, log, objs = _build._nvcc(), "", []
+    for name in ("poisson2d", "ns2d"):
+        obj = os.path.join(src_dir, f"{name}.o")
+        r = subprocess.run([nvcc, *_build.NVCC_FLAGS, "-o", obj,
+                            os.path.join(src_dir, f"{name}.cu")],
+                           capture_output=True, text=True, check=True)
+        log += r.stdout + r.stderr
+        objs.append(obj)
+    so = os.path.abspath(os.path.join(src_dir, "earlier.so"))
+    subprocess.run([nvcc, *_build.LINK_FLAGS, "-o", so, *objs],
+                   capture_output=True, text=True, check=True)
+    lib = ctypes.CDLL(so)
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.poisson_stiffness_action.argtypes = [P, P, P, I, I, I] + [F] * 4 + [P]
+    lib.poisson_stiffness_action.restype = I
+    lib.ns_vms_residual.argtypes = [P] * 8 + [I] * 4 + [F] * 14 + [P]
+    lib.ns_vms_residual.restype = I
+    return lib, [ln.strip() for ln in log.splitlines()
+                 if "registers" in ln or "spill" in ln or "Compiling" in ln]
+
+
+def stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def launched(status: int) -> None:
+    if status != 0:
+        raise RuntimeError(f"launch failed with CUDA error {status}")
+
+
+def k1_at(lib, u, nu, tb, ty):
+    """The current K1 at strip `ty` (through the C entry point)."""
+    out = torch.empty_like(u)
+    launched(lib.poisson_stiffness_action(
+        u.data_ptr(), nu.data_ptr(), out.data_ptr(), *u.shape, ty,
+        int(u.dtype == torch.bfloat16), *k1.stiffness_consts(tb.basis),
+        stream()))
+    return out
+
+
+def k1_earlier(lib, u, nu, tb):
+    out = torch.empty_like(u)
+    launched(lib.poisson_stiffness_action(
+        u.data_ptr(), nu.data_ptr(), out.data_ptr(), *u.shape,
+        *k1.stiffness_consts(tb.basis), stream()))
+    return out
+
+
+def k6_at(lib, u, v, p, fx, fy, tb, ty):
+    outs = [torch.empty_like(u) for _ in range(3)]
+    has_f = fx is not None
+    launched(lib.ns_vms_residual(
+        u.data_ptr(), v.data_ptr(), p.data_ptr(),
+        fx.data_ptr() if has_f else None, fy.data_ptr() if has_f else None,
+        *(o.data_ptr() for o in outs), u.shape[0], u.shape[1], ty,
+        int(has_f), *k6.ns_consts(tb.basis, VISCO), stream()))
+    return outs
+
+
+def k6_earlier(lib, u, v, p, tb):
+    outs = [torch.empty_like(u) for _ in range(3)]
+    B, n, _ = u.shape
+    launched(lib.ns_vms_residual(
+        u.data_ptr(), v.data_ptr(), p.data_ptr(), None, None,
+        *(o.data_ptr() for o in outs), B, n, n, 0,
+        *earlier_consts(tb.basis, VISCO), stream()))
+    return outs
+
+
+def check_strips(lib, dev, emit) -> None:
+    g = torch.Generator(device=dev).manual_seed(0)
+    bad = []
+    for B, ny, nx in ((2, 33, 33), (3, 129, 257), (1, 2, 2), (1, 100, 77),
+                      (1, 513, 513), (32, 512, 512)):
+        tb = cs.basis_for(ny, nx, True, dev)
+        u = torch.rand((B, ny, nx), generator=g, device=dev)
+        nu = torch.rand((B, ny, nx), generator=g, device=dev) + 0.5
+        row = {"check": "K1", "shape": [B, ny, nx]}
+        for dt, tol in ((torch.float32, cs.FIELD_ATOL),
+                        (torch.bfloat16, cs.BF16_ATOL)):
+            a, b = u.to(dt), nu.to(dt)
+            ref = k1.stiffness_action_plain(a, b, tb).float()
+            scale = max(1.0, float(ref.abs().max()))
+            errs = [float((k1_at(lib, a, b, tb, ty).float() - ref).abs()
+                          .max()) for ty in STRIPS]
+            row[str(dt)] = max(errs)
+            if max(errs) > tol * scale:
+                bad.append(row)
+        emit(row)
+    for B, n, with_f in ((1, 2, False), (1, 97, False), (2, 40, True),
+                         (1, 129, False), (8, 512, False)):
+        tb = cs.basis_for(n, n, True, dev)
+        u, v, p, fx, fy = (torch.rand((B, n, n), generator=g, device=dev)
+                           for _ in range(5))
+        if not with_f:
+            fx = fy = None
+        ref = k6.ns_vms_residual_plain(u, v, p, fx, fy, tb, VISCO)
+        err = max(float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+                  for ty in STRIPS
+                  for a, b in zip(k6_at(lib, u, v, p, fx, fy, tb, ty), ref))
+        row = {"check": "K6", "shape": [B, n, n], "forcing": with_f,
+               "rel_err": err}
+        emit(row)
+        if err > cs.K6_ATOL:
+            bad.append(row)
+    if bad:
+        raise RuntimeError(f"strips off their plain versions: {bad}")
+
+
+def time_k1(lib, old, dev, emit) -> None:
+    g = torch.Generator(device=dev).manual_seed(1)
+    for shape in K1_SHAPES:
+        tb = cs.basis_for(shape[1], shape[2], False, dev)
+        u = torch.rand(shape, generator=g, device=dev)
+        nu = torch.rand(shape, generator=g, device=dev) + 0.5
+        ub, nub = u.bfloat16(), nu.bfloat16()
+        fns = {"earlier": lambda: k1_earlier(old, u, nu, tb),
+               "wrapper": lambda: k1.stiffness_action(u, nu, tb),
+               "wrapper_bf16": lambda: k1.stiffness_action(ub, nub, tb)}
+        for ty in STRIPS:
+            fns[f"ty{ty}"] = lambda ty=ty: k1_at(lib, u, nu, tb, ty)
+            fns[f"bf16_ty{ty}"] = lambda ty=ty: k1_at(lib, ub, nub, tb, ty)
+        fns["earlier_again"] = fns["earlier"]
+        t = cs.cuda_ms(fns)
+        emit({"time": "K1", "shape": list(shape), "ms": t,
+              "strip": k1.strip_rows(*shape, _build.sm_count(dev)),
+              "bound_ms": cs.bound("poisson_stiffness_action",
+                                   (u, nu, u), shape)["bound_ms"],
+              "bound_ms_bf16": cs.bound("poisson_stiffness_action",
+                                        (ub, nub, ub), shape)["bound_ms"]})
+
+
+def time_k6(lib, old, dev, emit) -> None:
+    g = torch.Generator(device=dev).manual_seed(2)
+    for B, n in K6_SHAPES:
+        tb = cs.basis_for(n, n, False, dev)
+        u, v, p = (torch.rand((B, n, n), generator=g, device=dev)
+                   for _ in range(3))
+        fns = {"earlier": lambda: k6_earlier(old, u, v, p, tb),
+               "wrapper": lambda: k6.ns_vms_residual(u, v, p, None, None,
+                                                     tb, VISCO)}
+        for ty in STRIPS:
+            fns[f"ty{ty}"] = lambda ty=ty: k6_at(lib, u, v, p, None, None,
+                                                 tb, ty)
+        fns["earlier_again"] = fns["earlier"]
+        t = cs.cuda_ms(fns)
+        emit({"time": "K6", "shape": [B, n, n], "ms": t,
+              "strip": k6.strip_rows(B, n, _build.sm_count(dev)),
+              "bound_ms": cs.bound("ns_vms_residual", (u, v, p) * 2,
+                                   (B, n, n))["bound_ms"]})
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", required=True,
+                    help="directory with the earlier poisson2d.cu, ns2d.cu")
+    ap.add_argument("--out", help="also write every JSON line to this file")
+    args = ap.parse_args()
+    dev = torch.device("cuda:0")
+    cs.phase_device(dev)
+    rows = []
+
+    def emit(obj):
+        rows.append(obj)
+        print(json.dumps(obj), flush=True)
+
+    so, log = _build.build()
+    lib = _build.load_library()
+    old, old_log = build_earlier(args.parent)
+    emit({"ptxas": [ln.strip() for ln in log.splitlines()
+                    if "registers" in ln or "spill" in ln
+                    or "Compiling" in ln],
+          "ptxas_earlier": old_log})
+    check_strips(lib, dev, emit)
+    time_k1(lib, old, dev, emit)
+    time_k6(lib, old, dev, emit)
+    if args.out:
+        with open(args.out, "w") as fh:
+            json.dump(rows, fh, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

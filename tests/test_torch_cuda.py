@@ -12,7 +12,9 @@ the K2 gradient at 1e-5 of its largest entry, the VJPs as the fields; the
 MG-CG solution through K4 within the plain solve's (14 float32 CG
 iterations, each matvec summed in another order) at 1e-3 of its largest
 entry, both at a relative residual below 1e-4; the 17^3 3D MMS fit through
-K5 within 1.3x the JAX package's final rel L2; K6's residuals at 2e-5 times
+K5 within 1.3x the JAX package's final rel L2; bf16 K1 and K3 at 8e-3
+times max(1, max |ref|) of their bf16 plain versions (each rounds once from
+float32); K6's residuals at 2e-5 times
 max(1, max |ref|) (the JAX package's kernel-vs-XLA tolerance), its VJP and
 JVP as the other VJPs; the 33^2 Newton solve through K6 at |F| < 1e-6 and
 within 1e-4 of the plain solve.
@@ -65,8 +67,11 @@ def _field_close(a, b):
                                atol=2e-6 * max(1.0, float(b.abs().max())))
 
 
+# 1 x 2^2, 3 x 129 x 257, 1 x 513^2 and 1 x 100 x 77 (a width that is no
+# multiple of K1's 32-column tile) hit the tile edges
 SHAPES = [((2, 33, 33), True), ((2, 40, 40), False), ((2, 24, 49), False),
-          ((3, 129, 257), False), ((1, 2, 2), False)]
+          ((3, 129, 257), False), ((1, 2, 2), False), ((1, 513, 513), False),
+          ((1, 100, 77), False)]
 
 
 @pytest.mark.parametrize("shape,aniso", SHAPES)
@@ -109,6 +114,62 @@ def test_energy_kernel_matches_plain(dev, shape, aniso):
     assert k3.launches == before + 1
     torch.testing.assert_close(E, k3.energy_plain(u, nu, f, tb), rtol=1e-5,
                                atol=0)
+
+
+def _bf16_close(a, b):
+    """bf16 kernel against bf16 plain version: both round once from f32."""
+    assert a.dtype == b.dtype == torch.bfloat16
+    torch.testing.assert_close(a.float(), b.float(), rtol=0,
+                               atol=8e-3 * max(1.0, float(b.float().abs()
+                                                          .max())))
+
+
+@pytest.mark.parametrize("shape,aniso", SHAPES + [((32, 512, 512), False)])
+def test_bf16_stiffness_and_energy_kernels_match_plain(dev, shape, aniso):
+    tb = _basis(*shape[1:], dev, aniso)
+    u, nu, f, _ = (x.bfloat16() for x in _fields(shape, dev))
+    before = (k1.launches, k3.launches)
+    K = k1.stiffness_action(u, nu, tb)
+    E = k3.energy(u, nu, f, tb)
+    torch.cuda.synchronize()
+    assert (k1.launches, k3.launches) == (before[0] + 1, before[1] + 1)
+    _bf16_close(K, k1.stiffness_action_plain(u, nu, tb))
+    _bf16_close(E, k3.energy_plain(u, nu, f, tb))
+
+
+@pytest.mark.parametrize("ty", [1, 2, 3, 7, 15, 31])
+def test_stiffness_kernel_every_strip(dev, ty):
+    """Each tile height the kernel takes, f32 and bf16, on a grid whose
+    rows and columns are no multiple of the tile."""
+    from diffnet_tpu_torch.ops import _build
+
+    lib = _build.load_library()
+    shape = (2, 101, 77)
+    tb = _basis(*shape[1:], dev, True)
+    u, nu, _, _ = _fields(shape, dev)
+    for dt in (torch.float32, torch.bfloat16):
+        a, b = u.to(dt), nu.to(dt)
+        out = torch.empty_like(a)
+        assert lib.poisson_stiffness_action(
+            a.data_ptr(), b.data_ptr(), out.data_ptr(), *shape, ty,
+            int(dt == torch.bfloat16), *k1.stiffness_consts(tb.basis),
+            torch.cuda.current_stream().cuda_stream) == 0
+        ref = k1.stiffness_action_plain(a, b, tb)
+        if dt == torch.float32:
+            _field_close(out, ref)
+        else:
+            _bf16_close(out, ref)
+
+
+def test_misaligned_view_goes_through_the_kernel(dev):
+    tb = _basis(33, 33, dev)
+    big, = _fields((3 * 33 * 33 + 1,), dev, n=1)
+    u = big[1:].view(3, 33, 33)     # 4 B past a 16-B boundary
+    assert u.data_ptr() % 16 != 0
+    before = k1.launches
+    K = k1.stiffness_action(u, u, tb)
+    assert k1.launches == before + 1
+    _field_close(K, k1.stiffness_action_plain(u, u, tb))
 
 
 def _grads(fn, *xs):
@@ -349,7 +410,8 @@ def test_poisson3d_fit_on_the_card_goes_through_k5(dev):
 
 K6_SHAPES = [(2, 33, True, False), (2, 40, False, True), (2, 65, False, False),
              (1, 129, False, False), (8, 256, False, False),
-             (8, 512, False, False), (1, 2, False, False)]
+             (8, 512, False, False), (1, 2, False, False),
+             (1, 97, False, False)]
 
 
 @pytest.mark.parametrize("B,n,aniso,with_f", K6_SHAPES)
@@ -362,6 +424,32 @@ def test_ns_kernel_matches_plain(dev, B, n, aniso, with_f):
     R = k6.ns_vms_residual(u, v, p, fx, fy, tb, 0.01)
     assert k6.launches == before + 1
     for a, b in zip(R, k6.ns_vms_residual_plain(u, v, p, fx, fy, tb, 0.01)):
+        torch.testing.assert_close(
+            a, b, rtol=0, atol=2e-5 * max(1.0, float(b.abs().max())))
+
+
+@pytest.mark.parametrize("ty", [1, 2, 3, 5, 7, 31])
+@pytest.mark.parametrize("with_f", [False, True])
+def test_ns_kernel_every_strip(dev, ty, with_f):
+    """Each strip length the kernel takes, on a grid that is no multiple of
+    a block's 31 columns or 4 * ty - 1 rows."""
+    from diffnet_tpu_torch.ops import _build
+
+    lib = _build.load_library()
+    B, n = 2, 70
+    tb = _basis(n, n, dev, aniso=True)
+    u, v, p, fx, fy = _fields((B, n, n), dev, n=5, seed=7)
+    if not with_f:
+        fx = fy = None
+    outs = [torch.empty_like(u) for _ in range(3)]
+    assert lib.ns_vms_residual(
+        u.data_ptr(), v.data_ptr(), p.data_ptr(),
+        fx.data_ptr() if with_f else None, fy.data_ptr() if with_f else None,
+        *(o.data_ptr() for o in outs), B, n, ty, int(with_f),
+        *k6.ns_consts(tb.basis, 0.01),
+        torch.cuda.current_stream().cuda_stream) == 0
+    for a, b in zip(outs, k6.ns_vms_residual_plain(u, v, p, fx, fy, tb,
+                                                    0.01)):
         torch.testing.assert_close(
             a, b, rtol=0, atol=2e-5 * max(1.0, float(b.abs().max())))
 

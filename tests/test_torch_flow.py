@@ -225,6 +225,110 @@ def _raises_case(case):
     return u, v, p, tb, visco
 
 
+def _kernel_body_f64(u, v, p, fx, fy, basis, visco):
+    """A float64 transcription of csrc/ns2d.cu's element body (each
+    symmetric Gauss pair in sum/difference form), term for term, with the
+    constants of ``ns_consts``; assembled as the kernel's lanes sum their
+    corners."""
+    from diffnet_tpu_torch.ops.poisson_residual import assemble_corners
+
+    (h, h2, nkx, kxh, nky, kyh, visco, gxx, gyy, diff, isum_g, wq, wh, wh2,
+     ax, ay, bx, by) = tnr.ns_consts(basis.basis, visco)
+
+    def corners(a):
+        return (a[..., :-1, :-1], a[..., :-1, 1:], a[..., 1:, :-1],
+                a[..., 1:, 1:])
+
+    def gauss(a):   # N[gx][gy], dx[gy], dy[gx]
+        c0, c1, c2, c3 = corners(a)
+        e, f, g1, g2 = c0 + c3, c1 + c2, c0 - c3, c1 - c2
+        hab, q = e - f, 0.25 * (e + f)
+        mp, mm = h2 * hab + q, -h2 * hab + q
+        N = [[h * g1 + mp, -h * g2 + mm], [h * g2 + mm, -h * g1 + mp]]
+        tx, ty = nkx * (g1 - g2), nky * (g1 + g2)
+        return N, [-kxh * hab + tx, kxh * hab + tx], \
+            [-kyh * hab + ty, kyh * hab + ty]
+
+    (uN, ux, uy), (vN, vx, vy), (pN, px, py) = (gauss(a) for a in (u, v, p))
+    zero = [[0.0, 0.0], [0.0, 0.0]]
+    f1N, f2N = (zero, zero) if fx is None else (gauss(fx)[0], gauss(fy)[0])
+    # integrands at each Gauss point [gy][gx]: against N, dN/dx, dN/dy
+    IN, IX, IY = ([[[None] * 2 for _ in range(2)] for _ in range(3)]
+                  for _ in range(3))
+    for gx in (0, 1):
+        for gy in (0, 1):
+            uu, vv, pp = uN[gx][gy], vN[gx][gy], pN[gx][gy]
+            dudx, dvdx, dpdx = ux[gy], vx[gy], px[gy]
+            dudy, dvdy, dpdy = uy[gx], vy[gx], py[gx]
+            div = dudx + dvdy
+            adv1 = uu * dudx + (vv * dudy - f1N[gx][gy])
+            adv2 = uu * dvdx + (vv * dvdy - f2N[gx][gy])
+            res1, res2 = adv1 + dpdx, adv2 + dpdy
+            s2 = gxx * uu * uu + (gyy * vv * vv + diff)
+            taum = torch.rsqrt(s2)
+            tcd = (s2 * taum) * (isum_g * div)
+            tm1, tm2 = taum * res1, taum * res2
+            um, vm = uu - tm1, vv - tm2
+            IN[0][gy][gx] = -tm2 * dudy + (-tm1 * dudx + adv1)
+            IN[1][gy][gx] = -tm2 * dvdy + (-tm1 * dvdx + adv2)
+            IN[2][gy][gx] = div
+            IX[0][gy][gx] = (um * tm1 + (visco * dudx - pp)) + tcd
+            IX[1][gy][gx] = visco * dvdx + um * tm2
+            IX[2][gy][gx] = tm1
+            IY[0][gy][gx] = visco * dudy + vm * tm1
+            IY[1][gy][gx] = (vm * tm2 + (visco * dvdy - pp)) + tcd
+            IY[2][gy][gx] = tm2
+    out = []
+    for r in range(3):
+        i0, i1, i2, i3 = IN[r][0][0], IN[r][0][1], IN[r][1][0], IN[r][1][1]
+        e, f, g1, g2 = i0 + i3, i1 + i2, i0 - i3, i1 - i2
+        X0, X1 = IX[r][0][0] + IX[r][0][1], IX[r][1][0] + IX[r][1][1]
+        Y0, Y1 = IY[r][0][0] + IY[r][1][0], IY[r][0][1] + IY[r][1][1]
+        sx, dx, sy, dy = X0 + X1, X0 - X1, Y0 + Y1, Y0 - Y1
+        q = wh2 * (e - f) + (-bx * dx + -by * dy)
+        w0 = wq * (e + f)
+        mp, mm = w0 + q, w0 - q
+        sp = wh * g1 + (-ax * sx + -ay * sy)
+        sm = -wh * g2 + (-ax * sx + ay * sy)
+        out.append(assemble_corners(mp + sp, mm - sm, mm + sm, mp - sp))
+    return out
+
+
+@pytest.mark.parametrize("n,with_f,aniso", [(9, False, True),
+                                            (12, True, False),
+                                            (17, True, True)])
+def test_kernel_body_transcription_matches_the_plain_version(n, with_f,
+                                                             aniso):
+    """The algebra of the CUDA kernel's element body, rehearsed in float64
+    on the CPU: within 1e-12 (relative to the largest entry) of the plain
+    version, which follows the JAX package's XLA path."""
+    h = (0.7 / (n - 1), 1.9 / (n - 1)) if aniso else (1 / (n - 1),) * 2
+    tb = fem.BasisTables(make_basis(2, 1, h=h)).to(torch.float64)
+    rng = np.random.default_rng(n)
+    xs = [torch.from_numpy(rng.random((2, n, n)) - 0.3) for _ in range(5)]
+    fx, fy = (xs[3], xs[4]) if with_f else (None, None)
+    got = _kernel_body_f64(*xs[:3], fx, fy, tb, VISCO)
+    want = tnr.ns_vms_residual_plain(*xs[:3], fx, fy, tb, VISCO)
+    for a, b in zip(got, want):
+        assert a.dtype == torch.float64
+        _close(a, b.numpy(), atol=1e-12 * float(b.abs().max()))
+
+
+def test_strip_rows_fill_the_card():
+    """K6's strip: the longest that still gives each SM its warps; one
+    element row a lane on a grid as small as 129^2."""
+    sms = 132
+    assert tnr.strip_rows(8, 512, sms) == 7
+    assert tnr.strip_rows(8, 256, sms) == 5
+    assert tnr.strip_rows(1, 129, sms) == tnr.STRIPS[-1] == 1
+    for B, n in ((1, 65), (2, 257), (4, 1000)):
+        ty = tnr.strip_rows(B, n, sms)
+        cols = B * -(-n // tnr.COLS)
+        assert all(cols * -(-n // (tnr.WARPS * t - 1)) * tnr.WARPS
+                   < tnr.MIN_WARPS_PER_SM * sms
+                   for t in tnr.STRIPS if t > ty)
+
+
 @pytest.mark.parametrize("case,err", [("shapes", ValueError),
                                       ("visco", ValueError),
                                       ("rectangular", ValueError),

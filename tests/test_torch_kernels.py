@@ -248,10 +248,83 @@ def test_energy_rectangular_matches_xla():
     np.testing.assert_allclose(Et.item(), float(Ex), rtol=1e-5)
 
 
+# ---- bfloat16 fields (K1, K3) -----------------------------------------------
+
+def _bf16_inputs(shape, seed):
+    """bfloat16 torch fields and the same values for JAX, from numpy."""
+    rng = np.random.default_rng(seed)
+    ts = [torch.from_numpy(rng.random(shape, np.float32)).bfloat16()
+          for _ in range(3)]
+    return ts, [jnp.asarray(_np(t.float())).astype(jnp.bfloat16) for t in ts]
+
+
+@pytest.mark.parametrize("shape", [(1, 33, 33), (2, 40, 40)])
+def test_stiffness_action_bf16_matches_jax(shape):
+    """bfloat16 u and nu: the port keeps the type, and its result and the
+    JAX kernel's (interpret mode) are each within 3% in norm of the float32
+    XLA path, the JAX package's own bar (test_pallas_kernel.py:332)."""
+    n = shape[1]
+    jb, tb = _bases((n, n))
+    (u, nu, _), (ju, jnu, _) = _bf16_inputs(shape, 10)
+    Kt = tpr.stiffness_action(u, nu, tb)
+    assert Kt.dtype == torch.bfloat16
+    Kp = jpr._stiffness_fwd_impl(ju, jnu, jb, 16)
+    assert Kp.dtype == jnp.bfloat16
+    Kx = np.asarray(_K_xla(ju.astype(jnp.float32), jnu.astype(jnp.float32),
+                           jb, (n, n)))
+    for K in (_np(Kt.float()), np.asarray(Kp, np.float32)):
+        assert np.linalg.norm(K - Kx) / np.linalg.norm(Kx) < 0.03
+    # one rounding from the float32 plain version
+    K32 = tpr.stiffness_action(u.float(), nu.float(), tb)
+    torch.testing.assert_close(Kt, K32.bfloat16(), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("shape", [(1, 33, 33), (2, 40, 40)])
+def test_energy_bf16_matches_jax(shape):
+    n = shape[1]
+    jb, tb = _bases((n, n))
+    (u, nu, f), (ju, jnu, jf) = _bf16_inputs(shape, 11)
+    Et = ten.energy(u, nu, f, tb)
+    assert Et.dtype == torch.bfloat16
+    Ep = float(jen._energy_fwd_impl(ju, jnu, jf, jb, 16))
+    Ex = float(_energy_xla(*(a.astype(jnp.float32) for a in (ju, jnu, jf)),
+                           jb))
+    for E in (float(Et), Ep):
+        assert abs(E - Ex) < 0.03 * abs(Ex)
+
+
+def test_bf16_vjps_run_in_the_input_type():
+    """K1's and K3's backward give bfloat16 cotangents for bfloat16 fields,
+    within bfloat16 resolution of the float32 ones."""
+    _, tb = _bases((17, 17))
+    (u, nu, f), _ = _bf16_inputs((2, 17, 17), 12)
+    g = torch.rand(2, 17, 17, generator=torch.Generator().manual_seed(0))
+    for fn in (lambda u, nu, f: (tpr.poisson_stiffness_action(u, nu, tb)
+                                 * g.to(u.dtype)).sum(),
+               lambda u, nu, f: ten.poisson_energy_fused(u, nu, f, tb)):
+        grads = {}
+        for dt in (torch.bfloat16, torch.float32):
+            xs = [x.detach().to(dt).requires_grad_(True) for x in (u, nu, f)]
+            fn(*xs).backward()
+            grads[dt] = [x.grad for x in xs]
+        for a, b in zip(*grads.values()):
+            if b is None:
+                continue
+            assert a.dtype == torch.bfloat16
+            assert float((a.float() - b).norm() / b.norm()) < 0.03
+
+
 # ---- wrapper contracts ------------------------------------------------------
 
-@pytest.mark.parametrize("op", ["k1", "k2", "k3"])
-def test_wrappers_reject_what_the_kernels_do_not_take(op):
+# types each wrapper refuses: K1 and K3 take float32 or bfloat16 (one type
+# for all fields), K2 float32 only
+REFUSED = [(op, dt) for op in ("k1", "k3") for dt in ("float64", "float16",
+                                                      "mixed")] + \
+    [("k2", dt) for dt in ("float64", "float16", "bfloat16")]
+
+
+@pytest.mark.parametrize("op,dtype", REFUSED)
+def test_wrappers_reject_what_the_kernels_do_not_take(op, dtype):
     _, tb = _bases((9, 9))
     x = torch.zeros(2, 9, 9)
 
@@ -263,8 +336,13 @@ def test_wrappers_reject_what_the_kernels_do_not_take(op):
             return tlg.resmin_loss_grad(u, nu, u, u[0], tb)
         return ten.energy(u, nu, u, tb)
 
-    with pytest.raises(TypeError, match="float32"):
-        call(x.double(), x.double())
+    if dtype == "mixed":
+        with pytest.raises(TypeError, match="one type"):
+            call(x, x.bfloat16())
+    else:
+        bad = getattr(torch, dtype)
+        with pytest.raises(TypeError, match="float32"):
+            call(x.to(bad), x.to(bad))
     with pytest.raises(ValueError, match="contiguous"):
         call(x, torch.zeros(2, 9, 9).transpose(1, 2))
     with pytest.raises(ValueError, match="shape"):
@@ -273,6 +351,32 @@ def test_wrappers_reject_what_the_kernels_do_not_take(op):
         call(torch.zeros(9, 9), torch.zeros(9, 9))
     with pytest.raises(ValueError, match="not supported"):
         call(x.to("meta"), x.to("meta"))
+
+
+def test_strip_rows_fill_the_card():
+    """K1's tile height: the longest strip while the launch gives each SM
+    its warps, shorter on small grids, never past the kernel's set."""
+    sms = 132
+    assert tpr.strip_rows(32, 512, 512, sms) == 5
+    assert tpr.strip_rows(1, 513, 513, sms) == 5
+    assert tpr.strip_rows(1, 257, 257, sms) == 2
+    assert tpr.strip_rows(1, 64, 64, sms) == 1
+    assert tpr.strip_rows(1, 2, 2, sms) == tpr.STRIPS[-1]
+    for shape in ((1, 513, 513), (1, 64, 64), (4, 257, 129)):
+        ty = tpr.strip_rows(*shape, sms)
+        assert ty in tpr.STRIPS
+        longer = [t for t in tpr.STRIPS if t > ty]
+        warps = shape[0] * -(-shape[2] // tpr.COLS)
+        assert all(warps * -(-shape[1] // t) < tpr.MIN_WARPS_PER_SM * sms
+                   for t in longer)
+
+
+def test_misaligned_views_are_copied_for_the_kernels():
+    x = torch.arange(40, dtype=torch.float32)
+    assert tpr.aligned16(x) is x
+    view = x[1:]
+    y = tpr.aligned16(view)
+    assert y.data_ptr() % 16 == 0 and torch.equal(y, view)
 
 
 def test_cpu_tensors_launch_no_kernel():
