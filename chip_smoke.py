@@ -29,7 +29,9 @@ exits non-zero (it also does so, printing no result, without CUDA):
      ``cuda_ms``).
      K5 (the trilinear stiffness action and its masked residual) at 2x9^3
      (anisotropic h), 2x17^3, 2x20x17x17, 1x129^3 (slice F's fine level),
-     4x64^3 and 1x128^3, timed at the last two; K4-3D (the 27-point apply)
+     4x64^3, 1x128^3 and its tile edges 1x9x45x45, 2x3x17x17 and 1x65^3,
+     every strip length at 1x129^3 and 1x9x45x45, timed at 4x64^3 and
+     1x128^3; K4-3D (the 27-point apply)
      at 2x9^3, 1x10x12x14, slice F's levels 1x129^3, 65^3, 33^3, 17^3 and
      1x128^3, per-sample and batch-1 C, timed at 1x128^3.
      K6 (the fused VMS Navier-Stokes residual) at 2x33^2 (anisotropic h),
@@ -496,11 +498,18 @@ def phase_stencil_kernel(dev) -> dict:
 
 
 # 1 x 129^3: slice F's fine level; 4 x 64^3: bench.py's p3d shape
-# (bench.py:1712); 1 x 128^3: bench.py:1405
+# (bench.py:1712); 1 x 128^3: bench.py:1405; 1 x 65^3: slice F's next
+# level. The kernel's edges: 45 columns (not a multiple of a warp's 32) and
+# rows (nor of a block's 7), 3 planes (shorter than a strip), and the last
+# node column right of a tile (nx - 1 a multiple of 32: 129, 65).
 K5_SHAPES = (((2, 9, 9, 9), True), ((2, 17, 17, 17), False),
              ((2, 20, 17, 17), False), ((1, 129, 129, 129), False),
-             ((4, 64, 64, 64), False), ((1, 128, 128, 128), False))
+             ((4, 64, 64, 64), False), ((1, 128, 128, 128), False),
+             ((1, 9, 45, 45), True), ((2, 3, 17, 17), False),
+             ((1, 65, 65, 65), False))
 K5_TIMED = ((4, 64, 64, 64), (1, 128, 128, 128))
+# every strip length the kernel takes, through its C entry point
+K5_STRIP_SHAPES = ((1, 129, 129, 129), (1, 9, 45, 45))
 
 
 def phase_k5(dev) -> dict:
@@ -531,6 +540,23 @@ def phase_k5(dev) -> dict:
             err = max(err, e)
             if e > FIELD_ATOL * max(1.0, ref):
                 fail(f"{name} at {row['shape']}: max abs err {e}")
+        if shape in K5_STRIP_SHAPES:
+            lib = _build.load_library()
+            consts = k5.stiffness_consts_3d(tb.basis)
+            strips = {}
+            for tz in k5.STRIPS:
+                out = torch.empty_like(u)
+                if lib.poisson_stiffness_action_3d(
+                        u.data_ptr(), nu.data_ptr(), out.data_ptr(), *shape,
+                        tz, *consts,
+                        torch.cuda.current_stream(dev).cuda_stream) != 0:
+                    fail(f"K5 at {row['shape']}, strip {tz}: launch failed")
+                strips[tz] = float((out - Kp).abs().max())
+            row["K5_strips"] = strips
+            ref = float(Kp.abs().max())
+            err = max(err, *strips.values())
+            if max(strips.values()) > FIELD_ATOL * max(1.0, ref):
+                fail(f"K5 at {row['shape']}: strips {strips}")
         if shape in K5_TIMED:
             t = cuda_ms({"K5_plain": lambda: k5.stiffness_action_3d_plain(
                 u, nu, tb), "K5": lambda: k5.stiffness_action_3d(u, nu, tb)})

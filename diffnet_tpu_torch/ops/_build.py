@@ -46,7 +46,7 @@ _SIGNATURES = {
     "poisson_resmin_loss_grad_partials": (_LL, [_I, _I, _I]),
     "poisson_energy_partials": (_LL, [_I, _I, _I]),
     "stencil_apply_2d": (_I, [_P, _LL, _P, _P, _I, _I, _I, _I, _P]),
-    "poisson_stiffness_action_3d": (_I, [_P, _P, _P, _I, _I, _I, _I]
+    "poisson_stiffness_action_3d": (_I, [_P, _P, _P, _I, _I, _I, _I, _I]
                                     + [_F] * 7 + [_P]),
     "stencil_apply_3d": (_I, [_P, _LL, _P, _P, _I, _I, _I, _I, _I, _P]),
     "ns_vms_residual": (_I, [_P] * 8 + [_I] * 4 + [_F] * 18 + [_P]),

@@ -21,18 +21,19 @@ three axis parts.
 
 What bounds it on the card: operations. It moves u and nu in and Ku out,
 12 B a node (12.6 MB at 4 x 64^3, 3.8 us at 3.35 TB/s), against about 280
-fp32 operations an element in the sum-factorised body here, and 7 a node
-to assemble (0.29 GFLOP at 4 x 64^3, 4.3 us at 67 TFLOP/s; JAX's cost
-estimate says 800 an element). The kernel (``csrc/poisson3d.cu``) gives each 16 x 8 x 4 tile
-of output nodes one block: the block stages u and nu with a one-node halo
-in shared memory, computes each of the tile's 17 x 9 x 5 elements once
-(design (b): no element is recomputed for each of its eight nodes, as a
-gather form would), keeps their eight corner contributions in shared
-memory, and each thread sums its node's eight. No atomics, and the same
-result on every run. The TPU tiling (z slabs, folded z, VMEM budgets, DMA
-halos) is not carried over. Measured: 0.032 ms at 4 x 64^3 on an H100
-(700 W), 8.9 TFLOP/s or 13% of the operation bound, against 3.9 ms for the
-plain version (PERF.md).
+fp32 operations an element in the JAX package's sum-factorised body, and 7
+a node to assemble (0.29 GFLOP at 4 x 64^3, 4.3 us at 67 TFLOP/s; JAX's
+cost estimate says 800 an element). The kernel (``csrc/poisson3d.cu``)
+walks: a block of WARPS warps stacked in y over 32 element columns walks a
+strip of node planes in z (``strip_planes``); each lane computes its
+element once a step from node planes it loads into registers, carries the
+upper plane's corner sums to the next step, and takes its x-neighbour's by
+shuffle and its y-neighbour's from the warp before through shared memory.
+Its body is the same algebra in the Gauss pair's sum/difference basis
+(~140 fp32 instructions an element). No atomics, and the same result on
+every run. The TPU tiling (z slabs, folded z, VMEM budgets, DMA halos) is
+not carried over. PERF.md has its times on an H100, against the plain
+version's and the earlier tiled kernel's.
 
 ``poisson_stiffness_action_3d`` is differentiable: the action is
 self-adjoint in u, so du = K(nu) g runs the same kernel, and d/dnu is one
@@ -47,7 +48,7 @@ import torch.nn.functional as F
 
 from ..core import fem
 from ..core.quadrature import FEMBasis
-from ._build import check, load_library
+from ._build import check, load_library, sm_count
 from .poisson_residual import check_fields, nu_projection, require_cuda
 
 __all__ = ["poisson_stiffness_action_3d", "poisson_residual_fused_3d",
@@ -56,8 +57,29 @@ __all__ = ["poisson_stiffness_action_3d", "poisson_residual_fused_3d",
 # Launches of the CUDA kernel (a plain count; callers reset it to 0).
 launches = 0
 
-# Output-node tile of one block (x, y, z); the block has one thread a node.
-TILE = (16, 8, 4)
+# The kernel's tiling (csrc/poisson3d.cu): a block is WARPS warps stacked in
+# y over 32 element columns; warp 0 computes the element row above the
+# block's WARPS - 1 node rows. It walks a strip of node planes, at most
+# STRIPS[0]: the longest of STRIPS whose launch still gives each SM
+# MIN_WARPS_PER_SM warps, split evenly over the grid's planes.
+COLS = 32
+WARPS = 8
+STRIPS = (31, 16, 8, 4, 2, 1)
+MIN_WARPS_PER_SM = 32
+
+
+def strip_planes(B: int, nz: int, ny: int, nx: int, sms: int) -> int:
+    """Node planes a block walks for a ``[B, nz, ny, nx]`` launch on `sms`
+    SMs: the longest of STRIPS whose launch still gives each SM
+    ``MIN_WARPS_PER_SM`` warps (else the shortest), evened out so that the
+    grid's planes split into strips of equal length."""
+    blocks = B * -(-(nx - 1) // COLS) * -(-ny // (WARPS - 1))
+    tz = STRIPS[-1]
+    for s in STRIPS:
+        if blocks * -(-nz // s) * WARPS >= MIN_WARPS_PER_SM * sms:
+            tz = s
+            break
+    return -(-nz // -(-nz // tz))
 
 
 def stiffness_consts_3d(basis: FEMBasis) -> tuple[float, ...]:
@@ -163,13 +185,15 @@ def stiffness_action_3d(u: torch.Tensor, nu: torch.Tensor,
         return stiffness_action_3d_plain(u, nu, basis)
     require_cuda(op, u)
     B, nz, ny, nx = u.shape
-    if B * -(-nz // TILE[2]) > 65535:
-        raise ValueError(f"{op}: batch x z-tiles {B} x {-(-nz // TILE[2])} "
-                         "exceeds the grid limit 65535")
+    tz = strip_planes(B, nz, ny, nx, sm_count(u.device))
+    if B * -(-nz // tz) > 65535 or -(-ny // (WARPS - 1)) > 65535:
+        raise ValueError(f"{op}: batch x strips {B} x {-(-nz // tz)} or "
+                         f"{-(-ny // (WARPS - 1))} row blocks exceed the grid "
+                         "limit 65535")
     lib = load_library()
     out = torch.empty_like(u)
     status = lib.poisson_stiffness_action_3d(
-        u.data_ptr(), nu.data_ptr(), out.data_ptr(), B, nz, ny, nx,
+        u.data_ptr(), nu.data_ptr(), out.data_ptr(), B, nz, ny, nx, tz,
         *stiffness_consts_3d(basis.basis),
         torch.cuda.current_stream(u.device).cuda_stream)
     check(status, op)

@@ -132,7 +132,15 @@ def _make_optimizer(name: str, params, learning_rate: float,
     if name == "sgd":
         return torch.optim.SGD(params, lr=learning_rate)
     if name == "lbfgs":
+        # torch's default tolerances (1e-7 on the gradient, 1e-9 on the
+        # change) are absolute and end a step early once a residual loss
+        # falls below them, and its default max_eval (1.25 max_iter) ends
+        # it when line searches take a second evaluation; the JAX Trainer
+        # always runs max_iter iterations. 25 evaluations an iteration is
+        # the cap torch puts on one line search.
         return torch.optim.LBFGS(params, lr=1.0, max_iter=lbfgs_max_iter,
+                                 max_eval=25 * lbfgs_max_iter,
+                                 tolerance_grad=0.0, tolerance_change=0.0,
                                  line_search_fn="strong_wolfe")
     raise ValueError(f"unknown optimizer {name!r}")
 
@@ -180,12 +188,20 @@ class Trainer:
     def _step_fn(self, module, opt):
         if isinstance(opt, torch.optim.LBFGS):
             def step(batch):
+                # opt.step returns the loss before its first update; the
+                # last evaluation is at the parameters the step leaves
+                # (torch's line search ends on its last point unless its
+                # bracket fails)
+                last = []
+
                 def closure():
                     opt.zero_grad(set_to_none=True)
                     loss = module.training_loss(batch)
                     loss.backward()
+                    last[:] = [loss.detach()]
                     return loss
-                return opt.step(closure)
+                opt.step(closure)
+                return last[0]
             return step
 
         def step(batch):

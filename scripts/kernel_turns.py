@@ -1,33 +1,41 @@
 #!/usr/bin/env python3
-"""Time K1 (the 2D stiffness action) and K6 (the fused VMS residual)
-against an earlier build of the same kernels, in turns, on one CUDA card.
+"""Time K1 (the 2D stiffness action), K6 (the fused VMS residual) and K5
+(the 3D stiffness action) against an earlier build of the same kernels, in
+turns, on one CUDA card.
 
-    python3 scripts/kernel_turns.py --parent DIR [--out FILE]
+    python3 scripts/kernel_turns.py --parent DIR [--kernels K5] [--out FILE]
 
-DIR holds ``poisson2d.cu`` and ``ns2d.cu`` of the version before K1 and K6
-were redesigned (e.g. from ``git archive <commit> diffnet_tpu_torch/csrc``),
-with the C interfaces they had then: ``poisson_stiffness_action(u, nu, out,
-B, nrows, ncols, k1x, k2x, k1y, k2y, stream)`` and ``ns_vms_residual(u, v,
-p, fx, fy, r1, r2, r3, B, ny, nx, has_f, c00, c01, c10, c11, 1/hx, 1/hy, W,
-W/hx, W/hy, visco, Gxx, Gyy, diff, 1/(Gxx + Gyy), stream)``. They are
-built with the port's nvcc flags into ``DIR/earlier.so``.
+DIR holds the sources of the version before the kernels were redesigned
+(e.g. from ``git archive <commit> diffnet_tpu_torch/csrc``), with the C
+interfaces they had then: for K1 ``poisson2d.cu``'s
+``poisson_stiffness_action(u, nu, out, B, nrows, ncols, k1x, k2x, k1y,
+k2y, stream)``, for K6 ``ns2d.cu``'s ``ns_vms_residual(u, v, p, fx, fy, r1,
+r2, r3, B, ny, nx, has_f, c00, c01, c10, c11, 1/hx, 1/hy, W, W/hx, W/hy,
+visco, Gxx, Gyy, diff, 1/(Gxx + Gyy), stream)``, for K5 ``poisson3d.cu``'s
+``poisson_stiffness_action_3d(u, nu, out, B, nz, ny, nx, c00, c01, c10,
+c11, wx2, wy2, wz2, stream)``. ``--kernels`` (a comma list, all three by
+default) picks the kernels; only their sources are built, with the port's
+nvcc flags, into ``DIR/earlier.so``.
 
 It prints the card's name and power limit, both builds' ptxas lines,
 then, as JSON lines: every strip length of the current kernels against
-their plain versions (K1 in float32 and bf16, K6 with and without forcing;
-the run fails on a miss), and CUDA-event times (``chip_smoke.cuda_ms``: 10
-calls queued behind a spin kernel, median of 20, the callables in turns)
-of the earlier kernel (twice, first and last), the current one through its
-wrapper (the strip it picks) and at each strip, at the timed shapes of
-``chip_smoke.py`` and at the shapes most main-path launches run at.
+their plain versions (K1 in float32 and bf16, K6 with and without forcing,
+K5 at ``chip_smoke.K5_SHAPES``; the run fails on a miss), and CUDA-event
+times (``chip_smoke.cuda_ms``: 10 calls queued behind a spin kernel, median
+of 20, the callables in turns) of the earlier kernel (twice, first and
+last), the current one through its wrapper (the strip it picks) and at each
+strip, at the timed shapes of ``chip_smoke.py`` and at the shapes most
+main-path launches run at.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import ctypes
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -40,11 +48,15 @@ import chip_smoke as cs  # noqa: E402
 from diffnet_tpu_torch.ops import _build  # noqa: E402
 from diffnet_tpu_torch.ops import ns_residual as k6  # noqa: E402
 from diffnet_tpu_torch.ops import poisson_residual as k1  # noqa: E402
+from diffnet_tpu_torch.ops import poisson_residual_3d as k5  # noqa: E402
 
 STRIPS = (31, 15, 10, 7, 5, 3, 2, 1)
 K1_SHAPES = ((32, 512, 512), (1, 513, 513), (1, 257, 257), (1, 64, 64))
 K6_SHAPES = ((8, 512), (8, 256), (1, 129), (1, 65))
+K5_SHAPES = ((4, 64, 64, 64), (1, 128, 128, 128), (1, 129, 129, 129),
+             (1, 65, 65, 65), (1, 17, 17, 17))
 VISCO = 0.01
+SOURCES = {"K1": "poisson2d", "K6": "ns2d", "K5": "poisson3d"}
 
 
 def earlier_consts(basis, visco):
@@ -59,9 +71,9 @@ def earlier_consts(basis, visco):
             36.0 * visco**2 * (Gxx**2 + Gyy**2), 1.0 / (Gxx + Gyy))
 
 
-def build_earlier(src_dir: str) -> tuple[ctypes.CDLL, list[str]]:
+def build_earlier(src_dir: str, kernels) -> tuple[ctypes.CDLL, list[str]]:
     nvcc, log, objs = _build._nvcc(), "", []
-    for name in ("poisson2d", "ns2d"):
+    for name in (SOURCES[k] for k in kernels):
         obj = os.path.join(src_dir, f"{name}.o")
         r = subprocess.run([nvcc, *_build.NVCC_FLAGS, "-o", obj,
                             os.path.join(src_dir, f"{name}.cu")],
@@ -73,12 +85,44 @@ def build_earlier(src_dir: str) -> tuple[ctypes.CDLL, list[str]]:
                    capture_output=True, text=True, check=True)
     lib = ctypes.CDLL(so)
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.poisson_stiffness_action.argtypes = [P, P, P, I, I, I] + [F] * 4 + [P]
-    lib.poisson_stiffness_action.restype = I
-    lib.ns_vms_residual.argtypes = [P] * 8 + [I] * 4 + [F] * 14 + [P]
-    lib.ns_vms_residual.restype = I
+    if "K1" in kernels:
+        lib.poisson_stiffness_action.argtypes = ([P, P, P, I, I, I]
+                                                 + [F] * 4 + [P])
+        lib.poisson_stiffness_action.restype = I
+    if "K6" in kernels:
+        lib.ns_vms_residual.argtypes = [P] * 8 + [I] * 4 + [F] * 14 + [P]
+        lib.ns_vms_residual.restype = I
+    if "K5" in kernels:
+        lib.poisson_stiffness_action_3d.argtypes = ([P, P, P, I, I, I, I]
+                                                    + [F] * 7 + [P])
+        lib.poisson_stiffness_action_3d.restype = I
     return lib, [ln.strip() for ln in log.splitlines()
                  if "registers" in ln or "spill" in ln or "Compiling" in ln]
+
+
+SASS_OPS = ("FFMA", "FADD", "FMUL", "SHFL", "LDS", "STS", "LDG", "STG",
+            "BAR", "BRA")
+
+
+def sass_mix(so: str, kernel: str) -> dict:
+    """Static SASS instruction counts (``cuobjdump -sass``) of the kernels
+    in `so` whose mangled name contains `kernel`: all, fp32 (FFMA + FADD +
+    FMUL) and the opcodes of SASS_OPS."""
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    text = subprocess.run([tool, "-sass", so], capture_output=True,
+                          text=True, check=True).stdout
+    ops, take = collections.Counter(), False
+    for ln in text.splitlines():
+        if "Function :" in ln:
+            take = kernel in ln
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)",
+                     ln)
+        if take and m:
+            ops[m.group(1)] += 1
+    return {"all": sum(ops.values()),
+            "fp32": ops["FFMA"] + ops["FADD"] + ops["FMUL"],
+            **{op: ops[op] for op in SASS_OPS}}
 
 
 def stream() -> int:
@@ -127,6 +171,63 @@ def k6_earlier(lib, u, v, p, tb):
         *(o.data_ptr() for o in outs), B, n, n, 0,
         *earlier_consts(tb.basis, VISCO), stream()))
     return outs
+
+
+def k5_at(lib, u, nu, tb, tz):
+    """The current K5 at strip `tz` (through the C entry point)."""
+    out = torch.empty_like(u)
+    launched(lib.poisson_stiffness_action_3d(
+        u.data_ptr(), nu.data_ptr(), out.data_ptr(), *u.shape, tz,
+        *k5.stiffness_consts_3d(tb.basis), stream()))
+    return out
+
+
+def k5_earlier(lib, u, nu, tb):
+    out = torch.empty_like(u)
+    launched(lib.poisson_stiffness_action_3d(
+        u.data_ptr(), nu.data_ptr(), out.data_ptr(), *u.shape,
+        *k5.stiffness_consts_3d(tb.basis), stream()))
+    return out
+
+
+def check_k5_strips(lib, dev, emit) -> None:
+    g = torch.Generator(device=dev).manual_seed(0)
+    bad = []
+    for shape, aniso in cs.K5_SHAPES:
+        tb = cs.basis_3d(shape, aniso, dev)
+        u = torch.rand(shape, generator=g, device=dev)
+        nu = torch.rand(shape, generator=g, device=dev) + 0.5
+        ref = k5.stiffness_action_3d_plain(u, nu, tb)
+        scale = max(1.0, float(ref.abs().max()))
+        errs = {str(tz): float((k5_at(lib, u, nu, tb, tz) - ref).abs().max())
+                for tz in k5.STRIPS}
+        errs["wrapper"] = float((k5.stiffness_action_3d(u, nu, tb) - ref)
+                                .abs().max())
+        row = {"check": "K5", "shape": list(shape), "max_abs_err": errs,
+               "limit": cs.FIELD_ATOL * scale}
+        emit(row)
+        if max(errs.values()) > cs.FIELD_ATOL * scale:
+            bad.append(row)
+    if bad:
+        raise RuntimeError(f"K5 strips off the plain version: {bad}")
+
+
+def time_k5(lib, old, dev, emit) -> None:
+    g = torch.Generator(device=dev).manual_seed(3)
+    for shape in K5_SHAPES:
+        tb = cs.basis_3d(shape, False, dev)
+        u = torch.rand(shape, generator=g, device=dev)
+        nu = torch.rand(shape, generator=g, device=dev) + 0.5
+        fns = {"earlier": lambda: k5_earlier(old, u, nu, tb),
+               "wrapper": lambda: k5.stiffness_action_3d(u, nu, tb)}
+        for tz in k5.STRIPS:
+            fns[f"tz{tz}"] = lambda tz=tz: k5_at(lib, u, nu, tb, tz)
+        fns["earlier_again"] = fns["earlier"]
+        t = cs.cuda_ms(fns)
+        emit({"time": "K5", "shape": list(shape), "ms": t,
+              "strip": k5.strip_planes(*shape, _build.sm_count(dev)),
+              "bound_ms": cs.bound("poisson_stiffness_action_3d", (u, nu, u),
+                                   shape)["bound_ms"]})
 
 
 def check_strips(lib, dev, emit) -> None:
@@ -215,7 +316,9 @@ def time_k6(lib, old, dev, emit) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", required=True,
-                    help="directory with the earlier poisson2d.cu, ns2d.cu")
+                    help="directory with the earlier kernels' sources")
+    ap.add_argument("--kernels", default="K1,K6,K5",
+                    help="comma list of K1, K6, K5 (default: all)")
     ap.add_argument("--out", help="also write every JSON line to this file")
     args = ap.parse_args()
     dev = torch.device("cuda:0")
@@ -228,14 +331,29 @@ def main() -> int:
 
     so, log = _build.build()
     lib = _build.load_library()
-    old, old_log = build_earlier(args.parent)
+    kernels = [k.strip() for k in args.kernels.split(",")]
+    if not set(kernels) <= set(SOURCES):
+        ap.error(f"--kernels takes {', '.join(SOURCES)}")
+    old, old_log = build_earlier(args.parent, kernels)
     emit({"ptxas": [ln.strip() for ln in log.splitlines()
                     if "registers" in ln or "spill" in ln
                     or "Compiling" in ln],
           "ptxas_earlier": old_log})
-    check_strips(lib, dev, emit)
-    time_k1(lib, old, dev, emit)
-    time_k6(lib, old, dev, emit)
+    if "K5" in kernels:
+        emit({"sass_K5": sass_mix(str(so), "stiffness3d_kernel"),
+              "sass_K5_earlier": sass_mix(
+                  os.path.join(args.parent, "earlier.so"),
+                  "stiffness3d_kernel")})
+    if "K1" in kernels or "K6" in kernels:
+        check_strips(lib, dev, emit)
+    if "K5" in kernels:
+        check_k5_strips(lib, dev, emit)
+    if "K1" in kernels:
+        time_k1(lib, old, dev, emit)
+    if "K6" in kernels:
+        time_k6(lib, old, dev, emit)
+    if "K5" in kernels:
+        time_k5(lib, old, dev, emit)
     if args.out:
         with open(args.out, "w") as fh:
             json.dump(rows, fh, indent=1)

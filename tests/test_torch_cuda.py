@@ -322,7 +322,8 @@ def _basis3(shape, dev, aniso=False):
 SHAPES_3D = [((2, 9, 9, 9), True), ((2, 17, 17, 17), False),
              ((2, 20, 17, 17), False), ((1, 129, 129, 129), False),
              ((4, 64, 64, 64), False), ((1, 128, 128, 128), False),
-             ((1, 2, 2, 2), False)]
+             ((1, 2, 2, 2), False), ((1, 9, 45, 45), True),
+             ((2, 3, 17, 17), False), ((1, 65, 65, 65), False)]
 
 
 @pytest.mark.parametrize("shape,aniso", SHAPES_3D)
@@ -338,6 +339,26 @@ def test_stiffness3d_kernel_matches_plain(dev, shape, aniso):
     Kp = k5.stiffness_action_3d_plain(u, nu, tb)
     _field_close(K, Kp)
     _field_close(R, torch.where(bc > 0.5, torch.zeros_like(Kp), Kp - Nf))
+
+
+@pytest.mark.parametrize("tz", k5.STRIPS)
+@pytest.mark.parametrize("shape", [(1, 129, 129, 129), (1, 9, 45, 45),
+                                   (2, 3, 17, 17)])
+def test_stiffness3d_kernel_every_strip(dev, tz, shape):
+    """Each strip length the K5 kernel takes, through its C entry point:
+    the last node column right of a tile (129), columns and rows no
+    multiple of a block's (45), and fewer planes than a strip (3)."""
+    from diffnet_tpu_torch.ops import _build
+
+    lib = _build.load_library()
+    tb = _basis3(shape, dev, aniso=shape[2] == 45)
+    u, nu = _fields(shape, dev, n=2, seed=5)
+    out = torch.empty_like(u)
+    assert lib.poisson_stiffness_action_3d(
+        u.data_ptr(), nu.data_ptr(), out.data_ptr(), *shape, tz,
+        *k5.stiffness_consts_3d(tb.basis),
+        torch.cuda.current_stream().cuda_stream) == 0
+    _field_close(out, k5.stiffness_action_3d_plain(u, nu, tb))
 
 
 @pytest.mark.parametrize("shape", [(2, 9, 9, 9), (1, 10, 12, 14),

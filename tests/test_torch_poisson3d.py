@@ -217,6 +217,105 @@ def test_residual_fused_3d_matches_jax(batched_mask):
         k5.poisson_residual_fused_3d(_t(u), _t(nu[:1]), _t(Nf), _t(bc), tb)
 
 
+def _k5_body_f64(u, nu, consts):
+    """A float64 transcription of csrc/poisson3d.cu's element body (the
+    Gauss pair's sum/difference basis), term for term, assembled as the
+    kernel's walk sums: the upper plane's part of element plane z - 1 and
+    the lower plane's of plane z in the transformed basis, then the x and y
+    inverse, then the left element's part and the part of the row above."""
+    c00, c01, _, _, wx2, wy2, wz2 = consts
+    g = (c00 - c01) ** 2
+    w = {a: (s / 16, s / 16 * g, s / 16 * g * g)
+         for a, s in (("x", wx2), ("y", wy2), ("z", wz2))}
+
+    def xy_stage(p):   # a node plane's corners -> [sy][sx]
+        v = [[p[..., j:p.shape[-2] - 1 + j, i:p.shape[-1] - 1 + i]
+              for i in (0, 1)] for j in (0, 1)]
+        s0, d0 = v[0][0] + v[0][1], v[0][1] - v[0][0]
+        s1, d1 = v[1][0] + v[1][1], v[1][1] - v[1][0]
+        return [[s0 + s1, d0 + d1], [s1 - s0, d1 - d0]]
+
+    def product(U, N):
+        ng01, ng10, ng11 = g * N[0][1], g * N[1][0], g * N[1][1]
+        return [[U[0][0] * N[0][0] + U[0][1] * ng01 + U[1][0] * ng10
+                 + U[1][1] * g * ng11,
+                 U[0][0] * N[0][1] + U[0][1] * N[0][0] + U[1][0] * ng11
+                 + U[1][1] * ng10],
+                [U[0][0] * N[1][0] + U[1][0] * N[0][0] + U[0][1] * ng11
+                 + U[1][1] * ng01,
+                 U[0][0] * N[1][1] + U[1][1] * N[0][0] + U[0][1] * N[1][0]
+                 + U[1][0] * N[0][1]]]
+
+    tu, tn = xy_stage(u), xy_stage(nu)   # [sy][sx], each [B, nz, ...]
+    uh = [[[f(tu[j][i]) for i in (0, 1)] for j in (0, 1)]
+          for f in (lambda t: t[:, :-1] + t[:, 1:],
+                    lambda t: t[:, 1:] - t[:, :-1])]
+    nh = [[[f(tn[j][i]) for i in (0, 1)] for j in (0, 1)]
+          for f in (lambda t: t[:, :-1] + t[:, 1:],
+                    lambda t: t[:, 1:] - t[:, :-1])]
+    Tx = product([[uh[a][b][1] for b in (0, 1)] for a in (0, 1)],
+                 [[nh[a][b][0] for b in (0, 1)] for a in (0, 1)])
+    Ty = product([[uh[a][1][b] for b in (0, 1)] for a in (0, 1)],
+                 [[nh[a][0][b] for b in (0, 1)] for a in (0, 1)])
+    Tz = product([[uh[1][a][b] for b in (0, 1)] for a in (0, 1)],
+                 [[nh[0][a][b] for b in (0, 1)] for a in (0, 1)])
+    c001, c010, c100 = (w["x"][0] * Tx[0][0], w["y"][0] * Ty[0][0],
+                        w["z"][0] * Tz[0][0])
+    c011 = w["x"][1] * Tx[0][1] + w["y"][1] * Ty[0][1]
+    c101 = w["x"][1] * Tx[1][0] + w["z"][1] * Tz[0][1]
+    c110 = w["y"][1] * Ty[1][0] + w["z"][1] * Tz[1][0]
+    c111 = (w["x"][2] * Tx[1][1] + w["y"][2] * Ty[1][1]
+            + w["z"][2] * Tz[1][1])
+    P0 = [[-c100, c001 - c101], [c010 - c110, c011 - c111]]
+    P1 = [[c100, c001 + c101], [c010 + c110, c011 + c111]]
+    pad = torch.nn.functional.pad
+    Q = [[pad(P0[j][i], (0, 0, 0, 0, 0, 1)) + pad(P1[j][i], (0, 0, 0, 0, 1, 0))
+          for i in (0, 1)] for j in (0, 1)]
+    r00, r01 = Q[0][0] - Q[0][1], Q[0][0] + Q[0][1]
+    r10, r11 = Q[1][0] - Q[1][1], Q[1][0] + Q[1][1]
+    a = [[r00 - r10, r01 - r11], [r00 + r10, r01 + r11]]
+    return sum(pad(a[j][i], (i, 1 - i, j, 1 - j))
+               for j in (0, 1) for i in (0, 1))
+
+
+@pytest.mark.parametrize("shape,aniso", [((2, 9, 9, 9), True),
+                                         ((1, 10, 12, 12), False)])
+def test_k5_body_transcription_matches_the_plain_version(shape, aniso):
+    """The algebra of the CUDA kernel's element body, rehearsed in float64
+    on the CPU: within 1e-12 (relative to the largest entry) of the plain
+    version, which follows the JAX package's sum-factorised algebra."""
+    tb = fem.BasisTables(make_basis(3, 1, h=_h(shape[1:], aniso)))
+    rng = np.random.default_rng(11)
+    u = torch.from_numpy(rng.random(shape) - 0.3)
+    nu = torch.from_numpy(rng.random(shape) + 0.5)
+    got = _k5_body_f64(u, nu, k5.stiffness_consts_3d(tb.basis))
+    want = k5.stiffness_action_3d_plain(u, nu, tb.to(torch.float64))
+    assert got.dtype == want.dtype == torch.float64
+    _close(got, want, atol=1e-12)
+
+
+@pytest.mark.parametrize("shape,tz", [
+    ((1, 129, 129, 129), 15), ((4, 64, 64, 64), 8), ((1, 128, 128, 128), 16),
+    ((1, 65, 65, 65), 2), ((1, 33, 33, 33), 1), ((1, 17, 17, 17), 1),
+    ((2, 9, 9, 9), 1), ((2, 20, 17, 17), 1), ((1, 9, 45, 45), 1),
+    ((2, 3, 17, 17), 1)])
+def test_k5_strip_fills_the_card(shape, tz):
+    """K5's strip on an H100's 132 SMs, at the shapes its callers and
+    chip_smoke.py use: the longest setting whose launch still gives each SM
+    its warps, split evenly over the planes, at most 31 planes."""
+    sms = 132
+    B, nz, ny, nx = shape
+    got = k5.strip_planes(*shape, sms)
+    assert got == tz
+    strips = -(-nz // got)
+    assert 1 <= got <= k5.STRIPS[0] and (strips - 1) * got < nz
+    blocks = B * -(-(nx - 1) // k5.COLS) * -(-ny // (k5.WARPS - 1))
+    setting = min(s for s in k5.STRIPS if s >= got)
+    assert -(-nz // setting) == strips
+    assert all(blocks * -(-nz // s) * k5.WARPS < k5.MIN_WARPS_PER_SM * sms
+               for s in k5.STRIPS if s > setting)
+
+
 def test_wrapper_3d_rejects_what_the_kernel_does_not_take():
     _, tb = _bases((5, 5, 5))
     x = torch.zeros(2, 5, 5, 5)

@@ -2,10 +2,10 @@
 
 Adam is held to the JAX Trainer step by step (losses and field at
 rtol=1e-5: the two Adam updates are the same formula in float32, and the
-gradients agree to ~1e-6 relative). LBFGS is held by the final L2 error
-only, within 10% of the JAX Trainer's: torch's strong-Wolfe line search is
-not optax's zoom search, so the iterates differ while the solution they
-reach agrees.
+gradients agree to ~1e-6 relative). LBFGS is held by the final L2 error,
+within 10% of the JAX Trainer's, and the final loss, within 10x: torch's
+strong-Wolfe line search is not optax's zoom search, so the iterates differ
+while the solution they reach agrees.
 """
 
 import csv
@@ -113,17 +113,65 @@ def _rel_l2(m, u):
     return float(eL2 / uex)
 
 
-def test_lbfgs_final_l2_matches_jax_trainer():
+class _TEndLosses(_TLosses):
+    """Also records, at every epoch's end, the loss the parameters have
+    and the LBFGS iteration count."""
+
+    def __init__(self):
+        super().__init__()
+        self.end_losses, self.n_iter = [], []
+
+    def on_epoch_end(self, trainer, module, state, epoch, metrics):
+        super().on_epoch_end(trainer, module, state, epoch, metrics)
+        batch = tuple(torch.as_tensor(np.asarray(a))[None]
+                      for a in module.dataset[0])
+        with torch.no_grad():
+            self.end_losses.append(float(module.training_loss(batch)))
+        p = next(iter(module.parameters()))
+        self.n_iter.append(state.optimizer.state[p]["n_iter"])
+
+
+@pytest.fixture(scope="module")
+def lbfgs_runs():
+    """One 33² resmin LBFGS fit from zeros, 40 epochs of one 10-iteration
+    step, by each Trainer."""
     n = 33
     jm, tm = _modules(n, np.zeros((n, n)), loss_type="resmin")
-    jst = JTrainer(max_epochs=40, optimizer="lbfgs",
-                   lbfgs_max_iter=10).fit(jm)
+    jcb, tcb = _JLosses(), _TEndLosses()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(pl, "pallas_call", partial(pl.pallas_call, interpret=True))
+        jst = JTrainer(max_epochs=40, optimizer="lbfgs", lbfgs_max_iter=10,
+                       callbacks=[jcb]).fit(jm)
     Trainer(max_epochs=40, optimizer="lbfgs", lbfgs_max_iter=10,
-            device="cpu").fit(tm)
+            callbacks=[tcb], device="cpu").fit(tm)
+    return jm, jst, jcb, tm, tcb
+
+
+def test_lbfgs_final_l2_matches_jax_trainer(lbfgs_runs):
+    jm, jst, _, tm, _ = lbfgs_runs
     rel_j = _rel_l2(jm, jm.network.apply(jst.params)[0])
     with torch.no_grad():
         rel_t = _rel_l2(tm, tm.network()[0])
     assert abs(rel_t - rel_j) <= 0.1 * rel_j, (rel_t, rel_j)
+
+
+def test_lbfgs_final_loss_within_10x_of_jax_trainer(lbfgs_runs):
+    _, _, jcb, _, tcb = lbfgs_runs
+    assert tcb.losses[-1] <= 10 * jcb.losses[-1], (tcb.losses[-1],
+                                                   jcb.losses[-1])
+
+
+def test_lbfgs_logs_the_loss_of_its_end_parameters(lbfgs_runs):
+    tcb = lbfgs_runs[-1]
+    np.testing.assert_allclose(tcb.losses, tcb.end_losses, rtol=1e-5)
+
+
+def test_lbfgs_step_runs_max_iter_below_absolute_tolerances(lbfgs_runs):
+    """torch's default tolerances would end a step at once below 1e-9;
+    the first epochs start there and still run all 10 iterations."""
+    tcb = lbfgs_runs[-1]
+    assert max(tcb.losses[:2]) < 1e-9, tcb.losses[:2]
+    assert tcb.n_iter[:3] == [10, 20, 30], tcb.n_iter
 
 
 def test_sgd_lowers_the_loss_and_logs(tmp_path):
