@@ -14,9 +14,11 @@ exits non-zero (it also does so, printing no result, without CUDA):
      (sm_90a, one process each, all started together) into one library.
   2. kernels: K1 (stiffness action and masked residual), K2 (resmin loss
      and gradient) and K3 (Ritz energy) against their plain torch versions
-     at 33^2 (anisotropic h), 40^2, 1x513^2 (slice D2's fine level) and
-     512^2 x 32; K1 also at 24x49 and at shapes on its tile edges (1x2^2,
-     3x129x257, 1x100x77: a width no multiple of its 32-column tile). K1
+     at 33^2 (anisotropic h), 40^2, 1x513^2 (slice D2's fine level),
+     512^2 x 32 and at shapes on their tile edges (1x2^2, 3x129x257,
+     1x100x77, 1x40x65: widths no multiple of the 64 columns of K1's and
+     K3's tiles or K2's 61); K1 also at 24x49; K2 and K3 at every tile
+     height at 1x513^2 and 512^2 x 32. K1
      and K3 also take bf16 fields: both against their bf16 plain versions
      at every K1 shape, within 8e-3 x max(1, |plain|) (each rounds once
      from float32). K4 (the assembled 9-point stencil apply)
@@ -93,7 +95,11 @@ exits non-zero (it also does so, printing no result, without CUDA):
         launched at least once an evaluation. G3 10 Adam steps at 8 x 256^2
         from seeded random fields: the loss falls, K6 launches once a step,
         the first loss matches the unfused path.
-  11. path shapes: each kernel timed again at the shape where most of its
+  11. resident steps: steps/s of the 512^2 x 32 training steps with the
+     batch on the card (fused and unfused) and of G3's NS step; 10 steps
+     of each fused 512^2 x 32 loss (K2's, K3's) under ``torch.profiler``:
+     device busy and wall ms a step, idle share, top device operations.
+  12. path shapes: each kernel timed again at the shape where most of its
      launches on the paths above ran (the slice with the most launches, by
      ``SLICE_SHAPES``): ``ms_path_shape`` and ``path_shape`` on the kernel
      table line.
@@ -338,13 +344,44 @@ def phase_build() -> None:
           "library": so.name, "ptxas": ptxas})
 
 
-# K1 (float32 and bf16) at each shape; K2 and K3 on the square ones but
-# 1 x 2^2. 1 x 513^2 is slice D2's fine level; 1 x 2^2, 3 x 129 x 257 and
-# 1 x 100 x 77 hit K1's tile edges (a width not a multiple of 32).
+# K1 and K3 (float32 and bf16) at each shape; K2 and K3 (float32) at those
+# of K2_K3_SHAPES. 1 x 513^2 is slice D2's fine level; 1 x 2^2,
+# 3 x 129 x 257, 1 x 100 x 77 and 1 x 40 x 65 hit the tile edges (widths
+# that are no multiple of K1's and K3's 64 columns or K2's 61).
 K1_SHAPES = ((2, 33, 33, True), (2, 40, 40, False), (2, 24, 49, False),
              (1, 2, 2, False), (3, 129, 257, False), (1, 100, 77, False),
-             (1, 513, 513, False), (32, 512, 512, False))
-K2_K3_SHAPES = ((2, 33, 33), (2, 40, 40), (1, 513, 513), (32, 512, 512))
+             (1, 40, 65, False), (1, 513, 513, False), (32, 512, 512, False))
+K2_K3_SHAPES = ((2, 33, 33), (2, 40, 40), (1, 40, 65), (1, 100, 77),
+                (3, 129, 257), (1, 2, 2), (1, 513, 513), (32, 512, 512))
+# K2 and K3 (both types) also at every tile height the kernels take
+K2_K3_STRIP_SHAPES = ((1, 513, 513), (32, 512, 512))
+
+
+def _k2_k3_strips(u, nu, Nf, bc, f, tb, loss_p, grad_p, E_p, Eb_p) -> dict:
+    """K2 and K3 (float32 and bf16) at every tile height the kernels take,
+    through the launch the wrappers make (not counted), against the plain
+    versions: the largest relative error of each."""
+    errs = {}
+    for ty in k2.STRIPS:
+        loss, grad = k2.loss_grad_at_strip(u, nu, Nf, bc, tb, ty)
+        lerr = abs(float(loss) - float(loss_p))
+        gerr = float((grad - grad_p).abs().max())
+        if lerr > SCALAR_RTOL * abs(float(loss_p)) or \
+                gerr > GRAD_RTOL * float(grad_p.abs().max()):
+            fail(f"K2 at {list(u.shape)}, tile height {ty}: loss err "
+                 f"{lerr}, grad err {gerr}")
+        errs[f"K2_ty{ty}"] = gerr / float(grad_p.abs().max())
+    ub, nub, fb = u.bfloat16(), nu.bfloat16(), f.bfloat16()
+    for ty in k3.STRIPS:
+        eerr = abs(float(k3.energy_at_strip(u, nu, f, tb, ty)) - float(E_p))
+        berr = abs(float(k3.energy_at_strip(ub, nub, fb, tb, ty)) - Eb_p)
+        if eerr > SCALAR_RTOL * abs(float(E_p)) or \
+                berr > BF16_ATOL * max(1.0, abs(Eb_p)):
+            fail(f"K3 at {list(u.shape)}, tile height {ty}: errs {eerr}, "
+                 f"bf16 {berr}")
+        errs[f"K3_ty{ty}"] = eerr / abs(float(E_p))
+        errs[f"K3_bf16_ty{ty}"] = berr
+    return errs
 
 
 def phase_kernels(dev) -> dict:
@@ -406,9 +443,11 @@ def phase_kernels(dev) -> dict:
             gref = float(grad_p.abs().max())
             lerr = abs(float(loss) - float(loss_p))
             eerr = abs(float(E) - float(E_p))
+            # at 1 x 2^2 every node is masked: loss and gradient exactly 0
             row["K2"] = {"loss": float(loss), "loss_rel_err":
-                         lerr / abs(float(loss_p)), "grad_max_abs_err": gerr,
-                         "grad_rel_err": gerr / gref}
+                         lerr / max(abs(float(loss_p)), 1e-30),
+                         "grad_max_abs_err": gerr,
+                         "grad_rel_err": gerr / max(gref, 1e-30)}
             row["K3"] = {"energy": float(E), "rel_err": eerr / abs(float(E_p))}
             errs["poisson_resmin_loss_grad"] = max(
                 errs["poisson_resmin_loss_grad"], gerr)
@@ -418,6 +457,9 @@ def phase_kernels(dev) -> dict:
                 fail(f"K2 at {row['shape']}: {row['K2']}")
             if eerr > SCALAR_RTOL * abs(float(E_p)):
                 fail(f"K3 at {row['shape']}: {row['K3']}")
+        if (B, ny, nx) in K2_K3_STRIP_SHAPES:
+            row["strips"] = _k2_k3_strips(u, nu, Nf, bc, f, tb, loss_p,
+                                          grad_p, E_p, Ebp)
         if B == 32:
             t = cuda_ms({
                 "K1_plain": lambda: k1.stiffness_action_plain(u, nu, tb),
@@ -901,8 +943,11 @@ def _device_idle_share(solve, b) -> dict:
         solve(b)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    # device kernels and copies; not the annotations of user ranges (an
+    # optimizer's step), which span kernels already counted
     dev_events = [e for e in prof.events()
-                  if e.device_type == DeviceType.CUDA]
+                  if e.device_type == DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False)]
     busy_us = sum(e.time_range.elapsed_us() for e in dev_events)
     by_name: dict[str, float] = {}
     for e in dev_events:   # names cut to 80 characters before summing
@@ -1436,9 +1481,14 @@ def slice_g3(dev) -> dict:
     return launches
 
 
-def _resident_rate(m, batch) -> float:
-    """Adam steps/s of `m` on a batch already on the card: 20 steps timed
-    after 3."""
+FUSED_2D_STEPS = (   # the resident 512^2 x 32 steps on the fused losses
+    ("resmin_fused_loss_grad", "resmin",
+     {"fused_kernels": True, "fused_loss_grad": True}),
+    ("energy_fused", "energy", {"fused_kernels": True}))
+
+
+def _adam_step(m, batch):
+    """One Adam step of `m` on a batch already on the card, as a callable."""
     opt = torch.optim.Adam(m.parameters(), lr=1e-3)
 
     def step():
@@ -1446,6 +1496,13 @@ def _resident_rate(m, batch) -> float:
         m.training_loss(batch).backward()
         opt.step()
 
+    return step
+
+
+def _resident_rate(m, batch) -> float:
+    """Adam steps/s of `m` on a batch already on the card: 20 steps timed
+    after 3."""
+    step = _adam_step(m, batch)
     for _ in range(3):
         step()
     torch.cuda.synchronize()
@@ -1467,16 +1524,40 @@ def resident_steps_per_s(dev) -> dict:
     two 512^2 x 32 training steps on the fused losses and unfused, and
     slice G3's 8 x 256^2 NS step with and without K6."""
     out = {}
-    for name, loss_type, kw in (
-            ("resmin_fused_loss_grad", "resmin",
-             {"fused_kernels": True, "fused_loss_grad": True}),
-            ("resmin_unfused", "resmin", {}),
-            ("energy_fused", "energy", {"fused_kernels": True})):
+    for name, loss_type, kw in FUSED_2D_STEPS + (
+            ("resmin_unfused", "resmin", {}),):
         m = _field_module(512, 32, loss_type, **kw).to(dev)
         out[name] = _resident_rate(m, _resident_batch(m, 32, dev))
     for name, fused in (("ns_vms_fused", True), ("ns_vms_unfused", False)):
         m = _ns_field_module(fused).to(dev)
         out[name] = _resident_rate(m, _resident_batch(m, G3_BATCH, dev))
+    return out
+
+
+def resident_step_profiles(dev) -> dict:
+    """10 resident Adam steps of each fused 512^2 x 32 loss (K2's, K3's)
+    under torch.profiler, read as ``_device_idle_share`` reads a solve:
+    device busy and wall ms a step, the idle share and the top device
+    operations (what K2 and K3 leave of a step); and the device time of
+    the Galerkin projection of f (Gauss-point values, then the projection)
+    that the energy step's backward makes every step (the resmin step
+    projects Gauss-point values of f cached by the module)."""
+    out = {}
+    for name, loss_type, kw in FUSED_2D_STEPS:
+        m = _field_module(512, 32, loss_type, **kw).to(dev)
+        batch = _resident_batch(m, 32, dev)
+        step = _adam_step(m, batch)
+        for _ in range(3):
+            step()
+        prof = _device_idle_share(lambda _: [step() for _ in range(10)],
+                                  None)
+        out[name] = {"steps": 10,
+                     "device_busy_ms_per_step": prof["device_busy_ms"] / 10,
+                     "wall_ms_per_step": prof["wall_ms"] / 10, **prof}
+    f = batch[1][..., 0].contiguous()   # the forcing, [32, 512, 512]
+    out["f_projection_ms"] = cuda_ms({"f_projection": lambda: (
+        fem.galerkin_project(fem.gp_eval(f, m.basis, ("N",))["N"], m.basis,
+                             "N", f.shape[-2:]))})["f_projection"]
     return out
 
 
@@ -1603,6 +1684,7 @@ def main() -> int:
 
     emit({"phase": "resident_steps_per_s",
           "steps_per_s": resident_steps_per_s(dev)})
+    emit({"phase": "resident_step_profiles", **resident_step_profiles(dev)})
     by_slice = {"A": la, "B": lb, "C": lc, **ld, "E1": le1, "E2": le2, **lf,
                 "G1": lg1, "G2": lg2, "G3": lg3}
     path = phase_path_shapes(dev, by_slice)

@@ -5,14 +5,13 @@
 //   poisson_stiffness_action  Ku = K(nu) u, assembled (replaces
 //                             diffnet_tpu/ops/poisson_residual.py
 //                             _stiffness_fwd_impl / _stiffness_fwd_bs)
-//   poisson_resmin_loss_grad  L = sum R^2 and dL/du = 2 K(nu) R with
-//                             R = where(bc > 0.5, 0, K(nu) u - Nf), one block
-//                             per 16x16 tile (replaces
+//   poisson_resmin_loss_grad  per-warp partials of L = sum R^2 and
+//                             dL/du = 2 K(nu) R with R = where(bc > 0.5, 0,
+//                             K(nu) u - Nf) (replaces
 //                             diffnet_tpu/ops/poisson_loss_grad.py
 //                             _loss_grad_impl)
-//   poisson_energy            per-block partial sums of the Ritz energy
-//                             sum_gp JxW (0.5 nu |grad u|^2 - u f), one
-//                             thread per element (replaces
+//   poisson_energy            per-warp partial sums of the Ritz energy
+//                             sum_gp JxW (0.5 nu |grad u|^2 - u f) (replaces
 //                             diffnet_tpu/ops/poisson_energy.py
 //                             _energy_fwd_impl)
 //
@@ -54,7 +53,13 @@
 //     and the same result on every run.
 //   * Tensor cores have no part here: the body is a handful of products of
 //     differences, no matrix product to hand them.
-// K2 and K3 keep their first designs (PERF.md has their times).
+// K2 and K3 take the same walk, with no staging. Their first designs
+// computed an element body about nine times a node (K2: R on a 16x16 tile
+// plus halo in gather form, then K(R)) or loaded each node four times (K3:
+// a thread an element); on the same card they ran at 0.224 and 0.069 ms at
+// 512^2 x 32. Now (PERF.md): K2 0.093 ms, ~2.2 element bodies a node, held
+// by instruction issue (its byte bound is 0.040); K3 0.045 ms in float32,
+// 67% of its byte bound, and 0.044 in bf16.
 //
 // Plain C interface, loaded with ctypes. Every entry point launches on the
 // given stream and returns cudaGetLastError() (0 = success); the Python
@@ -138,68 +143,6 @@ __device__ __forceinline__ void element_body(
   a1 = px0 - py1;
   a2 = py0 - px1;
   a3 = px1 + py1;
-}
-
-// Read-only views of a field by global node (y, x), in float32.
-template <class T>
-struct GlobalField {
-  const T* __restrict__ p;
-  int ncols;
-  __device__ __forceinline__ float operator()(int y, int x) const {
-    return to_f32(__ldg(p + (int64_t)y * ncols + x));
-  }
-};
-
-struct SharedField {
-  const float* p;  // shared-memory tile whose (0, 0) is global node (y0, x0)
-  int stride, y0, x0;
-  __device__ __forceinline__ float operator()(int y, int x) const {
-    return p[(y - y0) * stride + (x - x0)];
-  }
-};
-
-// Gather form of the assembly: node (j, i) sums the contribution of each of
-// its (up to four) adjacent elements; element (ey, ex) exists for
-// 0 <= ey < nel_r, 0 <= ex < nel_c. No atomics, and the same result on
-// every run.
-template <class Field>
-__device__ __forceinline__ float node_action(const Field& u, const Field& nu,
-                                             int j, int i, int nel_r,
-                                             int nel_c, const StiffConsts& k) {
-  float acc = 0.f;
-#pragma unroll
-  for (int dj = 0; dj < 2; ++dj) {
-#pragma unroll
-    for (int di = 0; di < 2; ++di) {
-      const int ey = j - 1 + dj, ex = i - 1 + di;
-      if (ey < 0 || ey >= nel_r || ex < 0 || ex >= nel_c) continue;
-      float a[4];
-      element_body(u(ey, ex), u(ey, ex + 1), u(ey + 1, ex), u(ey + 1, ex + 1),
-                   nu(ey, ex), nu(ey, ex + 1), nu(ey + 1, ex),
-                   nu(ey + 1, ex + 1), k, a[0], a[1], a[2], a[3]);
-      // the node is corner (jb, ib) = (1 - dj, 1 - di) of this element
-      acc += a[2 * (1 - dj) + (1 - di)];
-    }
-  }
-  return acc;
-}
-
-// Sum of `v` over a block of kThreads threads; the result is valid in
-// thread 0. `red` holds kThreads / 32 floats.
-template <int kThreads>
-__device__ __forceinline__ float block_sum(float v, float* red) {
-  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-  if ((tid & 31) == 0) red[tid >> 5] = v;
-  __syncthreads();
-  float s = 0.f;
-  if (tid < 32) {
-    s = tid < kThreads / 32 ? red[tid] : 0.f;
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) s += __shfl_down_sync(0xffffffffu, s, off);
-  }
-  return s;
 }
 
 // ---------------------------------------------------------------- K1 ------
@@ -375,112 +318,270 @@ stiffness_kernel(const T* __restrict__ u, const T* __restrict__ nu,
 }
 
 // ---------------------------------------------------------------- K2 ------
-constexpr int kT = 16;  // output tile edge; 256 threads, one per tile node
+// A warp owns kK2W output node columns x0 .. x0 + 60 and ty output node rows
+// y0 .. y0 + ty - 1; a block is kWarps such warps, stacked in y, that share
+// nothing. Lane l holds node columns a, a + 1, a + 2 (a = x0 - 2 + 2l) of u
+// and nu, loaded straight from device memory a row at a time (a warp's row
+// is 64 consecutive nodes, the third column an L1 hit), and walks down the
+// rows:
+//   stage 1: elements a and a + 1 of element row e, once each; with the
+//     bottom corners of row e - 1 carried in registers and the corner of
+//     element a + 2 from lane l + 1 by shuffle they complete K(nu) u at
+//     nodes P = a + 1 and Q = a + 2 of node row e, and so R there (the mask
+//     and Nf applied on the fly; R never leaves registers);
+//   stage 2, one row behind: the same walk over R, elements a + 1 and a + 2
+//     of element row e - 1 (R at a + 3 from lane l + 1), gives 2 K(nu) R at
+//     nodes a + 2 and a + 3 of node row e - 1.
+// 64 element slots a stage give 63 R nodes and then 61 gradient nodes, so
+// no lane computes an extra column: ~2 (ty + 3)/ty + 2 (ty + 1)/ty element
+// bodies a lane for 61/32 nodes, against nine a node in gather form.
+constexpr int kK2W = 61;   // output node columns of a warp's tile
+constexpr int kWarps = 4;  // independent warps of a K2 or K3 block
 
-__global__ void __launch_bounds__(kT * kT)
+// a field's value at (row, col) of this sample, 0 outside the grid: `row_ok`
+// and `col_ok` are the two halves of the test, `p` the row's first node
+__device__ __forceinline__ float ld_or0(const float* __restrict__ p, int col,
+                                        bool row_ok, bool col_ok) {
+  return row_ok && col_ok ? __ldg(p + col) : 0.f;
+}
+
+__global__ void __launch_bounds__(32 * kWarps)
 loss_grad_kernel(const float* __restrict__ u, const float* __restrict__ nu,
                  const float* __restrict__ nf, int64_t nf_bstride,
                  const float* __restrict__ bc, int64_t bc_bstride,
-                 float* __restrict__ grad,
-                 float* __restrict__ partials, int nrows, int ncols,
-                 StiffConsts k) {
-  __shared__ float su[kT + 4][kT + 4];   // u, nu with a 2-node halo
-  __shared__ float snu[kT + 4][kT + 4];
-  __shared__ float sr[kT + 2][kT + 2];   // R with a 1-node halo
-  __shared__ float red[kT * kT / 32];
-
+                 float* __restrict__ grad, float* __restrict__ partials,
+                 int nrows, int ncols, int ty, StiffConsts k) {
+  const int lane = threadIdx.x;
+  const int tile = blockIdx.y * kWarps + threadIdx.y;   // row tile
+  const int x0 = blockIdx.x * kK2W, y0 = tile * ty;
   const int b = blockIdx.z;
-  const int y0 = blockIdx.y * kT, x0 = blockIdx.x * kT;
-  const int tid = threadIdx.y * kT + threadIdx.x;
-  const int64_t off = (int64_t)b * nrows * ncols;
-  const int64_t nfoff = (int64_t)b * nf_bstride;
-  const int64_t boff = (int64_t)b * bc_bstride;
   const int nel_r = nrows - 1, nel_c = ncols - 1;
+  const float* __restrict__ U = u + (int64_t)b * nrows * ncols;
+  const float* __restrict__ NU = nu + (int64_t)b * nrows * ncols;
+  const float* __restrict__ NF = nf + (int64_t)b * nf_bstride;
+  const float* __restrict__ BC = bc + (int64_t)b * bc_bstride;
+  float* __restrict__ G = grad + (int64_t)b * nrows * ncols;
 
-  // nodes outside the domain load as 0; only masked elements read them
-  for (int t = tid; t < (kT + 4) * (kT + 4); t += kT * kT) {
-    const int ly = t / (kT + 4), lx = t % (kT + 4);
-    const int y = y0 - 2 + ly, x = x0 - 2 + lx;
-    const bool in = y >= 0 && y < nrows && x >= 0 && x < ncols;
-    const int64_t g = off + (int64_t)y * ncols + x;
-    su[ly][lx] = in ? __ldg(u + g) : 0.f;
-    snu[ly][lx] = in ? __ldg(nu + g) : 0.f;
-  }
-  __syncthreads();
+  const int a = x0 - 2 + 2 * lane;
+  const bool c0 = a >= 0 && a < ncols, c1 = a + 1 >= 0 && a + 1 < ncols;
+  const bool c2 = a + 2 >= 0 && a + 2 < ncols;
+  // elements that exist: stage 1's a, a + 1; stage 2's a + 1, a + 2
+  const bool e1a = a >= 0 && a < nel_c, e1b = a + 1 >= 0 && a + 1 < nel_c;
+  const bool e2b = a + 2 >= 0 && a + 2 < nel_c;
+  // owned nodes: R^2 at P (lanes 1-30) and Q (lanes 0-30); the gradient at
+  // a + 2 (lanes 0-30) and a + 3 (lanes 0-29), inside the grid
+  const bool own_p = lane >= 1 && lane <= 30, own_q = lane <= 30;
+  const bool out0 = lane <= 30 && a + 2 < ncols;
+  const bool out1 = lane <= 29 && a + 3 < ncols;
+  const int steps = min(ty, nrows - y0) + 3;   // element rows y0 - 2 ...
 
-  // 1. R on the tile plus its 1-node halo (zero outside the domain)
-  const SharedField U{&su[0][0], kT + 4, y0 - 2, x0 - 2};
-  const SharedField NU{&snu[0][0], kT + 4, y0 - 2, x0 - 2};
-  for (int t = tid; t < (kT + 2) * (kT + 2); t += kT * kT) {
-    const int ly = t / (kT + 2), lx = t % (kT + 2);
-    const int y = y0 - 1 + ly, x = x0 - 1 + lx;
-    float r = 0.f;
-    if (y >= 0 && y < nrows && x >= 0 && x < ncols) {
-      const int64_t g = (int64_t)y * ncols + x;
-      const float ku = node_action(U, NU, y, x, nel_r, nel_c, k);
-      r = __ldg(bc + boff + g) > 0.5f ? 0.f : ku - __ldg(nf + nfoff + g);
-    }
-    sr[ly][lx] = r;
-  }
-  __syncthreads();
+  // node row r of u and nu at a, a + 1, a + 2
+  auto load_un = [&](int r, float* uu, float* nn) {
+    const bool ok = r >= 0 && r < nrows;
+    const int o = r * ncols;
+    uu[0] = ld_or0(U + o, a, ok, c0);
+    uu[1] = ld_or0(U + o, a + 1, ok, c1);
+    uu[2] = ld_or0(U + o, a + 2, ok, c2);
+    nn[0] = ld_or0(NU + o, a, ok, c0);
+    nn[1] = ld_or0(NU + o, a + 1, ok, c1);
+    nn[2] = ld_or0(NU + o, a + 2, ok, c2);
+  };
+  // node row r of Nf and bc at P and Q
+  auto load_fb = [&](int r, float* ff, float* bb) {
+    const bool ok = r >= 0 && r < nrows;
+    const int o = r * ncols;
+    ff[0] = ld_or0(NF + o, a + 1, ok, c1);
+    ff[1] = ld_or0(NF + o, a + 2, ok, c2);
+    bb[0] = ld_or0(BC + o, a + 1, ok, c1);
+    bb[1] = ld_or0(BC + o, a + 2, ok, c2);
+  };
 
-  // 2. grad = 2 K(nu) R on the owned nodes; 3. their share of sum R^2
-  const int j = y0 + threadIdx.y, i = x0 + threadIdx.x;
+  float ut[3], nt[3], ub[3], nb[3], fq[2], bq[2];
+  float un[3], nn[3], fn[2], bn[2];   // the next step's loads
+  load_un(y0 - 2, ut, nt);
+  load_un(y0 - 1, un, nn);
+  load_fb(y0 - 2, fn, bn);
+  // nu at a + 3 (lane l + 1's a + 1) on the stage-2 rows
+  float nt3 = __shfl_down_sync(kFull, nt[1], 1);
+  float np[3] = {0.f, 0.f, 0.f}, np3 = 0.f;   // nu, node row e - 1
+  float carry0 = 0.f, carry1 = 0.f;           // stage 1, row e - 1's
+  float rp = 0.f, rq = 0.f, rn = 0.f;         // R, row e - 1: P, Q, a + 3
+  float gc0 = 0.f, gc1 = 0.f;                 // stage 2's carries
   float sq = 0.f;
-  if (j < nrows && i < ncols) {
-    const SharedField R{&sr[0][0], kT + 2, y0 - 1, x0 - 1};
-    grad[off + (int64_t)j * ncols + i] =
-        2.f * node_action(R, NU, j, i, nel_r, nel_c, k);
-    const float r = sr[threadIdx.y + 1][threadIdx.x + 1];
-    sq = r * r;
+
+  for (int s = 0; s < steps; ++s) {
+    const int e = y0 - 2 + s;   // stage 1's element row, R's node row
+#pragma unroll
+    for (int i = 0; i < 3; ++i) ub[i] = un[i], nb[i] = nn[i];
+    fq[0] = fn[0], fq[1] = fn[1], bq[0] = bn[0], bq[1] = bn[1];
+    if (s + 1 < steps) {
+      load_un(e + 2, un, nn);
+      load_fb(e + 1, fn, bn);
+    }
+    const float nb3 = __shfl_down_sync(kFull, nb[1], 1);
+
+    // stage 1: K(nu) u at P and Q of node row e, then R
+    float a0, a1, a2, a3, b0, b1, b2, b3;
+    element_body(ut[0], ut[1], ub[0], ub[1], nt[0], nt[1], nb[0], nb[1], k,
+                 a0, a1, a2, a3);
+    element_body(ut[1], ut[2], ub[1], ub[2], nt[1], nt[2], nb[1], nb[2], k,
+                 b0, b1, b2, b3);
+    const bool row_ok = e >= 0 && e < nel_r;
+    const bool va = row_ok && e1a, vb = row_ok && e1b;
+    a0 = va ? a0 : 0.f;
+    a1 = va ? a1 : 0.f;
+    a2 = va ? a2 : 0.f;
+    a3 = va ? a3 : 0.f;
+    b0 = vb ? b0 : 0.f;
+    b1 = vb ? b1 : 0.f;
+    b2 = vb ? b2 : 0.f;
+    b3 = vb ? b3 : 0.f;
+    const float r0 = __shfl_down_sync(kFull, a0, 1);
+    const float r2 = __shfl_down_sync(kFull, a2, 1);
+    const float kp = (carry0 + a1) + b0, kq = (carry1 + b1) + r0;
+    carry0 = a3 + b2;
+    carry1 = b3 + r2;
+    const float Rp = bq[0] > 0.5f ? 0.f : kp - fq[0];
+    const float Rq = bq[1] > 0.5f ? 0.f : kq - fq[1];
+    const float Rn = __shfl_down_sync(kFull, Rp, 1);
+    if (s >= 2 && s <= ty + 1) {   // R's rows y0 .. y0 + ty - 1
+      sq += own_p ? Rp * Rp : 0.f;
+      sq += own_q ? Rq * Rq : 0.f;
+    }
+
+    // stage 2: element row e - 1 of K(nu) R, node row e - 1 of the
+    // gradient
+    if (s >= 2) {
+      const int e2 = e - 1;
+      float ca0, ca1, ca2, ca3, cb0, cb1, cb2, cb3;
+      element_body(rp, rq, Rp, Rq, np[1], np[2], nt[1], nt[2], k, ca0, ca1,
+                   ca2, ca3);
+      element_body(rq, rn, Rq, Rn, np[2], np3, nt[2], nt3, k, cb0, cb1, cb2,
+                   cb3);
+      const bool row2 = e2 >= 0 && e2 < nel_r;
+      const bool vc = row2 && e1b, vd = row2 && e2b;   // a + 1, a + 2
+      ca0 = vc ? ca0 : 0.f;
+      ca1 = vc ? ca1 : 0.f;
+      ca2 = vc ? ca2 : 0.f;
+      ca3 = vc ? ca3 : 0.f;
+      cb0 = vd ? cb0 : 0.f;
+      cb1 = vd ? cb1 : 0.f;
+      cb2 = vd ? cb2 : 0.f;
+      cb3 = vd ? cb3 : 0.f;
+      const float q0 = __shfl_down_sync(kFull, ca0, 1);
+      const float q2 = __shfl_down_sync(kFull, ca2, 1);
+      if (s >= 3) {   // node row e2 >= y0
+        float* __restrict__ g = G + (int64_t)e2 * ncols;
+        if (out0) g[a + 2] = 2.f * ((gc0 + ca1) + cb0);
+        if (out1) g[a + 3] = 2.f * ((gc1 + cb1) + q0);
+      }
+      gc0 = ca3 + cb2;
+      gc1 = cb3 + q2;
+    }
+
+#pragma unroll
+    for (int i = 0; i < 3; ++i) np[i] = nt[i], nt[i] = nb[i], ut[i] = ub[i];
+    np3 = nt3;
+    nt3 = nb3;
+    rp = Rp, rq = Rq, rn = Rn;
   }
-  const float s = block_sum<kT * kT>(sq, red);
-  if (tid == 0)
-    partials[((int64_t)b * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x] = s;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) sq += __shfl_down_sync(kFull, sq, off);
+  if (lane == 0)
+    partials[((int64_t)b * gridDim.y * kWarps + tile) * gridDim.x +
+             blockIdx.x] = sq;
 }
 
 // ---------------------------------------------------------------- K3 ------
-constexpr int kK3X = 32, kK3Y = 8;
+// A warp owns kK3W element columns x0 .. x0 + 63 and ty element rows; a
+// block is kWarps such warps stacked in y. Lane l computes elements x0 + 2l
+// and x0 + 2l + 1 of each row, once each, from its nodes x0 + 2l .. + 2 of
+// u, nu and f, loaded straight from device memory a row at a time (the
+// third column an L1 hit), the next row's loads issued before this row's
+// bodies, the row above kept in registers: each node is read (ty + 1)/ty
+// times and no element is computed twice. The sum stays in a register; one
+// shuffle tree a warp gives its partial.
+constexpr int kK3W = 64;
+
+// the Ritz energy of one element from its corner values of u (c..), nu
+// (n..) and f (f..): the sum-factorised body of the JAX kernel
+__device__ __forceinline__ float energy_body(
+    float c00, float c01, float c10, float c11, float n00, float n01,
+    float n10, float n11, float f00, float f01, float f10, float f11,
+    const EnergyConsts& c) {
+  const float dxl = c01 - c00, dxh = c11 - c10;
+  const float dyl = c10 - c00, dyh = c11 - c01;
+  const float sxr0 = n00 + n01, sxr1 = n10 + n11;
+  const float syc0 = n00 + n10, syc1 = n01 + n11;
+  const float nsum = sxr0 + sxr1;
+  const float Xx = sxr0 - sxr1, Xy = syc0 - syc1;
+  const float Ux = dxl + dxh, Vx = dxl - dxh;
+  const float Uy = dyl + dyh, Vy = dyl - dyh;
+  const float e_x = nsum * (c.c1x * (Ux * Ux) + c.c2x * (Vx * Vx)) + c.c3x * (Ux * Vx) * Xx;
+  const float e_y = nsum * (c.c1y * (Uy * Uy) + c.c2y * (Vy * Vy)) + c.c3y * (Uy * Vy) * Xy;
+  const float ga = 2.f * f00 + f10, gb = 2.f * f01 + f11;
+  const float gc = f00 + 2.f * f10, gd = f01 + 2.f * f11;
+  const float load = c.cm * (c00 * (2.f * ga + gb) + c01 * (ga + 2.f * gb) +
+                             c10 * (2.f * gc + gd) + c11 * (gc + 2.f * gd));
+  return e_x + e_y - load;
+}
 
 template <class T>
-__global__ void __launch_bounds__(kK3X * kK3Y)
+__global__ void __launch_bounds__(32 * kWarps)
 energy_kernel(const T* __restrict__ u, const T* __restrict__ nu,
               const T* __restrict__ f, float* __restrict__ partials,
-              int nrows, int ncols, EnergyConsts c) {
-  __shared__ float red[kK3X * kK3Y / 32];
-  const int ex = blockIdx.x * kK3X + threadIdx.x;
-  const int ey = blockIdx.y * kK3Y + threadIdx.y;
+              int nrows, int ncols, int ty, EnergyConsts c) {
+  const int lane = threadIdx.x;
+  const int tile = blockIdx.y * kWarps + threadIdx.y;
+  const int x = blockIdx.x * kK3W + 2 * lane, y0 = tile * ty;
   const int64_t off = (int64_t)blockIdx.z * nrows * ncols;
-  float acc = 0.f;
-  if (ex < ncols - 1 && ey < nrows - 1) {
-    const GlobalField<T> U{u + off, ncols}, NU{nu + off, ncols},
-        FF{f + off, ncols};
-    const float c00 = U(ey, ex), c01 = U(ey, ex + 1);
-    const float c10 = U(ey + 1, ex), c11 = U(ey + 1, ex + 1);
-    const float n00 = NU(ey, ex), n01 = NU(ey, ex + 1);
-    const float n10 = NU(ey + 1, ex), n11 = NU(ey + 1, ex + 1);
-    const float f00 = FF(ey, ex), f01 = FF(ey, ex + 1);
-    const float f10 = FF(ey + 1, ex), f11 = FF(ey + 1, ex + 1);
+  const T* __restrict__ U = u + off;
+  const T* __restrict__ NU = nu + off;
+  const T* __restrict__ F = f + off;
+  const bool ok0 = x < ncols - 1, ok1 = x + 1 < ncols - 1;
+  // columns clamped into the grid: a load past it feeds only an element
+  // that does not exist
+  const int x1 = min(x + 1, ncols - 1), x2 = min(x + 2, ncols - 1);
+  const int xc = min(x, ncols - 1);
+  const int rows = min(ty, nrows - 1 - y0);   // element rows of the tile
 
-    const float dxl = c01 - c00, dxh = c11 - c10;
-    const float dyl = c10 - c00, dyh = c11 - c01;
-    const float sxr0 = n00 + n01, sxr1 = n10 + n11;
-    const float syc0 = n00 + n10, syc1 = n01 + n11;
-    const float nsum = sxr0 + sxr1;
-    const float Xx = sxr0 - sxr1, Xy = syc0 - syc1;
-    const float Ux = dxl + dxh, Vx = dxl - dxh;
-    const float Uy = dyl + dyh, Vy = dyl - dyh;
-    const float e_x = nsum * (c.c1x * (Ux * Ux) + c.c2x * (Vx * Vx)) + c.c3x * (Ux * Vx) * Xx;
-    const float e_y = nsum * (c.c1y * (Uy * Uy) + c.c2y * (Vy * Vy)) + c.c3y * (Uy * Vy) * Xy;
-    const float ga = 2.f * f00 + f10, gb = 2.f * f01 + f11;
-    const float gc = f00 + 2.f * f10, gd = f01 + 2.f * f11;
-    const float load = c.cm * (c00 * (2.f * ga + gb) + c01 * (ga + 2.f * gb) +
-                               c10 * (2.f * gc + gd) + c11 * (gc + 2.f * gd));
-    acc = e_x + e_y - load;
+  float acc = 0.f;
+  if (rows > 0) {
+    auto load = [&](int r, float* uu, float* nn, float* ff) {
+      const int o = r * ncols;
+      uu[0] = to_f32(__ldg(U + o + xc));
+      uu[1] = to_f32(__ldg(U + o + x1));
+      uu[2] = to_f32(__ldg(U + o + x2));
+      nn[0] = to_f32(__ldg(NU + o + xc));
+      nn[1] = to_f32(__ldg(NU + o + x1));
+      nn[2] = to_f32(__ldg(NU + o + x2));
+      ff[0] = to_f32(__ldg(F + o + xc));
+      ff[1] = to_f32(__ldg(F + o + x1));
+      ff[2] = to_f32(__ldg(F + o + x2));
+    };
+    float ut[3], nt[3], ft[3], ub[3], nb[3], fb[3], un[3], nn[3], fn[3];
+    load(y0, ut, nt, ft);
+    load(y0 + 1, un, nn, fn);
+    for (int s = 0; s < rows; ++s) {
+#pragma unroll
+      for (int i = 0; i < 3; ++i) ub[i] = un[i], nb[i] = nn[i], fb[i] = fn[i];
+      if (s + 1 < rows) load(y0 + s + 2, un, nn, fn);
+      const float ea = energy_body(ut[0], ut[1], ub[0], ub[1], nt[0], nt[1],
+                                   nb[0], nb[1], ft[0], ft[1], fb[0], fb[1],
+                                   c);
+      const float eb = energy_body(ut[1], ut[2], ub[1], ub[2], nt[1], nt[2],
+                                   nb[1], nb[2], ft[1], ft[2], fb[1], fb[2],
+                                   c);
+      acc += (ok0 ? ea : 0.f) + (ok1 ? eb : 0.f);
+#pragma unroll
+      for (int i = 0; i < 3; ++i) ut[i] = ub[i], nt[i] = nb[i], ft[i] = fb[i];
+    }
   }
-  const float s = block_sum<kK3X * kK3Y>(acc, red);
-  if (threadIdx.x == 0 && threadIdx.y == 0)
-    partials[((int64_t)blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x] = s;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) acc += __shfl_down_sync(kFull, acc, o);
+  if (lane == 0)
+    partials[((int64_t)blockIdx.z * gridDim.y * kWarps + tile) * gridDim.x +
+             blockIdx.x] = acc;
 }
 
 inline unsigned cdiv(int a, int b) { return (unsigned)((a + b - 1) / b); }
@@ -493,14 +594,17 @@ const char* poisson2d_error_string(int status) {
   return cudaGetErrorString((cudaError_t)status);
 }
 
-// Number of partial sums the K2 / K3 launches write; the wrappers allocate
-// exactly this many.
-long long poisson_resmin_loss_grad_partials(int B, int nrows, int ncols) {
-  return (long long)B * cdiv(nrows, kT) * cdiv(ncols, kT);
+// Number of partial sums the K2 / K3 launches write at tile height ty (one
+// a warp); the wrappers allocate exactly this many.
+long long poisson_resmin_loss_grad_partials(int B, int nrows, int ncols,
+                                            int ty) {
+  return (long long)B * cdiv(ncols, kK2W) * cdiv(cdiv(nrows, ty), kWarps) *
+         kWarps;
 }
 
-long long poisson_energy_partials(int B, int nrows, int ncols) {
-  return (long long)B * cdiv(ncols - 1, kK3X) * cdiv(nrows - 1, kK3Y);
+long long poisson_energy_partials(int B, int nrows, int ncols, int ty) {
+  return (long long)B * cdiv(ncols - 1, kK3W) *
+         cdiv(cdiv(nrows - 1, ty), kWarps) * kWarps;
 }
 
 // ty: node rows of a tile, 1 to 31 (the wrapper picks it from the grid);
@@ -530,38 +634,45 @@ int poisson_stiffness_action(const void* u, const void* nu, void* out, int B,
   return (int)cudaGetLastError();
 }
 
+// ty: node rows (K2) or element rows (K3) of a warp's tile, 1 to 64 (the
+// wrappers pick it from the grid). A sample's nodes must fit in 31 bits.
+// Anything else is refused with cudaErrorInvalidValue.
 int poisson_resmin_loss_grad(const float* u, const float* nu, const float* nf,
                              long long nf_bstride, const float* bc,
                              long long bc_bstride, float* grad,
                              float* partials, int B, int nrows, int ncols,
-                             float k1x, float k2x, float k1y, float k2y,
-                             void* stream) {
-  const dim3 grid(cdiv(ncols, kT), cdiv(nrows, kT), B);
-  const dim3 block(kT, kT);
-  loss_grad_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
+                             int ty, float k1x, float k2x, float k1y,
+                             float k2y, void* stream) {
+  if (ty < 1 || ty > 64 || (int64_t)nrows * ncols > INT32_MAX - 64)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid(cdiv(ncols, kK2W), cdiv(cdiv(nrows, ty), kWarps), B);
+  loss_grad_kernel<<<grid, dim3(32, kWarps), 0, (cudaStream_t)stream>>>(
       u, nu, nf, (int64_t)nf_bstride, bc, (int64_t)bc_bstride, grad,
-      partials, nrows, ncols, StiffConsts{k1x, k2x, k1y, k2y});
+      partials, nrows, ncols, ty, StiffConsts{k1x, k2x, k1y, k2y});
   return (int)cudaGetLastError();
 }
 
 // bf16: 1 for bfloat16 fields, 0 for float32; the partials are float32.
 int poisson_energy(const void* u, const void* nu, const void* f,
-                   float* partials, int B, int nrows, int ncols, int bf16,
-                   float c1x, float c2x, float c3x, float c1y, float c2y,
-                   float c3y, float cm, void* stream) {
-  const dim3 grid(cdiv(ncols - 1, kK3X), cdiv(nrows - 1, kK3Y), B);
-  const dim3 block(kK3X, kK3Y);
+                   float* partials, int B, int nrows, int ncols, int ty,
+                   int bf16, float c1x, float c2x, float c3x, float c1y,
+                   float c2y, float c3y, float cm, void* stream) {
+  if (ty < 1 || ty > 64 || (int64_t)nrows * ncols > INT32_MAX - 64)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid(cdiv(ncols - 1, kK3W), cdiv(cdiv(nrows - 1, ty), kWarps),
+                  B);
+  const dim3 block(32, kWarps);
   const EnergyConsts c{c1x, c2x, c3x, c1y, c2y, c3y, cm};
   cudaStream_t s = (cudaStream_t)stream;
   if (bf16) {
     using T = __nv_bfloat16;
     energy_kernel<T><<<grid, block, 0, s>>>((const T*)u, (const T*)nu,
                                             (const T*)f, partials, nrows,
-                                            ncols, c);
+                                            ncols, ty, c);
   } else {
     energy_kernel<float><<<grid, block, 0, s>>>(
         (const float*)u, (const float*)nu, (const float*)f, partials, nrows,
-        ncols, c);
+        ncols, ty, c);
   }
   return (int)cudaGetLastError();
 }

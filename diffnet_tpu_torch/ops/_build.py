@@ -40,11 +40,11 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
 _SIGNATURES = {
     "poisson_stiffness_action": (_I, [_P, _P, _P] + [_I] * 5 + [_F] * 4
                                  + [_P]),
-    "poisson_resmin_loss_grad": (_I, [_P, _P, _P, _LL, _P, _LL, _P, _P, _I,
-                                      _I, _I] + [_F] * 4 + [_P]),
-    "poisson_energy": (_I, [_P, _P, _P, _P] + [_I] * 4 + [_F] * 7 + [_P]),
-    "poisson_resmin_loss_grad_partials": (_LL, [_I, _I, _I]),
-    "poisson_energy_partials": (_LL, [_I, _I, _I]),
+    "poisson_resmin_loss_grad": (_I, [_P, _P, _P, _LL, _P, _LL, _P, _P]
+                                 + [_I] * 4 + [_F] * 4 + [_P]),
+    "poisson_energy": (_I, [_P, _P, _P, _P] + [_I] * 5 + [_F] * 7 + [_P]),
+    "poisson_resmin_loss_grad_partials": (_LL, [_I] * 4),
+    "poisson_energy_partials": (_LL, [_I] * 4),
     "stencil_apply_2d": (_I, [_P, _LL, _P, _P, _I, _I, _I, _I, _P]),
     "poisson_stiffness_action_3d": (_I, [_P, _P, _P, _I, _I, _I, _I, _I]
                                     + [_F] * 7 + [_P]),

@@ -10,12 +10,17 @@ points through the Q1 basis. The element body is the sum-factorised algebra
 of the JAX kernel (exact; ~61 flops an element).
 
 What bounds it on the card: bytes. It moves u, nu and f in, 12 B a node
-(about 101 MB at 512^2, batch 32), and one float per block out. The kernel
-(``csrc/poisson2d.cu::energy_kernel``) gives each element a thread and
-reduces each block of 256 elements to one partial; the partials are summed
-outside the kernel, in a fixed order, and divided by ``B * nely * nelx``.
-Each element is computed once: 0.08 ms at 512^2 x 32 on an H100 (700 W),
-about 37% of peak bandwidth (PERF.md).
+(about 101 MB at 512^2, batch 32), and one float per warp out. The kernel
+(``csrc/poisson2d.cu::energy_kernel``) gives each warp 64 element columns
+and ``strip_rows`` element rows: a lane computes two elements a row, once
+each, from its nodes of the row above (kept in registers) and the row
+below (loaded straight from device memory, the next row's loads issued
+before this row's bodies), and keeps its sum in a register; one shuffle
+tree gives the warp's partial. The partials are summed outside the kernel,
+in a fixed order, and divided by ``B * nely * nelx``. 0.045 ms at 512^2 x
+32 on an H100 (700 W), 67% of its byte bound, from 0.069 for the first
+design (a thread an element, each node loaded four times); bf16 0.044
+(PERF.md).
 
 The gradient reuses K1: dE/du = (K(nu) u - Nf) / (B nely nelx) is the
 assembled Galerkin residual, so the backward runs the stiffness kernel; the
@@ -38,14 +43,31 @@ import torch
 
 from ..core import fem
 from ..core.quadrature import FEMBasis
-from ._build import check, load_library
-from .poisson_residual import (FIELD_TYPES, check_fields, q1_geometry,
-                               require_cuda, stiffness_action)
+from ._build import check, load_library, sm_count
+from .poisson_residual import (FIELD_TYPES, check_fields, longest_strip,
+                               q1_geometry, require_cuda, stiffness_action)
 
 __all__ = ["poisson_energy_fused", "energy", "energy_plain"]
 
 # Launches of the CUDA kernel (a plain count; callers reset it to 0).
 launches = 0
+
+# The kernel's tiling (csrc/poisson2d.cu): a warp owns COLS element columns
+# and a strip of element rows, one of STRIPS long (the kernel takes 1 to
+# 64); a strip of ty rows reads (ty + 1) node rows. On an H100, 32 rows is
+# fastest at 512^2 x 32 in float32, and ~8-16 warps an SM at 1 x 513^2 and
+# 8 x 256^2 (2 and 4 rows) (PERF.md).
+COLS = 64
+STRIPS = (32, 16, 8, 4, 2, 1)
+MIN_WARPS_PER_SM = 8
+
+
+def strip_rows(B: int, ny: int, nx: int, sms: int) -> int:
+    """Element rows of a K3 tile for a ``[B, ny, nx]`` launch on `sms` SMs:
+    the longest strip whose launch still gives each SM
+    ``MIN_WARPS_PER_SM`` warps, else the shortest."""
+    return longest_strip(B * -(-(nx - 1) // COLS), ny - 1, STRIPS,
+                         MIN_WARPS_PER_SM, sms)
 
 
 def energy_consts(basis: FEMBasis) -> tuple[float, ...]:
@@ -102,17 +124,29 @@ def energy(u, nu, f, basis: fem.BasisTables) -> torch.Tensor:
     if u.device.type == "cpu":
         return energy_plain(u, nu, f, basis)
     require_cuda("poisson_energy_fused", u)
+    out = energy_at_strip(u, nu, f, basis,
+                          strip_rows(*u.shape, sm_count(u.device)))
+    launches += 1
+    return out
+
+
+def energy_at_strip(u, nu, f, basis: fem.BasisTables, ty: int):
+    """One launch of the CUDA kernel at tile height `ty` on checked CUDA
+    tensors (not counted in ``launches``): the wrapper's launch, and the
+    card checks' of every strip."""
+    if u[0].numel() > 2**31 - 64:
+        raise ValueError("poisson_energy_fused: a sample's nodes must fit "
+                         "in 31 bits (the kernel's offsets)")
     lib = load_library()
     B, ny, nx = u.shape
-    partials = torch.empty(lib.poisson_energy_partials(B, ny, nx),
+    partials = torch.empty(lib.poisson_energy_partials(B, ny, nx, ty),
                            dtype=torch.float32, device=u.device)
     status = lib.poisson_energy(
         u.data_ptr(), nu.data_ptr(), f.data_ptr(), partials.data_ptr(),
-        B, ny, nx, int(u.dtype == torch.bfloat16),
+        B, ny, nx, ty, int(u.dtype == torch.bfloat16),
         *energy_consts(basis.basis),
         torch.cuda.current_stream(u.device).cuda_stream)
     check(status, "poisson_energy_fused")
-    launches += 1
     return (partials.sum() / (B * (ny - 1) * (nx - 1))).to(u.dtype)
 
 

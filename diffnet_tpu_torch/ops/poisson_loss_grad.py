@@ -17,15 +17,19 @@ masks; with a fractional mask this op follows the XLA path
 
 What bounds it on the card: bytes, in principle. It moves u, nu, Nf and bc
 in and the gradient out, 20 B a node (about 168 MB at 512^2, batch 32). The
-kernel (``csrc/poisson2d.cu::loss_grad_kernel``) gives each 16x16 tile of
-output nodes one block: it stages u and nu with a 2-node halo in shared memory,
-forms R on the tile plus a 1-node halo there (R never goes to device
-memory), writes 2 K(nu) R for the tile and one partial of sum R^2 over the
-nodes it owns. The partials are summed outside the kernel, in a fixed
-order, so every run gives the same loss. Each owned node costs about nine
-element bodies (R on the tile plus halo, then K(R)), so this first design
-is bound by instruction issue: 0.25 ms at 512^2 x 32 on an H100 (700 W),
-about a fifth of peak bandwidth (PERF.md).
+kernel (``csrc/poisson2d.cu::loss_grad_kernel``) gives each warp 61 output
+node columns and ``strip_rows`` rows. A lane holds three node columns of u
+and nu, loaded straight from device memory a row at a time, and walks down
+the rows: it computes each element of R's tile-plus-halo once (the bottom
+corner sums carried in registers, the neighbour's by shuffle), masks and
+subtracts Nf on the fly, and one row behind runs the same walk over R to
+write 2 K(nu) R; R never leaves registers. Each warp writes one partial of
+sum R^2 over the nodes it owns; the partials are summed outside the
+kernel, in a fixed order, so every run gives the same loss. That is about
+2.2 element bodies a node, where the first design (a block a 16x16 tile,
+gather form) spent about nine: 0.093 ms at 512^2 x 32 on an H100 (700 W),
+from 0.224, still bound by instruction issue (its byte bound is 0.040 ms;
+PERF.md).
 
 The forward returns the loss and keeps the gradient: a training step costs
 this one launch plus the optimizer update. The nu and Nf cotangents are
@@ -37,17 +41,36 @@ from __future__ import annotations
 import torch
 
 from ..core import fem
-from ._build import check, load_library
+from ._build import check, load_library, sm_count
 from .poisson_residual import (assemble_corners, check_fields,
-                               element_contributions, nu_projection,
-                               poisson_residual_fused, require_cuda,
-                               stiffness_consts)
+                               element_contributions, longest_strip,
+                               nu_projection, poisson_residual_fused,
+                               require_cuda, stiffness_consts)
 
 __all__ = ["poisson_resmin_loss_fused", "resmin_loss_grad",
            "resmin_loss_grad_plain"]
 
 # Launches of the CUDA kernel (a plain count; callers reset it to 0).
 launches = 0
+
+# The kernel's tiling (csrc/poisson2d.cu): a warp owns COLS output node
+# columns and a strip of node rows, one of STRIPS long (the kernel takes 1
+# to 64); a strip of ty rows computes (ty + 3) rows of R's elements and
+# (ty + 1) of the gradient's, so longer strips waste less, as long as the
+# launch still gives the SMs their warps. On an H100, 32 and 16 rows tie at
+# 512^2 x 32 (8 rows 9% slower), 4 rows is fastest at 1 x 513^2 and 8 at
+# 8 x 256^2, both ~9 warps an SM (PERF.md).
+COLS = 61
+STRIPS = (32, 16, 8, 4, 2, 1)
+MIN_WARPS_PER_SM = 8
+
+
+def strip_rows(B: int, ny: int, nx: int, sms: int) -> int:
+    """Node rows of a K2 tile for a ``[B, ny, nx]`` launch on `sms` SMs:
+    the longest strip whose launch still gives each SM
+    ``MIN_WARPS_PER_SM`` warps, else the shortest."""
+    return longest_strip(B * -(-nx // COLS), ny, STRIPS, MIN_WARPS_PER_SM,
+                         sms)
 
 
 def resmin_loss_grad_plain(u, nu, Nf, bc_mask, basis: fem.BasisTables):
@@ -81,19 +104,33 @@ def resmin_loss_grad(u, nu, Nf, bc_mask, basis: fem.BasisTables):
     if u.device.type == "cpu":
         return resmin_loss_grad_plain(u, nu, Nf, bc_mask, basis)
     require_cuda("poisson_resmin_loss_fused", u)
+    out = loss_grad_at_strip(u, nu, Nf, bc_mask, basis,
+                             strip_rows(*u.shape, sm_count(u.device)))
+    launches += 1
+    return out
+
+
+def loss_grad_at_strip(u, nu, Nf, bc_mask, basis: fem.BasisTables,
+                       ty: int):
+    """One launch of the CUDA kernel at tile height `ty` on checked CUDA
+    tensors (not counted in ``launches``): the wrapper's launch, and the
+    card checks' of every strip."""
+    if u[0].numel() > 2**31 - 64:
+        raise ValueError("poisson_resmin_loss_fused: a sample's nodes must "
+                         "fit in 31 bits (the kernel's offsets)")
     lib = load_library()
     B, ny, nx = u.shape
     grad = torch.empty_like(u)
-    partials = torch.empty(lib.poisson_resmin_loss_grad_partials(B, ny, nx),
-                           dtype=u.dtype, device=u.device)
+    partials = torch.empty(
+        lib.poisson_resmin_loss_grad_partials(B, ny, nx, ty),
+        dtype=u.dtype, device=u.device)
     status = lib.poisson_resmin_loss_grad(
         u.data_ptr(), nu.data_ptr(), Nf.data_ptr(),
         ny * nx if Nf.dim() == 3 else 0, bc_mask.data_ptr(),
         ny * nx if bc_mask.dim() == 3 else 0, grad.data_ptr(),
-        partials.data_ptr(), B, ny, nx, *stiffness_consts(basis.basis),
+        partials.data_ptr(), B, ny, nx, ty, *stiffness_consts(basis.basis),
         torch.cuda.current_stream(u.device).cuda_stream)
     check(status, "poisson_resmin_loss_fused")
-    launches += 1
     return partials.sum(), grad
 
 

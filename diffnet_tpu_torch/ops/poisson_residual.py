@@ -62,15 +62,24 @@ MIN_WARPS_PER_SM = 2
 FIELD_TYPES = (torch.float32, torch.bfloat16)
 
 
+def longest_strip(tiles_across: int, rows: int, strips: tuple[int, ...],
+                  min_warps_per_sm: int, sms: int) -> int:
+    """The longest of `strips` (longest first) whose launch of one warp a
+    tile, `tiles_across` tiles times ceil(rows / strip), still gives each
+    of `sms` SMs `min_warps_per_sm` warps; else the shortest. K1, K2 and
+    K3 pick their tile heights so."""
+    for ty in strips:
+        if tiles_across * -(-rows // ty) >= min_warps_per_sm * sms:
+            return ty
+    return strips[-1]
+
+
 def strip_rows(B: int, ny: int, nx: int, sms: int) -> int:
     """Node rows of a K1 tile for a ``[B, ny, nx]`` launch on `sms` SMs:
     the longest strip whose launch still gives each SM ``MIN_WARPS_PER_SM``
     warps, else the shortest."""
-    cols = -(-nx // COLS)
-    for ty in STRIPS:
-        if B * cols * -(-ny // ty) >= MIN_WARPS_PER_SM * sms:
-            return ty
-    return STRIPS[-1]
+    return longest_strip(B * -(-nx // COLS), ny, STRIPS, MIN_WARPS_PER_SM,
+                         sms)
 
 
 def q1_geometry(basis: FEMBasis) -> tuple[float, float, float, float]:

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Time K1 (the 2D stiffness action), K6 (the fused VMS residual) and K5
-(the 3D stiffness action) against an earlier build of the same kernels, in
-turns, on one CUDA card.
+"""Time K1 (the 2D stiffness action), K6 (the fused VMS residual), K5
+(the 3D stiffness action), K2 (the resmin loss and gradient) and K3 (the
+Ritz energy) against an earlier build of the same kernels, in turns, on one
+CUDA card.
 
-    python3 scripts/kernel_turns.py --parent DIR [--kernels K5] [--out FILE]
+    python3 scripts/kernel_turns.py --parent DIR [--kernels K2,K3] [--out FILE]
 
 DIR holds the sources of the version before the kernels were redesigned
 (e.g. from ``git archive <commit> diffnet_tpu_torch/csrc``), with the C
@@ -13,14 +14,23 @@ k2y, stream)``, for K6 ``ns2d.cu``'s ``ns_vms_residual(u, v, p, fx, fy, r1,
 r2, r3, B, ny, nx, has_f, c00, c01, c10, c11, 1/hx, 1/hy, W, W/hx, W/hy,
 visco, Gxx, Gyy, diff, 1/(Gxx + Gyy), stream)``, for K5 ``poisson3d.cu``'s
 ``poisson_stiffness_action_3d(u, nu, out, B, nz, ny, nx, c00, c01, c10,
-c11, wx2, wy2, wz2, stream)``. ``--kernels`` (a comma list, all three by
-default) picks the kernels; only their sources are built, with the port's
-nvcc flags, into ``DIR/earlier.so``.
+c11, wx2, wy2, wz2, stream)``, for K2 ``poisson2d.cu``'s
+``poisson_resmin_loss_grad(u, nu, nf, nf_bstride, bc, bc_bstride, grad,
+partials, B, nrows, ncols, k1x, k2x, k1y, k2y, stream)`` with
+``poisson_resmin_loss_grad_partials(B, nrows, ncols)``, for K3 its
+``poisson_energy(u, nu, f, partials, B, nrows, ncols, bf16, c1x, c2x, c3x,
+c1y, c2y, c3y, cm, stream)`` with ``poisson_energy_partials(B, nrows,
+ncols)``. ``--kernels`` (a comma list, K1, K6 and K5 by default) picks the
+kernels; only their sources are built, with the port's nvcc flags, into
+``DIR/earlier.so``, and only their entry points are bound.
 
 It prints the card's name and power limit, both builds' ptxas lines,
 then, as JSON lines: every strip length of the current kernels against
 their plain versions (K1 in float32 and bf16, K6 with and without forcing,
-K5 at ``chip_smoke.K5_SHAPES``; the run fails on a miss), and CUDA-event
+K5 at ``chip_smoke.K5_SHAPES``, K2 with Nf and bc as shared planes and
+per sample, K3 in float32 and bf16, both at ``chip_smoke.K2_K3_SHAPES``;
+the run fails on a miss), the SASS instruction mix of K5, K2 and K3 in both
+builds, and CUDA-event
 times (``chip_smoke.cuda_ms``: 10 calls queued behind a spin kernel, median
 of 20, the callables in turns) of the earlier kernel (twice, first and
 last), the current one through its wrapper (the strip it picks) and at each
@@ -47,6 +57,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 import chip_smoke as cs  # noqa: E402
 from diffnet_tpu_torch.ops import _build  # noqa: E402
 from diffnet_tpu_torch.ops import ns_residual as k6  # noqa: E402
+from diffnet_tpu_torch.ops import poisson_energy as k3  # noqa: E402
+from diffnet_tpu_torch.ops import poisson_loss_grad as k2  # noqa: E402
 from diffnet_tpu_torch.ops import poisson_residual as k1  # noqa: E402
 from diffnet_tpu_torch.ops import poisson_residual_3d as k5  # noqa: E402
 
@@ -56,7 +68,12 @@ K6_SHAPES = ((8, 512), (8, 256), (1, 129), (1, 65))
 K5_SHAPES = ((4, 64, 64, 64), (1, 128, 128, 128), (1, 129, 129, 129),
              (1, 65, 65, 65), (1, 17, 17, 17))
 VISCO = 0.01
-SOURCES = {"K1": "poisson2d", "K6": "ns2d", "K5": "poisson3d"}
+K2_K3_TIMED = ((32, 512, 512), (1, 513, 513), (8, 256, 256), (1, 64, 64))
+SOURCES = {"K1": "poisson2d", "K6": "ns2d", "K5": "poisson3d",
+           "K2": "poisson2d", "K3": "poisson2d"}
+# kernel -> the mangled-name part of its CUDA function (for sass_mix)
+SASS_NAMES = {"K5": "stiffness3d_kernel", "K2": "loss_grad_kernel",
+              "K3": "energy_kernel"}
 
 
 def earlier_consts(basis, visco):
@@ -73,7 +90,7 @@ def earlier_consts(basis, visco):
 
 def build_earlier(src_dir: str, kernels) -> tuple[ctypes.CDLL, list[str]]:
     nvcc, log, objs = _build._nvcc(), "", []
-    for name in (SOURCES[k] for k in kernels):
+    for name in dict.fromkeys(SOURCES[k] for k in kernels):
         obj = os.path.join(src_dir, f"{name}.o")
         r = subprocess.run([nvcc, *_build.NVCC_FLAGS, "-o", obj,
                             os.path.join(src_dir, f"{name}.cu")],
@@ -84,7 +101,8 @@ def build_earlier(src_dir: str, kernels) -> tuple[ctypes.CDLL, list[str]]:
     subprocess.run([nvcc, *_build.LINK_FLAGS, "-o", so, *objs],
                    capture_output=True, text=True, check=True)
     lib = ctypes.CDLL(so)
-    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    P, I, F, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
+        ctypes.c_longlong
     if "K1" in kernels:
         lib.poisson_stiffness_action.argtypes = ([P, P, P, I, I, I]
                                                  + [F] * 4 + [P])
@@ -96,6 +114,17 @@ def build_earlier(src_dir: str, kernels) -> tuple[ctypes.CDLL, list[str]]:
         lib.poisson_stiffness_action_3d.argtypes = ([P, P, P, I, I, I, I]
                                                     + [F] * 7 + [P])
         lib.poisson_stiffness_action_3d.restype = I
+    if "K2" in kernels:
+        lib.poisson_resmin_loss_grad.argtypes = ([P, P, P, LL, P, LL, P, P,
+                                                  I, I, I] + [F] * 4 + [P])
+        lib.poisson_resmin_loss_grad.restype = I
+        lib.poisson_resmin_loss_grad_partials.argtypes = [I, I, I]
+        lib.poisson_resmin_loss_grad_partials.restype = LL
+    if "K3" in kernels:
+        lib.poisson_energy.argtypes = [P] * 4 + [I] * 4 + [F] * 7 + [P]
+        lib.poisson_energy.restype = I
+        lib.poisson_energy_partials.argtypes = [I, I, I]
+        lib.poisson_energy_partials.restype = LL
     return lib, [ln.strip() for ln in log.splitlines()
                  if "registers" in ln or "spill" in ln or "Compiling" in ln]
 
@@ -230,6 +259,129 @@ def time_k5(lib, old, dev, emit) -> None:
                                    shape)["bound_ms"]})
 
 
+def k2_earlier(lib, u, nu, Nf, bc, tb):
+    """The earlier K2: (loss, grad)."""
+    B, ny, nx = u.shape
+    grad = torch.empty_like(u)
+    partials = torch.empty(lib.poisson_resmin_loss_grad_partials(B, ny, nx),
+                           device=u.device)
+    launched(lib.poisson_resmin_loss_grad(
+        u.data_ptr(), nu.data_ptr(), Nf.data_ptr(),
+        ny * nx if Nf.dim() == 3 else 0, bc.data_ptr(),
+        ny * nx if bc.dim() == 3 else 0, grad.data_ptr(), partials.data_ptr(),
+        B, ny, nx, *k1.stiffness_consts(tb.basis), stream()))
+    return partials.sum(), grad
+
+
+def k3_earlier(lib, u, nu, f, tb):
+    """The earlier K3: the energy in u's type."""
+    B, ny, nx = u.shape
+    partials = torch.empty(lib.poisson_energy_partials(B, ny, nx),
+                           device=u.device)
+    launched(lib.poisson_energy(
+        u.data_ptr(), nu.data_ptr(), f.data_ptr(), partials.data_ptr(),
+        B, ny, nx, int(u.dtype == torch.bfloat16),
+        *k3.energy_consts(tb.basis), stream()))
+    return (partials.sum() / (B * (ny - 1) * (nx - 1))).to(u.dtype)
+
+
+def _k2_inputs(shape, g, dev, per_sample):
+    B, ny, nx = shape
+    u, nu, Nf = (torch.rand(shape, generator=g, device=dev)
+                 for _ in range(3))
+    bc = (torch.rand(shape if per_sample else (ny, nx), generator=g,
+                     device=dev) > 0.9).float()
+    bc[..., [0, -1], :] = 1
+    bc[..., :, [0, -1]] = 1
+    return u, nu + 0.5, Nf if per_sample else Nf[0].contiguous(), bc
+
+
+def check_k2_k3(dev, emit) -> None:
+    """Every tile height of the current K2 and K3, and their wrappers,
+    against the plain versions at chip_smoke's K2_K3_SHAPES: K2 with Nf
+    and bc shared by the batch and per sample, K3 in float32 and bf16."""
+    g = torch.Generator(device=dev).manual_seed(4)
+    bad = []
+    for shape in cs.K2_K3_SHAPES:
+        tb = cs.basis_for(shape[1], shape[2], False, dev)
+        for per_sample in (False, True):
+            u, nu, Nf, bc = _k2_inputs(shape, g, dev, per_sample)
+            loss_p, grad_p = k2.resmin_loss_grad_plain(u, nu, Nf, bc, tb)
+            runs = {str(ty): k2.loss_grad_at_strip(u, nu, Nf, bc, tb, ty)
+                    for ty in k2.STRIPS}
+            runs["wrapper"] = k2.resmin_loss_grad(u, nu, Nf, bc, tb)
+            gref = float(grad_p.abs().max())
+            lref = abs(float(loss_p))
+            errs = {k: (abs(float(loss) - lref) / max(lref, 1e-30),
+                        float((grad - grad_p).abs().max()) / max(gref, 1e-30))
+                    for k, (loss, grad) in runs.items()}
+            row = {"check": "K2", "shape": list(shape),
+                   "per_sample": per_sample, "loss_rel_err":
+                   max(e[0] for e in errs.values()), "grad_rel_err":
+                   max(e[1] for e in errs.values())}
+            emit(row)
+            # at 1 x 2^2 every node is masked: loss and gradient exactly 0
+            if any(le > cs.SCALAR_RTOL * (lref > 0) or
+                   ge > cs.GRAD_RTOL * (gref > 0)
+                   for le, ge in errs.values()):
+                bad.append((row, errs))
+        u, nu, f, _ = _k2_inputs(shape, g, dev, True)
+        for dt, tol in ((torch.float32, cs.SCALAR_RTOL),
+                        (torch.bfloat16, cs.BF16_ATOL)):
+            a, b, c = u.to(dt), nu.to(dt), f.to(dt)
+            ref = float(k3.energy_plain(a, b, c, tb))
+            scale = abs(ref) if dt == torch.float32 else max(1.0, abs(ref))
+            errs = {str(ty): abs(float(k3.energy_at_strip(a, b, c, tb, ty))
+                                 - ref) for ty in k3.STRIPS}
+            errs["wrapper"] = abs(float(k3.energy(a, b, c, tb)) - ref)
+            row = {"check": "K3", "shape": list(shape), "dtype": str(dt),
+                   "abs_err": max(errs.values()), "limit": tol * scale}
+            emit(row)
+            if max(errs.values()) > tol * scale:
+                bad.append((row, errs))
+    if bad:
+        raise RuntimeError(f"K2 / K3 off their plain versions: {bad}")
+
+
+def time_k2_k3(old, dev, emit) -> None:
+    g = torch.Generator(device=dev).manual_seed(5)
+    sms = _build.sm_count(dev)
+    for shape in K2_K3_TIMED:
+        tb = cs.basis_for(shape[1], shape[2], False, dev)
+        # Nf per sample and bc shared, as slice B gives them
+        u, nu, f, bc = _k2_inputs(shape, g, dev, True)
+        Nf, bc = f, bc[0].contiguous()
+        ub, nub, fb = u.bfloat16(), nu.bfloat16(), f.bfloat16()
+        grad = torch.empty_like(u)
+        fns = {"earlier": lambda: k2_earlier(old, u, nu, Nf, bc, tb),
+               "wrapper": lambda: k2.resmin_loss_grad(u, nu, Nf, bc, tb)}
+        for ty in k2.STRIPS:
+            fns[f"ty{ty}"] = lambda ty=ty: k2.loss_grad_at_strip(
+                u, nu, Nf, bc, tb, ty)
+        fns["earlier_again"] = fns["earlier"]
+        emit({"time": "K2", "shape": list(shape), "ms": cs.cuda_ms(fns),
+              "strip": k2.strip_rows(*shape, sms),
+              "bound_ms": cs.bound("poisson_resmin_loss_grad",
+                                   (u, nu, Nf, bc, grad), shape)["bound_ms"]})
+        fns = {"earlier": lambda: k3_earlier(old, u, nu, f, tb),
+               "earlier_bf16": lambda: k3_earlier(old, ub, nub, fb, tb),
+               "wrapper": lambda: k3.energy(u, nu, f, tb),
+               "wrapper_bf16": lambda: k3.energy(ub, nub, fb, tb)}
+        for ty in k3.STRIPS:
+            fns[f"ty{ty}"] = lambda ty=ty: k3.energy_at_strip(u, nu, f, tb,
+                                                              ty)
+            fns[f"bf16_ty{ty}"] = lambda ty=ty: k3.energy_at_strip(
+                ub, nub, fb, tb, ty)
+        fns["earlier_again"] = fns["earlier"]
+        fns["earlier_bf16_again"] = fns["earlier_bf16"]
+        emit({"time": "K3", "shape": list(shape), "ms": cs.cuda_ms(fns),
+              "strip": k3.strip_rows(*shape, sms),
+              "bound_ms": cs.bound("poisson_energy", (u, nu, f),
+                                   shape)["bound_ms"],
+              "bound_ms_bf16": cs.bound("poisson_energy", (ub, nub, fb),
+                                        shape)["bound_ms"]})
+
+
 def check_strips(lib, dev, emit) -> None:
     g = torch.Generator(device=dev).manual_seed(0)
     bad = []
@@ -318,7 +470,8 @@ def main() -> int:
     ap.add_argument("--parent", required=True,
                     help="directory with the earlier kernels' sources")
     ap.add_argument("--kernels", default="K1,K6,K5",
-                    help="comma list of K1, K6, K5 (default: all)")
+                    help="comma list of K1, K6, K5, K2, K3 (default: the "
+                         "first three)")
     ap.add_argument("--out", help="also write every JSON line to this file")
     args = ap.parse_args()
     dev = torch.device("cuda:0")
@@ -339,21 +492,25 @@ def main() -> int:
                     if "registers" in ln or "spill" in ln
                     or "Compiling" in ln],
           "ptxas_earlier": old_log})
-    if "K5" in kernels:
-        emit({"sass_K5": sass_mix(str(so), "stiffness3d_kernel"),
-              "sass_K5_earlier": sass_mix(
+    for kern in (k for k in kernels if k in SASS_NAMES):
+        emit({f"sass_{kern}": sass_mix(str(so), SASS_NAMES[kern]),
+              f"sass_{kern}_earlier": sass_mix(
                   os.path.join(args.parent, "earlier.so"),
-                  "stiffness3d_kernel")})
+                  SASS_NAMES[kern])})
     if "K1" in kernels or "K6" in kernels:
         check_strips(lib, dev, emit)
     if "K5" in kernels:
         check_k5_strips(lib, dev, emit)
+    if "K2" in kernels or "K3" in kernels:
+        check_k2_k3(dev, emit)
     if "K1" in kernels:
         time_k1(lib, old, dev, emit)
     if "K6" in kernels:
         time_k6(lib, old, dev, emit)
     if "K5" in kernels:
         time_k5(lib, old, dev, emit)
+    if "K2" in kernels or "K3" in kernels:
+        time_k2_k3(old, dev, emit)
     if args.out:
         with open(args.out, "w") as fh:
             json.dump(rows, fh, indent=1)

@@ -67,11 +67,12 @@ def _field_close(a, b):
                                atol=2e-6 * max(1.0, float(b.abs().max())))
 
 
-# 1 x 2^2, 3 x 129 x 257, 1 x 513^2 and 1 x 100 x 77 (a width that is no
-# multiple of K1's 32-column tile) hit the tile edges
+# 1 x 2^2, 3 x 129 x 257, 1 x 513^2, 1 x 100 x 77 and 1 x 40 x 65 (widths
+# that are no multiple of K1's and K3's 64 columns or K2's 61) hit the tile
+# edges
 SHAPES = [((2, 33, 33), True), ((2, 40, 40), False), ((2, 24, 49), False),
           ((3, 129, 257), False), ((1, 2, 2), False), ((1, 513, 513), False),
-          ((1, 100, 77), False)]
+          ((1, 100, 77), False), ((1, 40, 65), False)]
 
 
 @pytest.mark.parametrize("shape,aniso", SHAPES)
@@ -85,23 +86,58 @@ def test_stiffness_kernel_matches_plain(dev, shape, aniso):
     _field_close(K, k1.stiffness_action_plain(u, nu, tb))
 
 
-@pytest.mark.parametrize("shape,aniso,plane", [
-    ((2, 33, 33), True, True), ((2, 40, 40), False, False),
-    ((2, 24, 49), False, True), ((3, 129, 257), False, False)])
-def test_loss_grad_kernel_matches_plain(dev, shape, aniso, plane):
-    tb = _basis(*shape[1:], dev, aniso)
+def _k2_inputs(shape, dev, plane):
     u, nu, Nf, bc = _fields(shape, dev)
     bc = (bc > 0.7).float()
     if plane:   # Nf and bc shared by the batch
         Nf, bc = Nf[0].contiguous(), bc[0].contiguous()
-    before = k2.launches
-    loss, grad = k2.resmin_loss_grad(u, nu, Nf, bc, tb)
-    torch.cuda.synchronize()
-    assert k2.launches == before + 1
-    loss_p, grad_p = k2.resmin_loss_grad_plain(u, nu, Nf, bc, tb)
+    return u, nu, Nf, bc
+
+
+def _k2_close(out, ref):
+    (loss, grad), (loss_p, grad_p) = out, ref
     torch.testing.assert_close(loss, loss_p, rtol=1e-5, atol=0)
     torch.testing.assert_close(grad, grad_p, rtol=0,
                                atol=1e-5 * float(grad_p.abs().max()))
+
+
+@pytest.mark.parametrize("shape,aniso,plane", [
+    ((2, 33, 33), True, True), ((2, 40, 40), False, False),
+    ((2, 24, 49), False, True), ((3, 129, 257), False, False),
+    ((3, 129, 257), False, True), ((1, 40, 65), False, False),
+    ((1, 100, 77), False, True), ((1, 2, 2), False, False),
+    ((1, 513, 513), False, True), ((1, 513, 513), False, False)])
+def test_loss_grad_kernel_matches_plain(dev, shape, aniso, plane):
+    tb = _basis(*shape[1:], dev, aniso)
+    u, nu, Nf, bc = _k2_inputs(shape, dev, plane)
+    before = k2.launches
+    out = k2.resmin_loss_grad(u, nu, Nf, bc, tb)
+    torch.cuda.synchronize()
+    assert k2.launches == before + 1
+    _k2_close(out, k2.resmin_loss_grad_plain(u, nu, Nf, bc, tb))
+
+
+@pytest.mark.parametrize("shape", [(1, 513, 513), (32, 512, 512)])
+@pytest.mark.parametrize("plane", [False, True])
+def test_loss_grad_kernel_every_strip(dev, shape, plane):
+    tb = _basis(*shape[1:], dev)
+    u, nu, Nf, bc = _k2_inputs(shape, dev, plane)
+    ref = k2.resmin_loss_grad_plain(u, nu, Nf, bc, tb)
+    for ty in k2.STRIPS:
+        _k2_close(k2.loss_grad_at_strip(u, nu, Nf, bc, tb, ty), ref)
+
+
+@pytest.mark.parametrize("shape", [(1, 513, 513), (32, 512, 512)])
+def test_energy_kernel_every_strip_both_types(dev, shape):
+    tb = _basis(*shape[1:], dev)
+    u, nu, f, _ = _fields(shape, dev)
+    ref = k3.energy_plain(u, nu, f, tb)
+    bf = [x.bfloat16() for x in (u, nu, f)]
+    ref_bf = k3.energy_plain(*bf, tb)
+    for ty in k3.STRIPS:
+        torch.testing.assert_close(k3.energy_at_strip(u, nu, f, tb, ty), ref,
+                                   rtol=1e-5, atol=0)
+        _bf16_close(k3.energy_at_strip(*bf, tb, ty), ref_bf)
 
 
 @pytest.mark.parametrize("shape,aniso", SHAPES)

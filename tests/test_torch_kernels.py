@@ -353,6 +353,195 @@ def test_wrappers_reject_what_the_kernels_do_not_take(op, dtype):
         call(x.to("meta"), x.to("meta"))
 
 
+# ---- K2 and K3: the CUDA kernels' tilings, transcribed in float64 ----------
+#
+# csrc/poisson2d.cu's loss_grad_kernel and energy_kernel run no element
+# twice: lanes own node columns, walk down rows, and take their right
+# neighbour's values by shuffle. These transcriptions follow the kernels
+# lane by lane (a lane is an entry of a 32-vector, a shuffle a shift), tile
+# by tile, step by step, and hold the result to the plain versions.
+
+def _shfl_down(v):
+    """__shfl_down_sync(v, 1): lane i gets lane i + 1's value, lane 31 its
+    own."""
+    return torch.cat([v[1:], v[-1:]])
+
+
+def _body(k, c00, c01, c10, c11, n00, n01, n10, n11):
+    """K1's element body on 32-vectors of corners: (a0, a1, a2, a3)."""
+    U = torch.stack([torch.stack([c00, c01], -1),
+                     torch.stack([c10, c11], -1)], -2)
+    N = torch.stack([torch.stack([n00, n01], -1),
+                     torch.stack([n10, n11], -1)], -2)
+    return [t[:, 0, 0] for t in tpr.element_contributions(U, N, k)]
+
+
+def _node(F, r, col):
+    """F[r, col] for a scalar row and a vector of columns, 0 outside."""
+    ny, nx = F.shape
+    ok = (col >= 0) & (col < nx) & (0 <= r < ny)
+    return torch.where(ok, F[min(max(r, 0), ny - 1), col.clamp(0, nx - 1)],
+                       torch.zeros((), dtype=F.dtype))
+
+
+def _k2_transcribed(u, nu, Nf, bc, k, ty):
+    """loss_grad_kernel: per-warp partials of sum R^2 and the gradient;
+    each gradient node must be written exactly once."""
+    B, ny, nx = u.shape
+    Nf, bc = Nf.expand(u.shape), bc.expand(u.shape)
+    grad = torch.full_like(u, float("nan"))
+    partials = []
+    lane = torch.arange(32)
+    zero = torch.zeros(32, dtype=u.dtype)
+    for b, y0, x0 in ((b, y0, x0) for b in range(B)
+                      for y0 in range(0, ny, ty)
+                      for x0 in range(0, nx, tlg.COLS)):
+        a = x0 - 2 + 2 * lane
+        e1a = (a >= 0) & (a < nx - 1)
+        e1b = (a + 1 >= 0) & (a + 1 < nx - 1)
+        e2b = (a + 2 >= 0) & (a + 2 < nx - 1)
+        own_p, own_q = (lane >= 1) & (lane <= 30), lane <= 30
+        out0, out1 = (lane <= 30) & (a + 2 < nx), (lane <= 29) & (a + 3 < nx)
+        steps = min(ty, ny - y0) + 3
+
+        def un(r):
+            return ([_node(u[b], r, a + i) for i in range(3)],
+                    [_node(nu[b], r, a + i) for i in range(3)])
+
+        ut, nt = un(y0 - 2)
+        nt3 = _shfl_down(nt[1])
+        np_, np3 = [zero] * 3, zero
+        carry0 = carry1 = gc0 = gc1 = rp = rq = rn = zero
+        sq = zero
+        for s in range(steps):
+            e = y0 - 2 + s
+            ub, nb = un(e + 1)
+            fq = [_node(Nf[b], e, a + 1), _node(Nf[b], e, a + 2)]
+            bq = [_node(bc[b], e, a + 1), _node(bc[b], e, a + 2)]
+            nb3 = _shfl_down(nb[1])
+            row_ok = 0 <= e < ny - 1
+            A = [t * (row_ok & e1a) for t in _body(
+                k, ut[0], ut[1], ub[0], ub[1], nt[0], nt[1], nb[0], nb[1])]
+            Bb = [t * (row_ok & e1b) for t in _body(
+                k, ut[1], ut[2], ub[1], ub[2], nt[1], nt[2], nb[1], nb[2])]
+            r0, r2 = _shfl_down(A[0]), _shfl_down(A[2])
+            kp, kq = (carry0 + A[1]) + Bb[0], (carry1 + Bb[1]) + r0
+            carry0, carry1 = A[3] + Bb[2], Bb[3] + r2
+            Rp = torch.where(bq[0] > 0.5, zero, kp - fq[0])
+            Rq = torch.where(bq[1] > 0.5, zero, kq - fq[1])
+            Rn = _shfl_down(Rp)
+            if 2 <= s <= ty + 1:
+                sq = sq + own_p * Rp * Rp + own_q * Rq * Rq
+            if s >= 2:
+                e2 = e - 1
+                row2 = 0 <= e2 < ny - 1
+                C = [t * (row2 & e1b) for t in _body(
+                    k, rp, rq, Rp, Rq, np_[1], np_[2], nt[1], nt[2])]
+                D = [t * (row2 & e2b) for t in _body(
+                    k, rq, rn, Rq, Rn, np_[2], np3, nt[2], nt3)]
+                q0, q2 = _shfl_down(C[0]), _shfl_down(C[2])
+                if s >= 3:
+                    for col, ok, v in ((a + 2, out0, (gc0 + C[1]) + D[0]),
+                                       (a + 3, out1, (gc1 + D[1]) + q0)):
+                        assert torch.isnan(grad[b, e2, col[ok]]).all()
+                        grad[b, e2, col[ok]] = 2.0 * v[ok]
+                gc0, gc1 = C[3] + D[2], D[3] + q2
+            np_, np3, nt, nt3, ut = nt, nt3, nb, nb3, ub
+            rp, rq, rn = Rp, Rq, Rn
+        partials.append(sq.sum())
+    return torch.stack(partials), grad
+
+
+def _k3_transcribed(u, nu, f, c, ty):
+    """energy_kernel: per-warp partials of the summed element energies."""
+    B, ny, nx = u.shape
+    lane = torch.arange(32)
+    partials = []
+    for b, y0, x0 in ((b, y0, x0) for b in range(B)
+                      for y0 in range(0, ny - 1, ty)
+                      for x0 in range(0, nx - 1, ten.COLS)):
+        x = x0 + 2 * lane
+        ok = [x < nx - 1, x + 1 < nx - 1]
+        cols = [x.clamp(max=nx - 1), (x + 1).clamp(max=nx - 1),
+                (x + 2).clamp(max=nx - 1)]
+        acc = torch.zeros(32, dtype=u.dtype)
+        for ey in range(y0, min(y0 + ty, ny - 1)):
+            for i in range(2):
+                tile = [F[b, ey:ey + 2][:, torch.stack(cols[i:i + 2], -1)]
+                        .permute(1, 0, 2) for F in (u, nu, f)]
+                e = ten.element_energy(*tile, c)[:, 0, 0]
+                acc = acc + torch.where(ok[i], e, torch.zeros_like(e))
+        partials.append(acc.sum())
+    return torch.stack(partials)
+
+
+TILING_SHAPES = [(1, 17, 130), (2, 33, 40), (1, 10, 77)]
+
+
+@pytest.mark.parametrize("shape", TILING_SHAPES)
+@pytest.mark.parametrize("per_sample", [False, True])
+def test_k2_tiling_transcription_matches_the_plain_version(shape,
+                                                           per_sample):
+    """The CUDA K2's tiling (R from element-once sums on the tile plus its
+    halo, then K(R) one row behind, per-warp partials) in float64, at
+    several tile heights: within 1e-12 of the plain version."""
+    rng = np.random.default_rng(11)
+    B, ny, nx = shape
+    _, tb = _bases((ny, nx), aniso=True)
+    u, nu, Nf = (torch.tensor(rng.random(shape)) for _ in range(3))
+    nu = nu + 0.5
+    plane = shape if per_sample else (ny, nx)
+    bc = torch.tensor((rng.random(plane) > 0.8).astype(np.float64))
+    if not per_sample:
+        Nf = Nf[0]
+    loss_p, grad_p = tlg.resmin_loss_grad_plain(u, nu, Nf, bc, tb)
+    k = tpr.stiffness_consts(tb.basis)
+    for ty in (1, 3, 8, 32):
+        partials, grad = _k2_transcribed(u, nu, Nf, bc, k, ty)
+        assert not torch.isnan(grad).any()
+        scale = float(grad_p.abs().max())
+        assert float((grad - grad_p).abs().max()) <= 1e-12 * scale
+        assert abs(float(partials.sum() - loss_p)) <= 1e-12 * float(loss_p)
+
+
+@pytest.mark.parametrize("shape", TILING_SHAPES)
+def test_k3_tiling_transcription_matches_the_plain_version(shape):
+    """The CUDA K3's tiling (lanes own element pairs, walk down rows,
+    per-warp partials) in float64, at several tile heights: within 1e-12 of
+    the plain version's algebra (energy_plain computes in float32, so the
+    float64 reference is its body, ``element_energy``, averaged)."""
+    rng = np.random.default_rng(12)
+    _, tb = _bases(shape[1:], aniso=True)
+    u, nu, f = (torch.tensor(rng.random(shape)) for _ in range(3))
+    c = ten.energy_consts(tb.basis)
+    ref = float(ten.element_energy(u, nu, f, c).mean())
+    n_el = shape[0] * (shape[1] - 1) * (shape[2] - 1)
+    for ty in (1, 3, 8, 32):
+        E = float(_k3_transcribed(u, nu, f, c, ty).sum()) / n_el
+        assert abs(E - ref) <= 1e-12 * abs(ref)
+
+
+def test_k2_k3_strip_rows_at_the_timed_shapes():
+    """K2's and K3's tile heights at every shape chip_smoke.py and
+    scripts/kernel_turns.py time: the longest strip that still gives each
+    of an H100's SMs its warps, shorter on small grids, always one the
+    kernel takes."""
+    sms = 132
+    for mod, nodes in ((tlg, lambda n: n), (ten, lambda n: n - 1)):
+        for shape in ((32, 512, 512), (1, 513, 513), (8, 256, 256),
+                      (1, 64, 64), (1, 2, 2)):
+            B, ny, nx = shape
+            ty = mod.strip_rows(*shape, sms)
+            assert ty in mod.STRIPS and 1 <= ty <= 64
+            warps = B * -(-nodes(nx) // mod.COLS)
+            longer = [t for t in mod.STRIPS if t > ty]
+            assert all(warps * -(-nodes(ny) // t)
+                       < mod.MIN_WARPS_PER_SM * sms for t in longer)
+            if ty != mod.STRIPS[-1]:
+                assert warps * -(-nodes(ny) // ty) >= \
+                    mod.MIN_WARPS_PER_SM * sms
+
+
 def test_strip_rows_fill_the_card():
     """K1's tile height: the longest strip while the launch gives each SM
     its warps, shorter on small grids, never past the kernel's set."""
