@@ -44,7 +44,7 @@ exits non-zero (it also does so, printing no result, without CUDA):
   3. gradients: the K1 du/dnu, K3 du, K2 du and K4 dC/du VJPs against
      autograd through the plain versions, at 65^2; the K5 du/dnu and K4-3D
      dC/du VJPs at 17^3; the K6 VJP and its JVP (``torch.func.jvp``) at 33^2.
-  4-10. the main paths (launch counts set to 0 first, read after each):
+  4-11. the main paths (launch counts set to 0 first, read after each):
      A. the README quick start through ``Trainer.fit``, 64^2 MMS resmin
         with LBFGS; rel L2 vs the exact solution must be <= 2.6e-4 (the JAX
         package gives 2.046e-4);
@@ -85,8 +85,8 @@ exits non-zero (it also does so, printing no result, without CUDA):
         same problem (scripts/torch_port_reference_flow.py): final |F| <=
         max(1e-6, 2x JAX's), accepted steps <= JAX's + 2, the midline
         extrema of u and v and the pressure on y = 0.5 within 2e-3, the lid
-        within 1e-5; the solve timed (median of 3 after the entry point's
-        run, preconditioner setup apart); the same solve without the
+        within 1e-5; the solve timed once more after the entry point's
+        run, preconditioner setup apart; the same solve without the
         kernel once through the entry point; one Newton iteration of each
         profiled. G2 examples/ns_ldc.py's training
         configuration at 64^2 (three-field DirectField from zeros, squared
@@ -95,11 +95,26 @@ exits non-zero (it also does so, printing no result, without CUDA):
         launched at least once an evaluation. G3 10 Adam steps at 8 x 256^2
         from seeded random fields: the loss falls, K6 launches once a step,
         the first loss matches the unfused path.
-  11. resident steps: steps/s of the 512^2 x 32 training steps with the
+     H. the IBN flagship (reference IBN_2D.py) at its full width: 1,024
+        synthetic ellipse clouds of 120 points, chi from the winding
+        number on 32^2 nodes, ``AE(dims=8, n_downsample=2)``, the
+        gpw-weighted Ritz energy, Adam 3e-4 with the rate divided by 10
+        after epochs 10, 15 and 30, batches of 512, 40 epochs through
+        ``Trainer.fit``: steps/s through fit (each epoch after the first),
+        again through a loader with ``prefetch=2`` (a second fit of 11
+        epochs) and resident (three runs of 20 steps), one profiled
+        resident step, the first and last epoch loss, 8 held-out clouds
+        scored against the direct Krylov solve of their immersed problems
+        (rel L2 on the free nodes, held to 1.25x the JAX package's from
+        scripts/torch_port_reference_ibn.py, and the energy gap), and an
+        export, save and load of the trained AE at batch 1 and 64 (outputs
+        within 1e-6 of the module's, CUDA-event latencies). No kernel of
+        the table runs on this path: the JAX package computes it with XLA.
+  12. resident steps: steps/s of the 512^2 x 32 training steps with the
      batch on the card (fused and unfused) and of G3's NS step; 10 steps
      of each fused 512^2 x 32 loss (K2's, K3's) under ``torch.profiler``:
      device busy and wall ms a step, idle share, top device operations.
-  12. path shapes: each kernel timed again at the shape where most of its
+  13. path shapes: each kernel timed again at the shape where most of its
      launches on the paths above ran (the slice with the most launches, by
      ``SLICE_SHAPES``): ``ms_path_shape`` and ``path_shape`` on the kernel
      table line.
@@ -110,11 +125,14 @@ exits non-zero (it also does so, printing no result, without CUDA):
 
 from __future__ import annotations
 
+import copy
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -123,8 +141,9 @@ import torch
 from diffnet_tpu_torch.core import fem
 from diffnet_tpu_torch.core.quadrature import make_basis
 from diffnet_tpu_torch.data import (CuboidManufactured, NSLDCDataset,
-                                    RectangleManufactured)
-from diffnet_tpu_torch.models import DirectField
+                                    NumpyLoader, RectangleManufactured,
+                                    SyntheticPointClouds)
+from diffnet_tpu_torch.models import AE, DirectField
 from diffnet_tpu_torch.ops import _build
 from diffnet_tpu_torch.ops import ns_residual as k6
 from diffnet_tpu_torch.ops import poisson_energy as k3
@@ -132,12 +151,16 @@ from diffnet_tpu_torch.ops import poisson_loss_grad as k2
 from diffnet_tpu_torch.ops import poisson_residual as k1
 from diffnet_tpu_torch.ops import poisson_residual_3d as k5
 from diffnet_tpu_torch.ops import stencil_apply as k4
-from diffnet_tpu_torch.pde import NavierStokes, Poisson2D, Poisson3D, ldc_bcs
-from diffnet_tpu_torch.train import (Trainer, cg, extract_verified,
+from diffnet_tpu_torch.pde import (IBNPoisson2D, NavierStokes, Poisson2D,
+                                   Poisson3D, ldc_bcs)
+from diffnet_tpu_torch.train import (Callback, Trainer, cg, extract_verified,
+                                     module_linear_solve,
                                      multigrid_preconditioner, newton_solve,
                                      ns_newton_solve,
                                      stokes_block_preconditioner,
                                      stencil_matvec)
+from diffnet_tpu_torch.utils import (export_forward, load_exported,
+                                     save_exported)
 
 POISSON_SRC = "diffnet_tpu_torch/csrc/poisson2d.cu"
 KERNELS = {   # name -> (module, its launch count, its source, the TPU kernel)
@@ -182,6 +205,7 @@ K6_ATOL = 2e-5         # K6 residuals, times max(1, max |plain|): the JAX
 # Slice G1, the lid-driven cavity (scripts/torch_port_reference_flow.py
 # builds the same problem and gives the JAX package's figures on a CPU).
 G1_GRID, G1_RE, G1_NEWTON_ITERS = 129, 100.0, 15
+G1_TIMED_SOLVES = 1    # timed solves after the entry point's run
 JAX_G1 = {"final_F": 1.326517917732417e-07, "newton_steps": 4,
           "u_min_x05": -0.20309318602085114,
           "v_min_y05": -0.24506235122680664,
@@ -193,6 +217,21 @@ LID_ATOL = 1e-5        # G1, G2: the lid profile
 G2_GRID, G2_EPOCHS, G2_DROP = 64, 20, 0.05
 G3_GRID, G3_BATCH = 256, 8
 FIRST_LOSS_RTOL_FLOW = 1e-5   # G2, G3: kernel vs unfused first loss
+# Slice H, the IBN flagship (reference IBN_2D.py): scripts/
+# torch_port_reference_ibn.py trains the same configuration in the JAX
+# package on a CPU and scores the same held-out clouds. Its network starts
+# from other weights drawn from the same initializer, so the held-out rel
+# L2 is held to a factor of JAX's.
+H_GRID, H_TRAIN, H_POINTS, H_BATCH = 32, 1024, 120, 512
+H_LR, H_MILESTONES, H_EPOCHS = 3e-4, (10, 15, 30), 40
+H_HELDOUT, H_HELDOUT_SEED = 8, 1
+H_PREFETCH_EPOCHS = 11   # a second fit, its loader with prefetch=2
+JAX_H = {"first_epoch_loss": 1839.1507568359375,
+         "last_epoch_loss": 169.45977783203125,
+         "heldout_rel_l2_mean": 1.0983541011810303,
+         "heldout_energy_gap_mean": 16.364582756085706}
+H_REL_L2_FACTOR = 1.25
+EXPORT_RTOL = 1e-6     # the exported AE against the module's forward
 
 # The card's peaks for the bound (NVIDIA's H100 SXM data sheet, at 700 W):
 # HBM bytes/s and fp32 operations/s outside the tensor cores.
@@ -1339,9 +1378,10 @@ def slice_g1(dev) -> dict:
             fail("slice G1: K6 never launched")
 
         # the same solve from its parts: the preconditioner setup apart,
-        # then newton_solve on the module's mixed residual, timed three
-        # times with the kernel (once without: its entry-point run above,
-        # a solve takes about a minute on the card)
+        # then newton_solve on the module's mixed residual, timed once more
+        # with the kernel (without it only the entry-point run above: a
+        # solve takes about a minute on the card, and the script's time
+        # limit is shared by every slice)
         inputs = torch.from_numpy(m.dataset[0][0])[None].to(dev)
         evals = [0]   # residual evaluations: F's and one a Jacobian action
 
@@ -1358,7 +1398,7 @@ def slice_g1(dev) -> dict:
         x0 = {k: torch.zeros((n, n), device=dev) for k in ("u", "v", "p")}
         if fused:
             solve_s, hist = [], None
-            for _ in range(3):
+            for _ in range(G1_TIMED_SOLVES):
                 evals[0] = 0
                 t0 = time.perf_counter()
                 _, inf = newton_solve(F, x0, M=M,
@@ -1478,6 +1518,156 @@ def slice_g3(dev) -> dict:
              "times, not once a step")
     if abs(losses[0] - first_ref) > FIRST_LOSS_RTOL_FLOW * abs(first_ref):
         fail(f"slice G3: first loss {losses[0]} vs unfused {first_ref}")
+    return launches
+
+
+class _EpochLosses(Callback):
+    def __init__(self):
+        self.losses = []
+
+    def on_epoch_end(self, trainer, module, state, epoch, metrics):
+        self.losses.append(metrics["loss"])
+
+
+def _spread(rates) -> dict:
+    return {"median": statistics.median(rates), "min": min(rates),
+            "max": max(rates), "n": len(rates)}
+
+
+def _ibn_heldout(m, dev) -> dict:
+    """The held-out clouds, each scored against the direct Krylov solve of
+    its own immersed problem (scripts/torch_port_reference_ibn.py's
+    scoring): rel L2 on the free nodes (chi < 0.5) and the energy gap."""
+    held = SyntheticPointClouds(n_samples=H_HELDOUT, n_points=H_POINTS,
+                                domain_size=H_GRID, seed=H_HELDOUT_SEED)
+    rel_l2, gaps, solve_s = [], [], []
+    for i in range(H_HELDOUT):
+        batch = tuple(torch.from_numpy(a)[None].to(dev) for a in held[i])
+        with torch.no_grad():
+            u, inputs, forcing = m(batch)
+            u_net = m.apply_bcs(u, inputs)[0].cpu().numpy()
+        t0 = time.perf_counter()
+        u_ref, _ = module_linear_solve(
+            m, inputs_tensor=inputs[0].cpu().numpy(),
+            forcing_tensor=forcing[0].cpu().numpy(), tol=1e-8, device=dev)
+        solve_s.append(time.perf_counter() - t0)
+        free = inputs[0, ..., 1].cpu().numpy() < 0.5
+        rel_l2.append(float(np.linalg.norm((u_net - u_ref)[free])
+                            / np.linalg.norm(u_ref[free])))
+        with torch.no_grad():
+            e_net, e_ref = (float(m.loss(torch.from_numpy(v)[None].to(dev),
+                                         inputs, forcing))
+                            for v in (u_net, u_ref))
+        gaps.append((e_net - e_ref) / e_ref)
+        if not (np.isfinite(u_net).all() and np.isfinite(u_ref).all()):
+            fail(f"slice H: held-out cloud {i}: fields not finite")
+    return {"heldout_rel_l2": rel_l2, "heldout_energy_gap": gaps,
+            "heldout_rel_l2_mean": float(np.mean(rel_l2)),
+            "heldout_energy_gap_mean": float(np.mean(gaps)),
+            "direct_solve_s": solve_s}
+
+
+def _ibn_export(net, chi, dev) -> dict:
+    """export_forward -> save_exported -> load_exported of the trained AE
+    at batch 1 and 64: the loaded program's output against the module's,
+    and both latencies (CUDA events)."""
+    out = {}
+    with tempfile.TemporaryDirectory(
+            dir=os.path.dirname(os.path.abspath(__file__))) as tmp:
+        for bs in (1, 64):
+            x = chi[:bs].contiguous()
+            path = save_exported(export_forward(net, x),
+                                 os.path.join(tmp, f"ae_bs{bs}.pt2"))
+            served = load_exported(path).module()
+            with torch.no_grad():
+                y, want = served(x), net(x)
+                err = float((y - want).abs().max())
+                scale = float(want.abs().max())
+                ms = cuda_ms({"exported": lambda: served(x),
+                              "module": lambda: net(x)})
+            out[f"bs{bs}"] = {"max_abs_err": err,
+                              "exported_ms": ms["exported"],
+                              "module_ms": ms["module"],
+                              "bytes": os.path.getsize(path)}
+            if not (tuple(y.shape) == (bs, H_GRID, H_GRID, 1)
+                    and err <= EXPORT_RTOL * max(1.0, scale)):
+                fail(f"slice H: exported AE at batch {bs}: shape "
+                     f"{tuple(y.shape)}, error {err}")
+    return out
+
+
+def slice_h(dev, smi: str) -> dict:
+    """The IBN flagship at the reference's width: winding-number chi from
+    1,024 ellipse clouds, AE(dims=8, n_downsample=2), gpw Ritz energy,
+    Adam 3e-4 with MultiStepLR, batches of 512 through Trainer.fit; then
+    the held-out accuracy against the direct solve, the resident step's
+    rate and profile, and the export round trip."""
+    ds = SyntheticPointClouds(n_samples=H_TRAIN, n_points=H_POINTS,
+                              domain_size=H_GRID, seed=0)
+    loader = NumpyLoader(ds, batch_size=H_BATCH, shuffle=True, device=dev)
+    m = IBNPoisson2D(AE(1, 1, dims=8, n_downsample=2, seed=0),
+                     domain_size=H_GRID, batch_size=H_BATCH,
+                     learning_rate=H_LR)
+    rec = _EpochLosses()
+    tr = Trainer(max_epochs=H_EPOCHS, optimizer="adam", learning_rate=H_LR,
+                 lr_milestones=H_MILESTONES, callbacks=[rec], device=dev)
+    before = counts()
+    t0 = time.perf_counter()
+    tr.fit(m, loader)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = since(before)
+    steps_a_epoch = len(loader)
+    out = {"phase": "slice_H", "nvidia_smi": smi, "grid": [H_GRID, H_GRID],
+           "batch": H_BATCH, "clouds": H_TRAIN, "points": H_POINTS,
+           "epochs": H_EPOCHS, "steps": H_EPOCHS * steps_a_epoch,
+           "fit_s": fit_s, "first_epoch_s": tr.epoch_times[0],
+           # every epoch after the first (which builds cuDNN's plans)
+           "fit_steps_per_s": _spread([steps_a_epoch / t
+                                       for t in tr.epoch_times[1:]]),
+           "first_epoch_loss": rec.losses[0],
+           "last_epoch_loss": rec.losses[-1], "launches": launches,
+           "jax_reference": JAX_H, "rel_l2_factor": H_REL_L2_FACTOR}
+    if not (all(math.isfinite(v) for v in rec.losses)
+            and rec.losses[-1] < rec.losses[0]):
+        fail(f"slice H: epoch losses {rec.losses}")
+    out.update(_ibn_heldout(m, dev))
+
+    # the same fit with the loader assembling two batches ahead on a
+    # thread, for H_PREFETCH_EPOCHS epochs from the same start
+    mp = IBNPoisson2D(AE(1, 1, dims=8, n_downsample=2, seed=0),
+                      domain_size=H_GRID, batch_size=H_BATCH,
+                      learning_rate=H_LR)
+    trp = Trainer(max_epochs=H_PREFETCH_EPOCHS, optimizer="adam",
+                  learning_rate=H_LR, lr_milestones=H_MILESTONES,
+                  device=dev)
+    trp.fit(mp, NumpyLoader(ds, batch_size=H_BATCH, shuffle=True,
+                            device=dev, prefetch=2))
+    out["fit_prefetch_steps_per_s"] = _spread(
+        [steps_a_epoch / t for t in trp.epoch_times[1:]])
+
+    # the resident step: one batch on the card, the winding number
+    # computed every step as in training; on a copy, so the trained
+    # module stays as fit left it
+    batch = next(iter(NumpyLoader(ds, batch_size=H_BATCH, device=dev)))
+    mr = copy.deepcopy(m)
+    out["resident_steps_per_s"] = _spread(
+        [_resident_rate(mr, batch) for _ in range(3)])
+    step = _adam_step(mr, batch)
+    for _ in range(3):
+        step()
+    prof = _device_idle_share(lambda _: [step() for _ in range(10)], None)
+    out["resident_step_profile"] = {
+        "steps": 10, "device_busy_ms_per_step": prof["device_busy_ms"] / 10,
+        "wall_ms_per_step": prof["wall_ms"] / 10, **prof}
+    with torch.no_grad():
+        chi = m._chi(batch[0])
+    out["export"] = _ibn_export(m.network, chi[:64], dev)
+    emit(out)
+    if not (out["heldout_rel_l2_mean"]
+            <= H_REL_L2_FACTOR * JAX_H["heldout_rel_l2_mean"]):
+        fail(f"slice H: held-out rel L2 {out['heldout_rel_l2_mean']} > "
+             f"{H_REL_L2_FACTOR} x JAX's {JAX_H['heldout_rel_l2_mean']}")
     return launches
 
 
@@ -1625,7 +1815,7 @@ def phase_path_shapes(dev, by_slice: dict) -> dict:
 
 def main() -> int:
     dev = torch.device("cuda:0")
-    phase_device(dev)
+    smi = phase_device(dev)
     phase_build()
     k = phase_kernels(dev)
     k["times"]["poisson_stiffness_action"]["max_abs_err_bf16"] = \
@@ -1665,11 +1855,14 @@ def main() -> int:
     lg2 = slice_g2(dev)
     lg3 = slice_g3(dev)
     paths["flow_2d"] = counts()
+    reset_counts()           # the IBN path: no kernel of the table on it
+    lh = slice_h(dev, smi)
+    paths["ibn_2d"] = counts()
     total = {name: sum(p[name] for p in paths.values()) for name in KERNELS}
     emit({"phase": "main_path_launches", "total": total, **paths,
           "slice_A": la, "slice_B": lb, "slice_C": lc, "slice_E1": le1,
           "slice_E2": le2, "slice_G1": lg1, "slice_G2": lg2,
-          "slice_G3": lg3})
+          "slice_G3": lg3, "slice_H": lh})
     for path, names in (("training_2d", ("poisson_stiffness_action",
                                          "poisson_resmin_loss_grad",
                                          "poisson_energy")),

@@ -1,4 +1,4 @@
-from . import fem
+from . import fem, geometry
 from .quadrature import FEMBasis, make_basis
 
-__all__ = ["fem", "FEMBasis", "make_basis"]
+__all__ = ["fem", "geometry", "FEMBasis", "make_basis"]

@@ -1,12 +1,16 @@
 from .flow import (FlowPastObjectDataset, FlowPastObjectEnsemble,
                    NSFPSChannelDataset, NSLDCDataset, StokesMMSDataset,
                    synthetic_obstacles)
-from .loader import NumpyLoader
+from .loader import InMemoryDataset, NumpyLoader
+from .parametric import (ImageIMBack, ImageIMBackNeumann, ImageIMBackObject,
+                         PointClouds, SyntheticPointClouds)
 from .single_instances import (Cuboid, CuboidManufactured, Rectangle,
                                RectangleManufactured, SingleInstanceDataset,
                                VoxelIMBackRAW, load_raw)
 
-__all__ = ["NumpyLoader", "SingleInstanceDataset", "Rectangle",
+__all__ = ["NumpyLoader", "InMemoryDataset", "PointClouds",
+           "SyntheticPointClouds", "ImageIMBack", "ImageIMBackObject",
+           "ImageIMBackNeumann", "SingleInstanceDataset", "Rectangle",
            "RectangleManufactured", "Cuboid", "CuboidManufactured",
            "load_raw", "VoxelIMBackRAW", "StokesMMSDataset", "NSLDCDataset",
            "FlowPastObjectDataset", "FlowPastObjectEnsemble",

@@ -1,37 +1,69 @@
 """Batching iterator over numpy datasets, yielding torch tensors.
 
-Port of ``diffnet_tpu/data/loader.py::NumpyLoader`` (without sharding or
-background prefetch). Datasets have ``__len__`` and ``__getitem__``
-returning a tuple of channels-last numpy arrays; the loader stacks a batch
-on the host and moves it to `device`. The shuffle order is the JAX
-package's: ``np.random.default_rng(seed).shuffle`` of ``arange(n)`` once
-per epoch.
+Port of ``diffnet_tpu/data/loader.py`` (without sharding). Datasets have
+``__len__`` and ``__getitem__`` returning a tuple of channels-last numpy
+arrays; a dataset with a callable ``batch(idx)`` (:class:`InMemoryDataset`)
+assembles a whole batch in one call instead. The loader moves each batch to
+`device`, and with ``prefetch > 0`` assembles the next batches on a
+background thread. The shuffle order is the JAX package's:
+``np.random.default_rng(seed).shuffle`` of ``arange(n)`` once per epoch.
 """
 
 from __future__ import annotations
 
+import queue
+import threading
 from typing import Iterator
 
 import numpy as np
 import torch
 
-__all__ = ["NumpyLoader"]
+__all__ = ["NumpyLoader", "InMemoryDataset"]
+
+
+class InMemoryDataset:
+    """Pre-built arrays as a dataset: ``(inputs[N, ...], forcing[N, ...])``.
+
+    :meth:`batch` gathers a whole batch with one ``np.take`` per array."""
+
+    def __init__(self, inputs: np.ndarray, forcing: np.ndarray):
+        if len(inputs) != len(forcing):
+            raise ValueError(f"{len(inputs)} inputs against "
+                             f"{len(forcing)} forcings")
+        self.inputs = inputs
+        self.forcing = forcing
+
+    def __len__(self):
+        return len(self.inputs)
+
+    def __getitem__(self, idx):
+        return self.inputs[idx], self.forcing[idx]
+
+    def batch(self, idx):
+        """A whole batch: equal to stacking ``self[i]`` for ``i in idx``
+        (any dataset exposing ``batch`` must keep it so)."""
+        idx = np.asarray(idx, np.int64)
+        return (np.take(self.inputs, idx, axis=0),
+                np.take(self.forcing, idx, axis=0))
 
 
 class NumpyLoader:
     """Parameters: dataset; batch_size; shuffle (reshuffle every epoch);
     drop_last (drop the trailing partial batch); seed (shuffle seed);
-    device (where the batches go, default the CPU)."""
+    device (where the batches go, default the CPU); prefetch (batches
+    assembled ahead on a background thread, 0 for none)."""
 
     def __init__(self, dataset, batch_size: int = 1, shuffle: bool = False,
                  drop_last: bool = True, seed: int = 42,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None,
+                 prefetch: int = 0):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.device = torch.device(device) if device is not None \
             else torch.device("cpu")
+        self.prefetch = prefetch
         self._rng = np.random.default_rng(seed)
 
     def __len__(self):
@@ -41,14 +73,69 @@ class NumpyLoader:
         return (n + self.batch_size - 1) // self.batch_size
 
     def __iter__(self) -> Iterator[tuple[torch.Tensor, ...]]:
+        if self.prefetch > 0:
+            return self._prefetch_iter()
+        return self._plain_iter()
+
+    def _prefetch_iter(self):
+        """Batches from a producer thread through a bounded queue. The
+        producer hands a dataset exception to the consumer, which raises
+        it; a consumer that leaves early (``fast_dev_run``) sets the stop
+        flag, and the producer, which never blocks on the queue for more
+        than 0.1 s, then ends."""
+        q: queue.Queue = queue.Queue(maxsize=self.prefetch)
+        end = object()
+        stop = threading.Event()
+
+        def put(item) -> bool:
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def producer():
+            try:
+                for b in self._plain_iter():
+                    if not put(b):
+                        return
+            except BaseException as e:  # noqa: BLE001 - re-raised below
+                put(e)
+                return
+            put(end)
+
+        t = threading.Thread(target=producer, daemon=True)
+        t.start()
+        try:
+            while True:
+                b = q.get()
+                if b is end:
+                    return
+                if isinstance(b, BaseException):
+                    raise b
+                yield b
+        finally:
+            stop.set()
+
+    def _plain_iter(self) -> Iterator[tuple[torch.Tensor, ...]]:
         n = len(self.dataset)
         order = np.arange(n)
         if self.shuffle:
             self._rng.shuffle(order)
+        batch_fn = getattr(self.dataset, "batch", None)
+        if not callable(batch_fn):
+            # an attribute of that name that is no method keeps the
+            # per-item path
+            batch_fn = None
         for b in range(len(self)):
             idx = order[b * self.batch_size:(b + 1) * self.batch_size]
-            samples = [self.dataset[int(i)] for i in idx]
-            yield tuple(
-                torch.from_numpy(np.stack([s[k] for s in samples])).to(
-                    self.device)
-                for k in range(len(samples[0])))
+            if batch_fn is not None:
+                arrays = tuple(batch_fn(idx))
+            else:
+                samples = [self.dataset[int(i)] for i in idx]
+                arrays = tuple(np.stack([s[k] for s in samples])
+                               for k in range(len(samples[0])))
+            yield tuple(torch.from_numpy(np.ascontiguousarray(a))
+                        .to(self.device) for a in arrays)

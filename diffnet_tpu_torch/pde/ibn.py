@@ -1,0 +1,171 @@
+"""Immersed-boundary network (IBN) parametric Poisson in 2D (port of
+``diffnet_tpu/pde/ibn.py::IBNPoisson2D``).
+
+Per batch: an oriented boundary cloud -> the generalized winding number on
+the node grid -> chi = (w > threshold) -> network(chi) -> u -> immersed
+Dirichlet masking -> the Ritz energy (weighted by the Gauss weights only,
+as the reference's IBN), the Galerkin residual or, for ``'mask'``, the
+regression of the raw winding field. Image ensembles, whose chi is a
+dataset channel, are the same module with ``source_from='inputs'``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..core.geometry import occupancy_from_cloud, winding_grid
+from .base import FEM2DModule
+from .poisson import (_squeeze_field, poisson_energy_loss,
+                      poisson_resmin_residual)
+
+__all__ = ["IBNPoisson2D"]
+
+
+class IBNPoisson2D(FEM2DModule):
+    """Parametric immersed-boundary Poisson in 2D.
+
+    source_from:
+      * ``'winding'``: batch = (cloud[B, Np, 5], forcing, sink); chi is
+        computed from the cloud on the batch's device;
+      * ``'inputs'``: batch = (inputs[B, H, W, C], forcing); chi is
+        ``inputs[..., 1]``.
+    ibn_loss_type: ``'energy'`` (default), ``'resmin'`` (sum of squared
+      Galerkin residuals) or ``'mask'`` (regress the raw winding field;
+      winding batches only).
+    neumann: zero diffusivity inside the object instead of Dirichlet
+      ``bc1_value`` there; the Dirichlet sets are bc2 (value 1) and, with a
+      fourth channel, bc3 (value 0).
+    bc1_value: the Dirichlet value inside the object (1.0).
+    vae_kl_weight: weight of the KL term when the network returns
+      ``(out, mu, logvar)`` (1e-4).
+    network_input: ``'chi'`` only; the point-cloud networks that take
+      ``'cloud'`` or ``'cloud_normals'`` are not ported yet.
+    """
+
+    def __init__(self, network=None, dataset=None, source_from="winding",
+                 winding_threshold=0.5, neumann=False,
+                 ibn_loss_type="energy", network_input="chi", **kwargs):
+        super().__init__(network, dataset, **kwargs)
+        if network_input in ("cloud", "cloud_normals"):
+            raise NotImplementedError(
+                f"network_input={network_input!r} needs the point-cloud "
+                "networks (DGCNN2D, ImmDiff), not ported yet: ROADMAP "
+                "Queue 1, the pointnets item")
+        if network_input != "chi":
+            raise ValueError(f"unknown network_input {network_input!r}")
+        if ibn_loss_type not in ("energy", "resmin", "mask"):
+            raise ValueError(f"unknown ibn_loss_type {ibn_loss_type!r}")
+        self.source_from = source_from
+        self.winding_threshold = winding_threshold
+        self.neumann = neumann
+        self.bc1_value = float(kwargs.get("bc1_value", 1.0))
+        self.ibn_loss_type = ibn_loss_type
+        self.vae_kl_weight = float(kwargs.get("vae_kl_weight", 1e-4))
+
+    def _grid_args(self, cloud):
+        return (cloud[..., 0:2], cloud[..., 2:4], cloud[..., 4],
+                (self.domain_sizeY, self.domain_sizeX),
+                (self.domain_lengthX, self.domain_lengthY))
+
+    def _chi(self, cloud):
+        """chi [B, H, W, 1] of a cloud batch."""
+        return occupancy_from_cloud(*self._grid_args(cloud),
+                                    threshold=self.winding_threshold)[..., None]
+
+    def _from_cloud(self, cloud, sink):
+        """The network's raw output on chi (a VAE head's is (out, mu,
+        logvar)) and the inputs stack (ones, chi, sink)."""
+        source = self._chi(cloud)
+        inputs = torch.cat([torch.ones_like(source), source, sink], dim=-1)
+        return self.network(source), inputs
+
+    def forward(self, batch):
+        """``(u, inputs, forcing)``; a VAE head gives its out as u."""
+        if self.source_from != "winding":
+            inputs, forcing = batch
+            return self.network(inputs), inputs, forcing
+        cloud, forcing, sink = batch
+        u, inputs = self._from_cloud(cloud, sink)
+        if isinstance(u, tuple):
+            u = u[0]
+        return u, inputs, forcing
+
+    def training_loss(self, batch) -> torch.Tensor:
+        """The mean loss of `batch`, plus the weighted KL term when the
+        network is a VAE head; with ``ibn_loss_type='mask'`` the squared
+        error of the network's output against the raw winding field."""
+        if self.source_from != "winding":
+            u, inputs, forcing = self(batch)
+            return torch.mean(self.loss(u, inputs, forcing))
+        cloud, forcing, sink = batch
+        if self.ibn_loss_type == "mask":
+            w = winding_grid(*self._grid_args(cloud))
+            u = self.network(w[..., None])
+            if isinstance(u, tuple):
+                u = u[0]
+            u = u[..., 0] if u.ndim == w.ndim + 1 else u
+            return torch.mean((u - w) ** 2)
+        u, inputs = self._from_cloud(cloud, sink)
+        kl = 0.0
+        if isinstance(u, tuple):
+            u, mu, logvar = u
+            kl = -0.5 * torch.mean(torch.sum(
+                1.0 + logvar - mu**2 - torch.exp(logvar), dim=-1))
+        return (torch.mean(self.loss(u, inputs, forcing))
+                + self.vae_kl_weight * kl)
+
+    def _nu_and_dirichlet(self, inputs_tensor):
+        """The diffusivity and the constrained node set: with ``neumann``,
+        nu = 0 inside the object and the outer sets bc2 (and bc3);
+        otherwise the object (bc1) and bc2."""
+        nu = inputs_tensor[..., 0]
+        bc1 = inputs_tensor[..., 1]
+        bc2 = inputs_tensor[..., 2]
+        if not self.neumann:
+            return nu, torch.maximum(bc1, bc2)
+        nu = torch.where(bc1 > 0.5, torch.zeros_like(nu), nu)
+        if inputs_tensor.shape[-1] > 3:
+            return nu, torch.maximum(bc2, inputs_tensor[..., 3])
+        return nu, bc2
+
+    def apply_bcs(self, u, inputs_tensor):
+        """The immersed Dirichlet substitution that :meth:`loss` applies;
+        [B, H, W]."""
+        if u.ndim == inputs_tensor.ndim:
+            u = u[..., 0]
+        if self.neumann:
+            u = self.apply_dirichlet(u, inputs_tensor[..., 2], 1.0)
+            if inputs_tensor.shape[-1] > 3:
+                u = self.apply_dirichlet(u, inputs_tensor[..., 3], 0.0)
+            return u
+        u = self.apply_dirichlet(u, inputs_tensor[..., 1], self.bc1_value)
+        return self.apply_dirichlet(u, inputs_tensor[..., 2], 0.0)
+
+    def residual_for_field(self, u, inputs_tensor, forcing_tensor):
+        """The assembled Galerkin residual of a nodal field, for the
+        matrix-free Krylov solve (``train.linear.module_linear_solve``):
+        Dirichlet data substituted, rows of the constrained set zeroed.
+        Affine in u; its solution is the direct single-geometry solve the
+        trained network is scored against. Inputs are (nu, bc1, bc2[,
+        bc3]), the stack :meth:`forward` builds."""
+        nu, dirichlet = self._nu_and_dirichlet(inputs_tensor)
+        f = _squeeze_field(forcing_tensor)
+        u = self.apply_bcs(_squeeze_field(u), inputs_tensor)
+        return poisson_resmin_residual(
+            self, u, self.gauss_pt_evaluation(nu),
+            self.gauss_pt_evaluation(f), dirichlet)
+
+    def loss(self, u, inputs_tensor, forcing_tensor):
+        if u.ndim == inputs_tensor.ndim:
+            u = u[..., 0]
+        f = forcing_tensor[..., 0] if forcing_tensor.ndim == u.ndim + 1 \
+            else forcing_tensor
+        nu, dirichlet = self._nu_and_dirichlet(inputs_tensor)
+        u = self.apply_bcs(u, inputs_tensor)
+        if self.ibn_loss_type == "resmin":
+            R = poisson_resmin_residual(
+                self, u, self.gauss_pt_evaluation(nu),
+                self.gauss_pt_evaluation(f), dirichlet)
+            return torch.sum(R**2)
+        # the reference IBN weights its energy by the Gauss weights alone
+        return poisson_energy_loss(self, u, nu, f, self.basis.gpw(u.dtype))

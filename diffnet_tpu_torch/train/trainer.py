@@ -9,6 +9,12 @@ optimizer steps on ``module.training_loss``:
     line_search_fn="strong_wolfe")`` stepped once per batch; its line
     search is not optax's zoom search, so it agrees with the JAX Trainer in
     the solution reached, not step by step;
+  * ``lr_milestones``: the learning rate times ``lr_gamma`` at each
+    milestone epoch (torch's ``MultiStepLR``, stepped once an optimizer step
+    with the milestones in steps, as optax's ``piecewise_constant_schedule``
+    is in the JAX Trainer);
+  * versioned run directories ``save_dir/name/version_N``
+    (:func:`make_run_dir`);
   * CSV metrics per epoch (:class:`CSVLogger`);
   * checkpoints ``last.ckpt``, ``best.ckpt`` (network parameters) and
     ``state.ckpt`` (parameters, optimizer state and step);
@@ -30,13 +36,26 @@ from ..data.loader import NumpyLoader
 from ..utils.device import resolve_device
 
 __all__ = ["TrainState", "Trainer", "Callback", "CSVLogger", "EarlyStopping",
-           "save_params", "load_params", "save_state", "load_state"]
+           "make_run_dir", "save_params", "load_params", "save_state",
+           "load_state"]
 
 
 class TrainState(NamedTuple):
     params: dict[str, torch.Tensor]   # the network's state dict
     optimizer: torch.optim.Optimizer
     step: int
+
+
+def make_run_dir(save_dir: str, name: str) -> str:
+    """Create ``save_dir/name/version_N`` with the next free N."""
+    base = os.path.join(save_dir, name)
+    os.makedirs(base, exist_ok=True)
+    n = 0
+    while os.path.exists(os.path.join(base, f"version_{n}")):
+        n += 1
+    run = os.path.join(base, f"version_{n}")
+    os.makedirs(run)
+    return run
 
 
 def save_params(params: dict[str, torch.Tensor], path: str) -> None:
@@ -158,6 +177,8 @@ class Trainer:
     checkpoint : save last/best/state checkpoints to `run_dir`
     fast_dev_run : one batch of one epoch
     seed : loader shuffle seed
+    lr_milestones, lr_gamma : epochs at which adam's or sgd's learning rate
+        is multiplied by `lr_gamma`
     device : where the module and the batches go (the card by default);
         'cuda' raises when no GPU is available
     """
@@ -167,9 +188,16 @@ class Trainer:
                  callbacks: Sequence[Callback] = (),
                  run_dir: str | None = None, log_every: int = 1,
                  checkpoint: bool = False, fast_dev_run: bool = False,
-                 seed: int = 42, device: str | torch.device = "cuda"):
+                 seed: int = 42, device: str | torch.device = "cuda",
+                 lr_milestones: Sequence[int] | None = None,
+                 lr_gamma: float = 0.1):
         self.max_epochs = 1 if fast_dev_run else max_epochs
         self.optimizer_spec = optimizer
+        if lr_milestones and str(optimizer).lower() == "lbfgs":
+            raise ValueError("lr_milestones apply to adam and sgd; lbfgs "
+                             "takes unit steps from its line search")
+        self.lr_milestones = lr_milestones
+        self.lr_gamma = lr_gamma
         self.learning_rate = learning_rate
         self.lbfgs_max_iter = lbfgs_max_iter
         self.callbacks = list(callbacks)
@@ -185,7 +213,7 @@ class Trainer:
         self.epoch_times: list[float] = []
         self.step_losses: list[float] = []   # the last epoch's, per step
 
-    def _step_fn(self, module, opt):
+    def _step_fn(self, module, opt, sched=None):
         if isinstance(opt, torch.optim.LBFGS):
             def step(batch):
                 # opt.step returns the loss before its first update; the
@@ -209,6 +237,8 @@ class Trainer:
             loss = module.training_loss(batch)
             loss.backward()
             opt.step()
+            if sched is not None:
+                sched.step()
             return loss
         return step
 
@@ -237,7 +267,13 @@ class Trainer:
         lr = self.learning_rate or getattr(module, "learning_rate", 3e-4)
         opt = _make_optimizer(self.optimizer_spec, module.parameters(), lr,
                               self.lbfgs_max_iter)
-        step_fn = self._step_fn(module, opt)
+        sched = None
+        if self.lr_milestones:
+            spe = len(dataloader)
+            sched = torch.optim.lr_scheduler.MultiStepLR(
+                opt, [int(m) * spe for m in self.lr_milestones],
+                gamma=self.lr_gamma)
+        step_fn = self._step_fn(module, opt, sched)
         n_steps = 0
 
         def state():

@@ -17,7 +17,9 @@ times max(1, max |ref|) of their bf16 plain versions (each rounds once from
 float32); K6's residuals at 2e-5 times
 max(1, max |ref|) (the JAX package's kernel-vs-XLA tolerance), its VJP and
 JVP as the other VJPs; the 33^2 Newton solve through K6 at |F| < 1e-6 and
-within 1e-4 of the plain solve.
+within 1e-4 of the plain solve; the IBN slice's loss and gradients (no
+kernel of ours: the winding number, cuDNN convolutions and the energy) at
+1e-5 of the CPU's.
 """
 
 import numpy as np
@@ -563,3 +565,31 @@ def test_ns_newton_solve_on_the_card_goes_through_k6(dev):
         assert info["residual_history"][-1] < 1e-6, info
     for a, b in zip(sols[True], sols[False]):
         np.testing.assert_allclose(a, b, atol=1e-4)
+
+
+def test_ibn_training_loss_on_the_card_matches_the_cpu(dev):
+    """The IBN slice runs no kernel of ours: its winding number, cuDNN
+    convolutions (TF32 off) and energy on the card give the CPU's loss and
+    parameter gradients, within 1e-5 of the loss and of the largest
+    gradient entry."""
+    from diffnet_tpu_torch.data import SyntheticPointClouds
+    from diffnet_tpu_torch.models import AE
+    from diffnet_tpu_torch.pde import IBNPoisson2D
+
+    ds = SyntheticPointClouds(n_samples=16, n_points=120, domain_size=32)
+    batch = tuple(torch.from_numpy(np.stack([ds[i][k] for i in range(16)]))
+                  for k in range(3))
+    out = {}
+    for where in ("cpu", dev):
+        m = IBNPoisson2D(AE(1, 1, dims=8, n_downsample=2), domain_size=32)
+        m.to(where)
+        loss = m.training_loss(tuple(t.to(where) for t in batch))
+        loss.backward()
+        out[str(where)] = (float(loss), {k: p.grad.cpu() for k, p in
+                                         m.network.named_parameters()})
+    (l_cpu, g_cpu), (l_dev, g_dev) = out.values()
+    assert abs(l_dev - l_cpu) <= 1e-5 * abs(l_cpu)
+    scale = max(float(g.abs().max()) for g in g_cpu.values())
+    for k in g_cpu:
+        torch.testing.assert_close(g_dev[k], g_cpu[k], rtol=0,
+                                   atol=1e-5 * scale)

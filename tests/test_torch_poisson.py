@@ -211,13 +211,20 @@ def test_datasets_match_jax():
 
 
 def test_port_imports_no_jax():
-    """Importing every module of the port, and chip_smoke.py (without
-    running its main), leaves jax and diffnet_tpu out of sys.modules."""
+    """Importing every module of the port (the IBN slice's among them),
+    and chip_smoke.py (without running its main), leaves jax and
+    diffnet_tpu out of sys.modules."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import diffnet_tpu_torch as p\n"
-        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
-        "    importlib.import_module(m.name)\n"
+        "names = [m.name for m in pkgutil.walk_packages(\n"
+        "    p.__path__, p.__name__ + '.')]\n"
+        "for n in ('core.geometry', 'data.parametric', 'data.loader',\n"
+        "          'models.networks', 'pde.ibn', 'train.query',\n"
+        "          'train.trainer', 'utils.export', 'interop'):\n"
+        "    assert 'diffnet_tpu_torch.' + n in names, n\n"
+        "for n in names:\n"
+        "    importlib.import_module(n)\n"
         "sys.path.insert(0, '.')\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "

@@ -33,7 +33,8 @@ from diffnet_tpu_torch.train import (Callback, EarlyStopping, Trainer,
                                      load_params, load_state,
                                      module_linear_solve,
                                      multigrid_preconditioner, newton_solve,
-                                     ns_newton_solve, solve_linear,
+                                     ns_newton_solve, query_batched,
+                                     solve_linear,
                                      stokes_block_preconditioner,
                                      stokes_linear_solve)
 
@@ -302,6 +303,9 @@ ENTRY_POINTS = {   # entry point -> a call that leaves `device` at its default
                             lambda: stokes_linear_solve(_tiny_stokes())),
     "ns_newton_solve": (ns_newton_solve,
                         lambda: ns_newton_solve(_tiny_stokes("ns"))),
+    "query_batched": (query_batched,
+                      lambda: query_batched(_tiny_module(), _tiny_module()
+                                            .dataset, batch_size=1)),
 }
 
 
