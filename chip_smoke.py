@@ -31,7 +31,8 @@ exits non-zero (it also does so, printing no result, without CUDA):
      ``cuda_ms``).
      K5 (the trilinear stiffness action and its masked residual) at 2x9^3
      (anisotropic h), 2x17^3, 2x20x17x17, 1x129^3 (slice F's fine level),
-     4x64^3, 1x128^3 and its tile edges 1x9x45x45, 2x3x17x17 and 1x65^3,
+     4x64^3, 1x128^3, slice I's 1x32^3 and its tile edges 1x9x45x45,
+     2x3x17x17 and 1x65^3,
      every strip length at 1x129^3 and 1x9x45x45, timed at 4x64^3 and
      1x128^3; K4-3D (the 27-point apply)
      at 2x9^3, 1x10x12x14, slice F's levels 1x129^3, 65^3, 33^3, 17^3 and
@@ -44,7 +45,7 @@ exits non-zero (it also does so, printing no result, without CUDA):
   3. gradients: the K1 du/dnu, K3 du, K2 du and K4 dC/du VJPs against
      autograd through the plain versions, at 65^2; the K5 du/dnu and K4-3D
      dC/du VJPs at 17^3; the K6 VJP and its JVP (``torch.func.jvp``) at 33^2.
-  4-11. the main paths (launch counts set to 0 first, read after each):
+  4-12. the main paths (launch counts set to 0 first, read after each):
      A. the README quick start through ``Trainer.fit``, 64^2 MMS resmin
         with LBFGS; rel L2 vs the exact solution must be <= 2.6e-4 (the JAX
         package gives 2.046e-4);
@@ -110,11 +111,32 @@ exits non-zero (it also does so, printing no result, without CUDA):
         export, save and load of the trained AE at batch 1 and 64 (outputs
         within 1e-6 of the module's, CUDA-event latencies). No kernel of
         the table runs on this path: the JAX package computes it with XLA.
-  12. resident steps: steps/s of the 512^2 x 32 training steps with the
+        H2. the point-cloud inputs on slice H's clouds, batch and rate, 10
+        epochs each through ``Trainer.fit``: ``DGCNN2D(k=20,
+        lowest_size=16)`` on the points (``network_input='cloud'``) and
+        ``ImmDiffLargeNormals`` on points and normals
+        (``'cloud_normals'``); losses finite and falling, steps/s through
+        fit and resident, one profiled resident step, and DGCNN2D's
+        neighbour searches and edge convs timed against its forward.
+     I. the 3D IBN (reference IBN_3D.py) at the JAX package's UNet3D
+        width: 64 synthetic bar-lattice topologies on 32^3 nodes,
+        ``UNet3D(base_filters=16)`` on (domain, chi, bc2), from the JAX
+        reference's initial weights (``interop.seeded_params``), the
+        gpw-weighted Ritz energy, batches of 8, Adam 1e-3, 36 epochs
+        through ``Trainer.fit``: steps/s through fit and resident, one
+        profiled resident step, the peak memory; 4 held-out topologies
+        each scored against its direct CG solve on a ``Poisson3D`` resmin
+        module, every matvec through K5 (rel L2 on the free nodes held to
+        1.25x the JAX package's from scripts/torch_port_reference_ibn3d.py,
+        the energy gap; each solve must stop at its tolerance before
+        maxiter); a surface-nets mesh of the trained network's field on
+        a held-out topology, against the mesh of the CPU forward of the
+        same weights.
+  13. resident steps: steps/s of the 512^2 x 32 training steps with the
      batch on the card (fused and unfused) and of G3's NS step; 10 steps
      of each fused 512^2 x 32 loss (K2's, K3's) under ``torch.profiler``:
      device busy and wall ms a step, idle share, top device operations.
-  13. path shapes: each kernel timed again at the shape where most of its
+  14. path shapes: each kernel timed again at the shape where most of its
      launches on the paths above ran (the slice with the most launches, by
      ``SLICE_SHAPES``): ``ms_path_shape`` and ``path_shape`` on the kernel
      table line.
@@ -142,8 +164,13 @@ from diffnet_tpu_torch.core import fem
 from diffnet_tpu_torch.core.quadrature import make_basis
 from diffnet_tpu_torch.data import (CuboidManufactured, NSLDCDataset,
                                     NumpyLoader, RectangleManufactured,
-                                    SyntheticPointClouds)
-from diffnet_tpu_torch.models import AE, DirectField
+                                    SyntheticPointClouds, TopoDataset3D,
+                                    synthesize_topology_3d)
+from diffnet_tpu_torch.interop import (flax_shapes, params_from_jax,
+                                       seeded_params)
+from diffnet_tpu_torch.models import (AE, DGCNN2D, DirectField,
+                                      ImmDiffLargeNormals, UNet3D,
+                                      knn_indices)
 from diffnet_tpu_torch.ops import _build
 from diffnet_tpu_torch.ops import ns_residual as k6
 from diffnet_tpu_torch.ops import poisson_energy as k3
@@ -151,16 +178,17 @@ from diffnet_tpu_torch.ops import poisson_loss_grad as k2
 from diffnet_tpu_torch.ops import poisson_residual as k1
 from diffnet_tpu_torch.ops import poisson_residual_3d as k5
 from diffnet_tpu_torch.ops import stencil_apply as k4
-from diffnet_tpu_torch.pde import (IBNPoisson2D, NavierStokes, Poisson2D,
-                                   Poisson3D, ldc_bcs)
+from diffnet_tpu_torch.pde import (IBNPoisson2D, IBNPoisson3D, NavierStokes,
+                                   Poisson2D, Poisson3D, ldc_bcs)
 from diffnet_tpu_torch.train import (Callback, Trainer, cg, extract_verified,
                                      module_linear_solve,
                                      multigrid_preconditioner, newton_solve,
                                      ns_newton_solve,
                                      stokes_block_preconditioner,
                                      stencil_matvec)
-from diffnet_tpu_torch.utils import (export_forward, load_exported,
-                                     save_exported)
+from diffnet_tpu_torch.utils import (export_forward, field_to_obj,
+                                     load_exported, save_exported,
+                                     surface_nets)
 
 POISSON_SRC = "diffnet_tpu_torch/csrc/poisson2d.cu"
 KERNELS = {   # name -> (module, its launch count, its source, the TPU kernel)
@@ -232,6 +260,27 @@ JAX_H = {"first_epoch_loss": 1839.1507568359375,
          "heldout_energy_gap_mean": 16.364582756085706}
 H_REL_L2_FACTOR = 1.25
 EXPORT_RTOL = 1e-6     # the exported AE against the module's forward
+# Slice I, the 3D IBN (reference IBN_3D.py) at JAX's UNet3D width:
+# scripts/torch_port_reference_ibn3d.py trains the same configuration in
+# the JAX package on a CPU and scores the same held-out topologies against
+# the same direct solve. Both networks start from the same weights, drawn
+# with numpy from I_INIT_SEED (interop.seeded_params); the runs differ in
+# rounding only, which 288 Adam steps amplify, so the held-out rel L2 is
+# held to a factor of JAX's, as slice H's is.
+I_GRID, I_TRAIN, I_BATCH, I_FILTERS = 32, 64, 8, 16
+I_LR, I_EPOCHS, I_INIT_SEED = 1e-3, 36, 0
+I_HELDOUT_SEEDS = (1000, 1001, 1002, 1003)
+I_SOLVE_TOL = 1e-6     # float32 CG's recursive residual stalls near 1.4e-7 at
+#                        32^3; at 1e-6 (~70 iterations) the true one is at
+#                        its float32 floor already (~7e-5)
+JAX_I = {"first_epoch_loss": 129.5518341064453,
+         "last_epoch_loss": 28.711841583251953,
+         "heldout_rel_l2_mean": 0.08806608710438013,
+         "heldout_energy_gap_mean": 0.027828215124504514,
+         "untrained_heldout_rel_l2_mean": 1.1487959921360016}
+I_REL_L2_FACTOR = 1.25
+# Slice H2, the point-cloud inputs: slice H's clouds, batch and rate
+H2_EPOCHS, H2_K, H2_LOWEST = 10, 20, 16
 
 # The card's peaks for the bound (NVIDIA's H100 SXM data sheet, at 700 W):
 # HBM bytes/s and fp32 operations/s outside the tensor cores.
@@ -580,14 +629,16 @@ def phase_stencil_kernel(dev) -> dict:
 
 # 1 x 129^3: slice F's fine level; 4 x 64^3: bench.py's p3d shape
 # (bench.py:1712); 1 x 128^3: bench.py:1405; 1 x 65^3: slice F's next
-# level. The kernel's edges: 45 columns (not a multiple of a warp's 32) and
-# rows (nor of a block's 7), 3 planes (shorter than a strip), and the last
-# node column right of a tile (nx - 1 a multiple of 32: 129, 65).
+# level; 1 x 32^3: slice I's held-out solves (31 element columns, a
+# part-filled warp tile). The kernel's edges: 45 columns (not a multiple of
+# a warp's 32) and rows (nor of a block's 7), 3 planes (shorter than a
+# strip), and the last node column right of a tile (nx - 1 a multiple of
+# 32: 129, 65).
 K5_SHAPES = (((2, 9, 9, 9), True), ((2, 17, 17, 17), False),
              ((2, 20, 17, 17), False), ((1, 129, 129, 129), False),
              ((4, 64, 64, 64), False), ((1, 128, 128, 128), False),
              ((1, 9, 45, 45), True), ((2, 3, 17, 17), False),
-             ((1, 65, 65, 65), False))
+             ((1, 65, 65, 65), False), ((1, 32, 32, 32), False))
 K5_TIMED = ((4, 64, 64, 64), (1, 128, 128, 128))
 # every strip length the kernel takes, through its C entry point
 K5_STRIP_SHAPES = ((1, 129, 129, 129), (1, 9, 45, 45))
@@ -1534,37 +1585,45 @@ def _spread(rates) -> dict:
             "max": max(rates), "n": len(rates)}
 
 
-def _ibn_heldout(m, dev) -> dict:
-    """The held-out clouds, each scored against the direct Krylov solve of
-    its own immersed problem (scripts/torch_port_reference_ibn.py's
-    scoring): rel L2 on the free nodes (chi < 0.5) and the energy gap."""
-    held = SyntheticPointClouds(n_samples=H_HELDOUT, n_points=H_POINTS,
-                                domain_size=H_GRID, seed=H_HELDOUT_SEED)
-    rel_l2, gaps, solve_s = [], [], []
-    for i in range(H_HELDOUT):
-        batch = tuple(torch.from_numpy(a)[None].to(dev) for a in held[i])
+def _heldout_scores(m, solver, items, free, tol, dev, name, **solve_kw):
+    """Each held-out case of an IBN slice scored against the direct Krylov
+    solve of its own immersed problem (the reference scripts' scoring):
+    `m`'s field (BCs applied) on the card, `solver`'s module_linear_solve
+    on the same inputs at `tol`; the rel L2 on the nodes `free` (a function
+    of the inputs) marks and the energy gap under `m`'s loss; each solve's
+    time and kernel launches. Returns the figures and, for each case,
+    (u_net, u_ref, inputs, forcing)."""
+    out = {"heldout_rel_l2": [], "heldout_energy_gap": [],
+           "direct_solve_s": [], "solve_launches": []}
+    cases = []
+    for i, item in enumerate(items):
+        batch = tuple(torch.from_numpy(a)[None].to(dev) for a in item)
         with torch.no_grad():
-            u, inputs, forcing = m(batch)
-            u_net = m.apply_bcs(u, inputs)[0].cpu().numpy()
+            u, inp, frc = m(batch)
+            u_net = m.apply_bcs(u, inp)[0].cpu().numpy()
+        inputs = inp[0].cpu().numpy()
+        before = counts()
         t0 = time.perf_counter()
         u_ref, _ = module_linear_solve(
-            m, inputs_tensor=inputs[0].cpu().numpy(),
-            forcing_tensor=forcing[0].cpu().numpy(), tol=1e-8, device=dev)
-        solve_s.append(time.perf_counter() - t0)
-        free = inputs[0, ..., 1].cpu().numpy() < 0.5
-        rel_l2.append(float(np.linalg.norm((u_net - u_ref)[free])
-                            / np.linalg.norm(u_ref[free])))
+            solver, inputs_tensor=inputs, forcing_tensor=frc[0].cpu().numpy(),
+            tol=tol, device=dev, **solve_kw)
+        out["direct_solve_s"].append(time.perf_counter() - t0)
+        out["solve_launches"].append(since(before))
+        mask = free(inputs)
+        out["heldout_rel_l2"].append(float(
+            np.linalg.norm((u_net - u_ref)[mask])
+            / np.linalg.norm(u_ref[mask])))
         with torch.no_grad():
             e_net, e_ref = (float(m.loss(torch.from_numpy(v)[None].to(dev),
-                                         inputs, forcing))
-                            for v in (u_net, u_ref))
-        gaps.append((e_net - e_ref) / e_ref)
+                                         inp, frc)) for v in (u_net, u_ref))
+        out["heldout_energy_gap"].append((e_net - e_ref) / e_ref)
         if not (np.isfinite(u_net).all() and np.isfinite(u_ref).all()):
-            fail(f"slice H: held-out cloud {i}: fields not finite")
-    return {"heldout_rel_l2": rel_l2, "heldout_energy_gap": gaps,
-            "heldout_rel_l2_mean": float(np.mean(rel_l2)),
-            "heldout_energy_gap_mean": float(np.mean(gaps)),
-            "direct_solve_s": solve_s}
+            fail(f"{name}: held-out case {i}: fields not finite")
+        cases.append((u_net, u_ref, inp, frc))
+    out["heldout_rel_l2_mean"] = float(np.mean(out["heldout_rel_l2"]))
+    out["heldout_energy_gap_mean"] = float(np.mean(
+        out["heldout_energy_gap"]))
+    return out, cases
 
 
 def _ibn_export(net, chi, dev) -> dict:
@@ -1593,6 +1652,23 @@ def _ibn_export(net, chi, dev) -> dict:
                     and err <= EXPORT_RTOL * max(1.0, scale)):
                 fail(f"slice H: exported AE at batch {bs}: shape "
                      f"{tuple(y.shape)}, error {err}")
+    return out
+
+
+def _resident_profile(m, batch) -> dict:
+    """Steps/s of `m` on a batch already on the card (three runs of 20
+    Adam steps), then 10 steps under torch.profiler: device busy and wall
+    ms a step, idle share, device operations, top operations."""
+    out = {"resident_steps_per_s": _spread(
+        [_resident_rate(m, batch) for _ in range(3)])}
+    step = _adam_step(m, batch)
+    for _ in range(3):
+        step()
+    prof = _device_idle_share(lambda _: [step() for _ in range(10)], None)
+    out["resident_step_profile"] = {
+        "steps": 10, "device_busy_ms_per_step": prof["device_busy_ms"] / 10,
+        "wall_ms_per_step": prof["wall_ms"] / 10,
+        "device_events_per_step": prof["device_events"] / 10, **prof}
     return out
 
 
@@ -1631,7 +1707,11 @@ def slice_h(dev, smi: str) -> dict:
     if not (all(math.isfinite(v) for v in rec.losses)
             and rec.losses[-1] < rec.losses[0]):
         fail(f"slice H: epoch losses {rec.losses}")
-    out.update(_ibn_heldout(m, dev))
+    held = SyntheticPointClouds(n_samples=H_HELDOUT, n_points=H_POINTS,
+                                domain_size=H_GRID, seed=H_HELDOUT_SEED)
+    out.update(_heldout_scores(
+        m, m, (held[i] for i in range(H_HELDOUT)),
+        lambda inputs: inputs[..., 1] < 0.5, 1e-8, dev, "slice H")[0])
 
     # the same fit with the loader assembling two batches ahead on a
     # thread, for H_PREFETCH_EPOCHS epochs from the same start
@@ -1650,16 +1730,7 @@ def slice_h(dev, smi: str) -> dict:
     # computed every step as in training; on a copy, so the trained
     # module stays as fit left it
     batch = next(iter(NumpyLoader(ds, batch_size=H_BATCH, device=dev)))
-    mr = copy.deepcopy(m)
-    out["resident_steps_per_s"] = _spread(
-        [_resident_rate(mr, batch) for _ in range(3)])
-    step = _adam_step(mr, batch)
-    for _ in range(3):
-        step()
-    prof = _device_idle_share(lambda _: [step() for _ in range(10)], None)
-    out["resident_step_profile"] = {
-        "steps": 10, "device_busy_ms_per_step": prof["device_busy_ms"] / 10,
-        "wall_ms_per_step": prof["wall_ms"] / 10, **prof}
+    out.update(_resident_profile(copy.deepcopy(m), batch))
     with torch.no_grad():
         chi = m._chi(batch[0])
     out["export"] = _ibn_export(m.network, chi[:64], dev)
@@ -1669,6 +1740,199 @@ def slice_h(dev, smi: str) -> dict:
         fail(f"slice H: held-out rel L2 {out['heldout_rel_l2_mean']} > "
              f"{H_REL_L2_FACTOR} x JAX's {JAX_H['heldout_rel_l2_mean']}")
     return launches
+
+
+def _ibn3d_heldout(m, dev) -> tuple[dict, tuple]:
+    """Slice I's held-out topologies through _heldout_scores: the direct
+    solve is CG at tol I_SOLVE_TOL on a Poisson3D resmin module, u = 1 on
+    chi and 0 on the box, whose every matvec is K5; the free nodes are
+    chi < 0.5 and off the box. Each solve's CG iterations (its K5 launches
+    less the four residuals solve_linear takes before the loop: b, the
+    affinity probe's two and r0) must stay below maxiter, so the solve
+    stopped at its tolerance; its true relative residual is reported.
+    Returns the figures and the first case."""
+    held = TopoDataset3D([synthesize_topology_3d(n=I_GRID, seed=s)
+                          for s in I_HELDOUT_SEEDS], domain_size=I_GRID)
+    solver = Poisson3D(domain_size=I_GRID, loss_type="resmin",
+                       fused_kernels=True, bc1_value=1.0, bc2_value=0.0)
+    maxiter = 10 * int((I_GRID**3) ** 0.5)   # solve_linear's default
+    out, cases = _heldout_scores(
+        m, solver, held,
+        lambda inputs: (inputs[..., 1] < 0.5) & (inputs[..., 2] < 0.5),
+        I_SOLVE_TOL, dev, "slice I", maxiter=maxiter)
+    out["cg_maxiter"] = maxiter
+    out["cg_iters"] = [n["poisson_stiffness_action_3d"] - 4
+                       for n in out.pop("solve_launches")]
+    out["true_relres"] = []
+    for i, (_, u_ref, inp, frc) in enumerate(cases):
+        with torch.no_grad():
+            r0, r = (float(torch.linalg.vector_norm(solver.residual_for_field(
+                torch.from_numpy(v)[None].to(dev), inp, frc)))
+                for v in (np.zeros_like(u_ref), u_ref))
+        out["true_relres"].append(r / r0)
+        if not 0 < out["cg_iters"][i] < maxiter:
+            fail(f"slice I: direct solve {i} ran {out['cg_iters'][i]} CG "
+                 f"iterations of {maxiter}: it did not reach tol "
+                 f"{I_SOLVE_TOL}")
+    return out, cases[0]
+
+
+def _mesh_check(m, case) -> dict:
+    """surface_nets at level 0.5 of the trained network's field on a
+    held-out topology, computed on the card, against that of the same
+    weights' forward on the CPU. Where no node of the CPU's field lies
+    within the two fields' largest difference (delta) of the level, both
+    meshes have the same quads, and each vertex moves at most
+    2 delta / g, g the least step of the field across a crossed grid edge
+    (a crossing at t = fa / (fa - fb) moves by delta / |fa - fb| to first
+    order). The OBJ written."""
+    u_card, _, inp, _ = case
+    net = copy.deepcopy(m.network).cpu()
+    with torch.no_grad():
+        u_cpu = m.apply_bcs(net(inp.cpu()), inp.cpu())[0].numpy()
+    delta = float(np.abs(u_card - u_cpu).max())
+    f = u_cpu - 0.5
+    near = int((np.abs(f) <= delta).sum())
+    gap = min([1.0] + [float(np.abs(d)[c].min()) for d, c in (
+        (np.diff(f, axis=ax), np.diff(f < 0, axis=ax)) for ax in range(3))
+        if c.any()])
+    v, q = surface_nets(u_card, level=0.5)
+    v_ref, q_ref = surface_nets(u_cpu, level=0.5)
+    out = {"vertices": len(v), "quads": len(q), "cpu_vertices": len(v_ref),
+           "cpu_quads": len(q_ref), "field_max_abs_diff": delta,
+           "nodes_within_diff_of_level": near, "least_crossing_step": gap,
+           "vertex_atol": 2 * delta / gap}
+    if len(q) > 0 and near == 0 and np.array_equal(q, q_ref):
+        out["vertex_max_abs_diff"] = float(np.abs(v - v_ref).max())
+    if not (len(q) > 0 and (near > 0 or out.get(
+            "vertex_max_abs_diff", math.inf) <= out["vertex_atol"])):
+        fail(f"slice I: surface_nets of the card's field {out}")
+    with tempfile.TemporaryDirectory(
+            dir=os.path.dirname(os.path.abspath(__file__))) as tmp:
+        path = field_to_obj(os.path.join(tmp, "u.obj"), u_card)
+        out["obj_bytes"] = os.path.getsize(path)
+    return out
+
+
+def slice_i(dev, smi: str) -> dict:
+    """The 3D IBN (reference IBN_3D.py) at JAX's UNet3D width: 64 synthetic
+    bar-lattice topologies on 32^3 nodes, UNet3D(base_filters=16) on the
+    (domain, chi, bc2) channels, the gpw Ritz energy, Adam 1e-3, batches
+    of 8 through Trainer.fit; then the held-out accuracy against the
+    direct solves through K5, the resident step's rate and profile, the
+    peak memory, and a surface-nets mesh of the trained field. The network
+    starts from the JAX reference's weights (I_INIT_SEED)."""
+    ds = TopoDataset3D([synthesize_topology_3d(n=I_GRID, seed=s)
+                        for s in range(I_TRAIN)], domain_size=I_GRID)
+    loader = NumpyLoader(ds, batch_size=I_BATCH, shuffle=True, device=dev)
+    net = UNet3D(3, 1, base_filters=I_FILTERS)
+    net.load_state_dict(params_from_jax(seeded_params(flax_shapes(net),
+                                                      I_INIT_SEED)))
+    m = IBNPoisson3D(net, domain_size=I_GRID, batch_size=I_BATCH,
+                     learning_rate=I_LR)
+    rec = _EpochLosses()
+    tr = Trainer(max_epochs=I_EPOCHS, optimizer="adam", learning_rate=I_LR,
+                 callbacks=[rec], device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    before = counts()
+    t0 = time.perf_counter()
+    tr.fit(m, loader)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    steps_a_epoch = len(loader)
+    out = {"phase": "slice_I", "nvidia_smi": smi, "grid": [I_GRID] * 3,
+           "batch": I_BATCH, "base_filters": I_FILTERS,
+           "parameters": sum(p.numel() for p in m.network.parameters()),
+           "volumes": I_TRAIN, "epochs": I_EPOCHS,
+           "steps": I_EPOCHS * steps_a_epoch, "fit_s": fit_s,
+           "first_epoch_s": tr.epoch_times[0],
+           "fit_steps_per_s": _spread([steps_a_epoch / t
+                                       for t in tr.epoch_times[1:]]),
+           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+           "first_epoch_loss": rec.losses[0],
+           "last_epoch_loss": rec.losses[-1],
+           "jax_reference": JAX_I, "rel_l2_factor": I_REL_L2_FACTOR}
+    if not (all(math.isfinite(v) for v in rec.losses)
+            and rec.losses[-1] < rec.losses[0]):
+        fail(f"slice I: epoch losses {rec.losses}")
+    held, case = _ibn3d_heldout(m, dev)
+    out.update(held)
+    out["launches"] = since(before)
+
+    batch = next(iter(NumpyLoader(ds, batch_size=I_BATCH, device=dev)))
+    out.update(_resident_profile(copy.deepcopy(m), batch))
+    out["mesh"] = _mesh_check(m, case)
+    emit(out)
+    if not (out["heldout_rel_l2_mean"]
+            <= I_REL_L2_FACTOR * JAX_I["heldout_rel_l2_mean"]):
+        fail(f"slice I: held-out rel L2 {out['heldout_rel_l2_mean']} > "
+             f"{I_REL_L2_FACTOR} x JAX's {JAX_I['heldout_rel_l2_mean']}")
+    return out["launches"]
+
+
+def _dgcnn_parts_ms(net, points) -> dict:
+    """Forward device ms of DGCNN2D's neighbour searches (knn_indices on
+    the points and on the first two edge convs' features) and of its three
+    edge convs (each with its search), against a whole forward."""
+    with torch.no_grad():
+        x1 = net._edge_conv(points, 0)
+        x2 = net._edge_conv(x1, 1)
+        k = min(net.k, points.shape[1] - 1)
+        return cuda_ms({
+            "knn": lambda: [knn_indices(h, k) for h in (points, x1, x2)],
+            "edge_convs": lambda: net._edge_conv(net._edge_conv(
+                net._edge_conv(points, 0), 1), 2),
+            "forward": lambda: net(points)}, reps=5)
+
+
+def slice_h2(dev, smi: str) -> None:
+    """The point-cloud inputs of IBNPoisson2D on slice H's clouds, batch
+    and rate: DGCNN2D on the points (network_input='cloud') and
+    ImmDiffLargeNormals on the points and normals ('cloud_normals'),
+    H2_EPOCHS epochs each through Trainer.fit; losses finite and falling,
+    steps/s through fit and resident, one profiled resident step, and for
+    DGCNN2D the device time of its neighbour searches and edge convs."""
+    ds = SyntheticPointClouds(n_samples=H_TRAIN, n_points=H_POINTS,
+                              domain_size=H_GRID, seed=0)
+    nets = {"dgcnn2d_cloud": (
+                lambda: DGCNN2D(2, domain_size=H_GRID, k=H2_K,
+                                lowest_size=H2_LOWEST, seed=0), "cloud"),
+            "immdiff_large_normals": (
+                lambda: ImmDiffLargeNormals(H_POINTS, out_size=H_GRID,
+                                            seed=0), "cloud_normals")}
+    out = {"phase": "slice_H2", "nvidia_smi": smi, "grid": [H_GRID, H_GRID],
+           "batch": H_BATCH, "clouds": H_TRAIN, "points": H_POINTS,
+           "epochs": H2_EPOCHS}
+    for name, (make, network_input) in nets.items():
+        m = IBNPoisson2D(make(), domain_size=H_GRID, batch_size=H_BATCH,
+                         learning_rate=H_LR, network_input=network_input)
+        loader = NumpyLoader(ds, batch_size=H_BATCH, shuffle=True,
+                             device=dev)
+        rec = _EpochLosses()
+        tr = Trainer(max_epochs=H2_EPOCHS, optimizer="adam",
+                     learning_rate=H_LR, callbacks=[rec], device=dev)
+        t0 = time.perf_counter()
+        tr.fit(m, loader)
+        torch.cuda.synchronize()
+        res = {"network_input": network_input,
+               "fit_s": time.perf_counter() - t0,
+               "steps": H2_EPOCHS * len(loader),
+               "fit_steps_per_s": _spread([len(loader) / t
+                                           for t in tr.epoch_times[1:]]),
+               "epoch_losses": rec.losses}
+        if not (all(math.isfinite(v) for v in rec.losses)
+                and rec.losses[-1] < rec.losses[0]):
+            fail(f"slice H2 {name}: epoch losses {rec.losses}")
+        batch = next(iter(NumpyLoader(ds, batch_size=H_BATCH, device=dev)))
+        res.update(_resident_profile(copy.deepcopy(m), batch))
+        if network_input == "cloud":
+            parts = _dgcnn_parts_ms(m.network, batch[0][..., 0:2])
+            busy = res["resident_step_profile"]["device_busy_ms_per_step"]
+            res["forward_parts_ms"] = parts
+            res["knn_share_of_step"] = parts["knn"] / busy
+            res["edge_conv_share_of_step"] = parts["edge_convs"] / busy
+        out[name] = res
+    emit(out)
 
 
 FUSED_2D_STEPS = (   # the resident 512^2 x 32 steps on the fused losses
@@ -1762,7 +2026,8 @@ SLICE_SHAPES = {
     "stencil_apply_2d": {"D3": (1, 513, 513)},
     "poisson_stiffness_action_3d": {"E1": (1, 17, 17, 17),
                                     "E2": (4, 64, 64, 64),
-                                    "F2": (1, 129, 129, 129)},
+                                    "F2": (1, 129, 129, 129),
+                                    "I": (1, 32, 32, 32)},
     "stencil_apply_3d": {"F3": (1, 129, 129, 129)},
     "ns_vms_residual": {"G1": (1, 129, 129), "G2": (1, 64, 64),
                         "G3": (8, 256, 256)},
@@ -1857,12 +2122,16 @@ def main() -> int:
     paths["flow_2d"] = counts()
     reset_counts()           # the IBN path: no kernel of the table on it
     lh = slice_h(dev, smi)
+    slice_h2(dev, smi)
     paths["ibn_2d"] = counts()
+    reset_counts()           # the 3D IBN path: K5 in the held-out solves
+    li = slice_i(dev, smi)
+    paths["ibn_3d"] = counts()
     total = {name: sum(p[name] for p in paths.values()) for name in KERNELS}
     emit({"phase": "main_path_launches", "total": total, **paths,
           "slice_A": la, "slice_B": lb, "slice_C": lc, "slice_E1": le1,
           "slice_E2": le2, "slice_G1": lg1, "slice_G2": lg2,
-          "slice_G3": lg3, "slice_H": lh})
+          "slice_G3": lg3, "slice_H": lh, "slice_I": li})
     for path, names in (("training_2d", ("poisson_stiffness_action",
                                          "poisson_resmin_loss_grad",
                                          "poisson_energy")),
@@ -1870,7 +2139,8 @@ def main() -> int:
                         ("training_3d", ("poisson_stiffness_action_3d",)),
                         ("solver_3d", ("poisson_stiffness_action_3d",
                                        "stencil_apply_3d")),
-                        ("flow_2d", ("ns_vms_residual",))):
+                        ("flow_2d", ("ns_vms_residual",)),
+                        ("ibn_3d", ("poisson_stiffness_action_3d",))):
         for name in names:
             if paths[path][name] <= 0:
                 fail(f"{name} was never launched on the {path} path")
@@ -1879,7 +2149,7 @@ def main() -> int:
           "steps_per_s": resident_steps_per_s(dev)})
     emit({"phase": "resident_step_profiles", **resident_step_profiles(dev)})
     by_slice = {"A": la, "B": lb, "C": lc, **ld, "E1": le1, "E2": le2, **lf,
-                "G1": lg1, "G2": lg2, "G3": lg3}
+                "G1": lg1, "G2": lg2, "G3": lg3, "I": li}
     path = phase_path_shapes(dev, by_slice)
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": source,

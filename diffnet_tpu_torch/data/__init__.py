@@ -1,6 +1,9 @@
 from .flow import (FlowPastObjectDataset, FlowPastObjectEnsemble,
                    NSFPSChannelDataset, NSLDCDataset, StokesMMSDataset,
                    synthetic_obstacles)
+from .geometry_datasets import (PCVox, ParametricNURBS, TopoDataset3D,
+                                image_to_point_cloud, nurbs_curve,
+                                synthesize_topology_3d)
 from .loader import InMemoryDataset, NumpyLoader
 from .parametric import (ImageIMBack, ImageIMBackNeumann, ImageIMBackObject,
                          PointClouds, SyntheticPointClouds)
@@ -14,4 +17,6 @@ __all__ = ["NumpyLoader", "InMemoryDataset", "PointClouds",
            "RectangleManufactured", "Cuboid", "CuboidManufactured",
            "load_raw", "VoxelIMBackRAW", "StokesMMSDataset", "NSLDCDataset",
            "FlowPastObjectDataset", "FlowPastObjectEnsemble",
-           "NSFPSChannelDataset", "synthetic_obstacles"]
+           "NSFPSChannelDataset", "synthetic_obstacles", "PCVox",
+           "ParametricNURBS", "TopoDataset3D", "image_to_point_cloud",
+           "nurbs_curve", "synthesize_topology_3d"]

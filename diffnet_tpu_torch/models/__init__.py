@@ -1,4 +1,12 @@
 from .field import DirectField
-from .networks import AE, UNet, VAE, GoodNetwork
+from .networks import (AE, VAE, GoodNetwork, ImplicitConv, LocalConv2d,
+                       MultiOutUNet, ResNetED, UNet, UNet3D, UNetRes)
+from .pointnets import (DGCNN2D, MLP, ConvNet1D, EikonalLinear, ImmDiff,
+                        ImmDiffLarge, ImmDiffLargeNormals, ImmDiffVAE,
+                        graph_feature, knn_indices)
 
-__all__ = ["DirectField", "AE", "VAE", "UNet", "GoodNetwork"]
+__all__ = ["DirectField", "AE", "VAE", "UNet", "UNet3D", "MultiOutUNet",
+           "GoodNetwork", "UNetRes", "ImplicitConv", "ResNetED",
+           "LocalConv2d", "MLP", "ConvNet1D", "ImmDiff", "ImmDiffVAE",
+           "ImmDiffLarge", "ImmDiffLargeNormals", "EikonalLinear", "DGCNN2D",
+           "knn_indices", "graph_feature"]

@@ -1,12 +1,14 @@
-"""Immersed-boundary network (IBN) parametric Poisson in 2D (port of
-``diffnet_tpu/pde/ibn.py::IBNPoisson2D``).
+"""Immersed-boundary network (IBN) parametric Poisson (port of
+``diffnet_tpu/pde/ibn.py``): ``IBNPoisson2D`` and ``IBNPoisson3D``.
 
-Per batch: an oriented boundary cloud -> the generalized winding number on
-the node grid -> chi = (w > threshold) -> network(chi) -> u -> immersed
-Dirichlet masking -> the Ritz energy (weighted by the Gauss weights only,
-as the reference's IBN), the Galerkin residual or, for ``'mask'``, the
-regression of the raw winding field. Image ensembles, whose chi is a
-dataset channel, are the same module with ``source_from='inputs'``.
+2D, per batch: an oriented boundary cloud -> the generalized winding number
+on the node grid -> chi = (w > threshold) -> network(chi), or network(cloud)
+for the point-cloud networks -> u -> immersed Dirichlet masking -> the Ritz
+energy (weighted by the Gauss weights only, as the reference's IBN), the
+Galerkin residual or, for ``'mask'``, the regression of the raw winding
+field. Image ensembles, whose chi is a dataset channel, are the same module
+with ``source_from='inputs'``. 3D: voxel topologies, chi a dataset channel,
+the same energy.
 """
 
 from __future__ import annotations
@@ -14,11 +16,11 @@ from __future__ import annotations
 import torch
 
 from ..core.geometry import occupancy_from_cloud, winding_grid
-from .base import FEM2DModule
+from .base import FEM2DModule, FEM3DModule
 from .poisson import (_squeeze_field, poisson_energy_loss,
                       poisson_resmin_residual)
 
-__all__ = ["IBNPoisson2D"]
+__all__ = ["IBNPoisson2D", "IBNPoisson3D"]
 
 
 class IBNPoisson2D(FEM2DModule):
@@ -38,20 +40,18 @@ class IBNPoisson2D(FEM2DModule):
     bc1_value: the Dirichlet value inside the object (1.0).
     vae_kl_weight: weight of the KL term when the network returns
       ``(out, mu, logvar)`` (1e-4).
-    network_input: ``'chi'`` only; the point-cloud networks that take
-      ``'cloud'`` or ``'cloud_normals'`` are not ported yet.
+    network_input: what the network takes on winding batches: ``'chi'``
+      (the occupancy grid ``[B, H, W, 1]``), ``'cloud'`` (the points
+      ``[B, Np, 2]``: ``DGCNN2D``, ``ImmDiff``) or ``'cloud_normals'``
+      (points and normals, two arguments: ``ImmDiffLargeNormals``). chi
+      still sets the immersed Dirichlet set.
     """
 
     def __init__(self, network=None, dataset=None, source_from="winding",
                  winding_threshold=0.5, neumann=False,
                  ibn_loss_type="energy", network_input="chi", **kwargs):
         super().__init__(network, dataset, **kwargs)
-        if network_input in ("cloud", "cloud_normals"):
-            raise NotImplementedError(
-                f"network_input={network_input!r} needs the point-cloud "
-                "networks (DGCNN2D, ImmDiff), not ported yet: ROADMAP "
-                "Queue 1, the pointnets item")
-        if network_input != "chi":
+        if network_input not in ("chi", "cloud", "cloud_normals"):
             raise ValueError(f"unknown network_input {network_input!r}")
         if ibn_loss_type not in ("energy", "resmin", "mask"):
             raise ValueError(f"unknown ibn_loss_type {ibn_loss_type!r}")
@@ -61,6 +61,7 @@ class IBNPoisson2D(FEM2DModule):
         self.bc1_value = float(kwargs.get("bc1_value", 1.0))
         self.ibn_loss_type = ibn_loss_type
         self.vae_kl_weight = float(kwargs.get("vae_kl_weight", 1e-4))
+        self.network_input = network_input
 
     def _grid_args(self, cloud):
         return (cloud[..., 0:2], cloud[..., 2:4], cloud[..., 4],
@@ -72,12 +73,21 @@ class IBNPoisson2D(FEM2DModule):
         return occupancy_from_cloud(*self._grid_args(cloud),
                                     threshold=self.winding_threshold)[..., None]
 
+    def _apply_net(self, cloud, source):
+        """The network's raw output (a VAE head's is (out, mu, logvar)) on
+        `source`, or on the cloud for the point-cloud networks."""
+        if self.network_input == "cloud":
+            return self.network(cloud[..., 0:2])
+        if self.network_input == "cloud_normals":
+            return self.network(cloud[..., 0:2], cloud[..., 2:4])
+        return self.network(source)
+
     def _from_cloud(self, cloud, sink):
-        """The network's raw output on chi (a VAE head's is (out, mu,
-        logvar)) and the inputs stack (ones, chi, sink)."""
+        """The network's raw output and the inputs stack (ones, chi,
+        sink)."""
         source = self._chi(cloud)
         inputs = torch.cat([torch.ones_like(source), source, sink], dim=-1)
-        return self.network(source), inputs
+        return self._apply_net(cloud, source), inputs
 
     def forward(self, batch):
         """``(u, inputs, forcing)``; a VAE head gives its out as u."""
@@ -100,7 +110,7 @@ class IBNPoisson2D(FEM2DModule):
         cloud, forcing, sink = batch
         if self.ibn_loss_type == "mask":
             w = winding_grid(*self._grid_args(cloud))
-            u = self.network(w[..., None])
+            u = self._apply_net(cloud, w[..., None])
             if isinstance(u, tuple):
                 u = u[0]
             u = u[..., 0] if u.ndim == w.ndim + 1 else u
@@ -169,3 +179,24 @@ class IBNPoisson2D(FEM2DModule):
             return torch.sum(R**2)
         # the reference IBN weights its energy by the Gauss weights alone
         return poisson_energy_loss(self, u, nu, f, self.basis.gpw(u.dtype))
+
+
+class IBNPoisson3D(FEM3DModule):
+    """3D parametric IBN on voxel topology ensembles. Batch = (inputs[B, D,
+    H, W, C], forcing); the network takes the inputs (domain, chi, bc2);
+    u = 1 on chi, 0 on bc2; the energy is weighted by the Gauss weights
+    alone, as in 2D."""
+
+    def apply_bcs(self, u, inputs_tensor):
+        """The Dirichlet substitution :meth:`loss` applies; [B, D, H, W]."""
+        if u.ndim == inputs_tensor.ndim:
+            u = u[..., 0]
+        u = self.apply_dirichlet(u, inputs_tensor[..., 1], 1.0)
+        return self.apply_dirichlet(u, inputs_tensor[..., 2], 0.0)
+
+    def loss(self, u, inputs_tensor, forcing_tensor):
+        u = self.apply_bcs(u, inputs_tensor)
+        f = forcing_tensor[..., 0] if forcing_tensor.ndim == u.ndim + 1 \
+            else forcing_tensor
+        return poisson_energy_loss(self, u, inputs_tensor[..., 0], f,
+                                   self.basis.gpw(u.dtype))

@@ -17,9 +17,10 @@ times max(1, max |ref|) of their bf16 plain versions (each rounds once from
 float32); K6's residuals at 2e-5 times
 max(1, max |ref|) (the JAX package's kernel-vs-XLA tolerance), its VJP and
 JVP as the other VJPs; the 33^2 Newton solve through K6 at |F| < 1e-6 and
-within 1e-4 of the plain solve; the IBN slice's loss and gradients (no
-kernel of ours: the winding number, cuDNN convolutions and the energy) at
-1e-5 of the CPU's.
+within 1e-4 of the plain solve; the IBN slices' losses and gradients (no
+kernel of ours: the winding number, cuDNN convolutions and the energy; the
+3D one in float32 and float64) at 1e-5 of the CPU's (1e-10 in float64),
+and DGCNN2D's forward at 1e-5 of the CPU's.
 """
 
 import numpy as np
@@ -361,7 +362,8 @@ SHAPES_3D = [((2, 9, 9, 9), True), ((2, 17, 17, 17), False),
              ((2, 20, 17, 17), False), ((1, 129, 129, 129), False),
              ((4, 64, 64, 64), False), ((1, 128, 128, 128), False),
              ((1, 2, 2, 2), False), ((1, 9, 45, 45), True),
-             ((2, 3, 17, 17), False), ((1, 65, 65, 65), False)]
+             ((2, 3, 17, 17), False), ((1, 65, 65, 65), False),
+             ((1, 32, 32, 32), False)]
 
 
 @pytest.mark.parametrize("shape,aniso", SHAPES_3D)
@@ -593,3 +595,66 @@ def test_ibn_training_loss_on_the_card_matches_the_cpu(dev):
     for k in g_cpu:
         torch.testing.assert_close(g_dev[k], g_cpu[k], rtol=0,
                                    atol=1e-5 * scale)
+
+
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-5),
+                                        (torch.float64, 1e-10)])
+def test_ibn3d_training_loss_on_the_card_matches_the_cpu(dev, dtype, rtol):
+    """The 3D IBN step runs no kernel of ours either: a UNet3D's cuDNN
+    convolutions (TF32 off) and the 3D energy on the card give the CPU's
+    loss and parameter gradients at 32^3, within `rtol` of the loss and of
+    the largest gradient entry."""
+    from diffnet_tpu_torch.data import TopoDataset3D, synthesize_topology_3d
+    from diffnet_tpu_torch.models import UNet3D
+    from diffnet_tpu_torch.pde import IBNPoisson3D
+
+    ds = TopoDataset3D([synthesize_topology_3d(n=32, seed=s)
+                        for s in range(2)], domain_size=32)
+    batch = tuple(torch.from_numpy(np.stack([ds[i][k] for i in range(2)]))
+                  .to(dtype) for k in range(2))
+    out = {}
+    for where in ("cpu", dev):
+        m = IBNPoisson3D(UNet3D(3, 1, base_filters=4), domain_size=32)
+        m.to(where, dtype)
+        loss = m.training_loss(tuple(t.to(where) for t in batch))
+        loss.backward()
+        out[str(where)] = (float(loss), {k: p.grad.cpu() for k, p in
+                                         m.network.named_parameters()})
+    (l_cpu, g_cpu), (l_dev, g_dev) = out.values()
+    assert abs(l_dev - l_cpu) <= rtol * abs(l_cpu)
+    scale = max(float(g.abs().max()) for g in g_cpu.values())
+    for k in g_cpu:
+        torch.testing.assert_close(g_dev[k], g_cpu[k], rtol=0,
+                                   atol=rtol * scale)
+
+
+def test_dgcnn2d_forward_on_the_card_matches_the_cpu(dev):
+    """DGCNN2D (neighbour search by torch.topk, gathers, 1x1 convs,
+    GroupNorm), k = 20, 120 points: the card's output within 1e-5 of the
+    CPU's largest entry, on 16 uniform random clouds. Slice H's ellipse
+    clouds have true ties: in 45 of their 1,920 rows the 20th and 21st
+    neighbours lie within 1e-6 (relative, float64) of each other, so
+    rounding picks either. There the card's neighbour sets equal the CPU's
+    in every row whose 20th and 21st squared distances differ by more than
+    1e-5 relative."""
+    from diffnet_tpu_torch.data import SyntheticPointClouds
+    from diffnet_tpu_torch.models import DGCNN2D, knn_indices
+
+    g = torch.Generator().manual_seed(0)
+    pts = torch.rand(16, 120, 2, generator=g)
+    net = DGCNN2D(2, domain_size=32, k=20, lowest_size=16)
+    with torch.no_grad():
+        y_cpu = net(pts)
+        y_dev = net.to(dev)(pts.to(dev)).cpu()
+    assert y_dev.shape == (16, 32, 32, 1)
+    torch.testing.assert_close(y_dev, y_cpu, rtol=0,
+                               atol=1e-5 * float(y_cpu.abs().max()))
+
+    ds = SyntheticPointClouds(n_samples=16, n_points=120, domain_size=32)
+    ell = torch.from_numpy(np.stack([ds[i][0][:, 0:2] for i in range(16)]))
+    i_cpu = knn_indices(ell, 20).sort(-1).values
+    i_dev = knn_indices(ell.to(dev), 20).cpu().sort(-1).values
+    d2 = torch.sort(torch.cdist(ell.double(), ell.double()) ** 2, -1).values
+    clear = (d2[..., 20] - d2[..., 19]) > 1e-5 * d2[..., 20]
+    assert clear.float().mean() > 0.9
+    assert torch.equal(i_dev[clear], i_cpu[clear])

@@ -1,7 +1,7 @@
 """The port's IBN path against the JAX package's, on the same numpy inputs:
 geometry (winding numbers, chi, cloud samplers), the parametric datasets,
 the loader's whole-batch path and prefetch, ``IBNPoisson2D``'s losses,
-boundary handling and direct solve, ``lr_milestones``, a 5-step training
+boundary handling, point-cloud network inputs and direct solve, ``lr_milestones``, a 5-step training
 run, the query tools and the export round trip.
 
 Tolerances: winding numbers within 1e-5 absolute of JAX's (sums of ~1e2
@@ -30,6 +30,7 @@ from diffnet_tpu.core import geometry as jgeo
 from diffnet_tpu.data import parametric as jpar
 from diffnet_tpu.data.loader import InMemoryDataset as JInMemoryDataset
 from diffnet_tpu.data.loader import NumpyLoader as JNumpyLoader
+from diffnet_tpu.models import pointnets as jpn
 from diffnet_tpu.models.networks import AE as JAE
 from diffnet_tpu.models.networks import VAE as JVAE
 from diffnet_tpu.pde.ibn import IBNPoisson2D as JIBNPoisson2D
@@ -41,7 +42,8 @@ from diffnet_tpu_torch.core import geometry as tgeo
 from diffnet_tpu_torch.data import parametric as tpar
 from diffnet_tpu_torch.data.loader import InMemoryDataset, NumpyLoader
 from diffnet_tpu_torch.interop import params_from_jax
-from diffnet_tpu_torch.models import AE, VAE
+from diffnet_tpu_torch.models import (AE, DGCNN2D, VAE,
+                                      ImmDiffLargeNormals)
 from diffnet_tpu_torch.pde import IBNPoisson2D
 from diffnet_tpu_torch.train import (Callback, Trainer, make_run_dir,
                                      module_linear_solve, query_batched,
@@ -446,11 +448,85 @@ def test_forward_stacks_ones_chi_and_sink():
                                atol=LOSS_RTOL * np.abs(np.asarray(uj)).max())
 
 
-def test_cloud_network_inputs_are_not_ported_yet():
-    for kind in ("cloud", "cloud_normals"):
-        with pytest.raises(NotImplementedError, match="pointnets"):
-            IBNPoisson2D(None, network_input=kind, domain_size=8)
-    with pytest.raises(ValueError):
+def _cloud_net_pair(kind, n, cloud):
+    """A point-cloud network of the JAX package and of the port, the flax
+    weights carried across."""
+    npts = cloud.shape[1]
+    if kind == "dgcnn":
+        jnet = jpn.DGCNN2D(domain_size=n, k=6, lowest_size=8)
+        tnet = DGCNN2D(2, domain_size=n, k=6, lowest_size=8)
+        args = (cloud[..., 0:2],)
+    else:
+        jnet = jpn.ImmDiffLargeNormals(out_size=n)
+        tnet = ImmDiffLargeNormals(npts, out_size=n)
+        args = (cloud[..., 0:2], cloud[..., 2:4])
+    params = jax.tree.map(np.asarray, flax_params(jnet, *args))
+    tnet.load_state_dict(params_from_jax(params))
+    return jnet, tnet, params
+
+
+CLOUD_CASES = {   # name -> (network, module kwargs)
+    "cloud": ("dgcnn", {"network_input": "cloud"}),
+    "cloud_normals": ("normals", {"network_input": "cloud_normals"}),
+    "cloud_mask": ("dgcnn", {"network_input": "cloud",
+                             "ibn_loss_type": "mask"}),
+    "cloud_normals_resmin": ("normals", {"network_input": "cloud_normals",
+                                         "ibn_loss_type": "resmin"}),
+}
+
+
+@pytest.mark.parametrize("case", list(CLOUD_CASES))
+def test_cloud_network_inputs_match_jax(case):
+    """The point-cloud networks on winding batches: DGCNN2D takes the
+    points, ImmDiffLargeNormals the points and normals; chi (or, for
+    'mask', the raw winding field) is the target set as before. The
+    training loss and its parameter gradients, then two Adam steps loss
+    for loss, from the same weights and batch. Through DGCNN2D the float32
+    loss lies 1e-5 to 5e-5 from its float64 value, and the gradients up to
+    1e-3 of their largest entry, in either package: so the float32 loss
+    and steps are held to 1e-4, and the gradients (and the loss again) in
+    float64, within 1e-10."""
+    kind, kw = CLOUD_CASES[case]
+    n = 16
+    batch = _cloud_batch(n)
+    jnet, tnet, params = _cloud_net_pair(kind, n, batch[0])
+    jm = JIBNPoisson2D(jnet, domain_size=n, **kw)
+    tm = IBNPoisson2D(tnet, domain_size=n, **kw)
+    lj = jax.jit(jm.training_loss)(jax.tree.map(jnp.asarray, params),
+                                   tuple(map(jnp.asarray, batch)))
+    with torch.no_grad():
+        lt = tm.training_loss(tuple(map(_t, batch)))
+    np.testing.assert_allclose(float(lt), float(lj), rtol=TRAJ_RTOL)
+    with jax.enable_x64(True):
+        lj, gj = jax.value_and_grad(jm.training_loss)(
+            jax.tree.map(lambda a: jnp.asarray(a, jnp.float64), params),
+            tuple(jnp.asarray(a, jnp.float64) for a in batch))
+        lj, gj = float(lj), params_from_jax(jax.tree.map(np.asarray, gj))
+    lt = tm.double().training_loss(tuple(_t(a).double() for a in batch))
+    lt.backward()
+    np.testing.assert_allclose(float(lt.detach()), lj, rtol=1e-10)
+    scale = max(float(g.abs().max()) for g in gj.values())
+    for k, p in tm.network.named_parameters():
+        np.testing.assert_allclose(p.grad.numpy(), gj[k].numpy(),
+                                   atol=1e-10 * scale, err_msg=k)
+    tm.float()
+    kw = dict(n_samples=4, n_points=48, domain_size=n, seed=0)
+    recj, rect = _RecordJ(), _Record()
+    tkw = dict(max_epochs=2, optimizer="adam", learning_rate=1e-4)
+    JTrainer(callbacks=[recj], **tkw).fit(
+        jm, JNumpyLoader(jpar.SyntheticPointClouds(**kw), batch_size=4),
+        params=jax.tree.map(jnp.asarray, params))
+    tm.network.load_state_dict(params_from_jax(params))
+    Trainer(callbacks=[rect], device="cpu", **tkw).fit(
+        tm, NumpyLoader(tpar.SyntheticPointClouds(**kw), batch_size=4))
+    assert rect.losses[1] < rect.losses[0]
+    np.testing.assert_allclose(rect.losses, recj.losses, rtol=TRAJ_RTOL)
+
+
+def test_unknown_network_input_or_loss_type_raises():
+    with pytest.raises(ValueError, match="network_input"):
+        IBNPoisson2D(None, network_input="points", domain_size=8)
+    with pytest.raises(ValueError, match="ibn_loss_type"):
         IBNPoisson2D(None, ibn_loss_type="strong", domain_size=8)
 
 

@@ -211,7 +211,7 @@ def test_datasets_match_jax():
 
 
 def test_port_imports_no_jax():
-    """Importing every module of the port (the IBN slice's among them),
+    """Importing every module of the port (the IBN slices' among them),
     and chip_smoke.py (without running its main), leaves jax and
     diffnet_tpu out of sys.modules."""
     code = (
@@ -221,7 +221,9 @@ def test_port_imports_no_jax():
         "    p.__path__, p.__name__ + '.')]\n"
         "for n in ('core.geometry', 'data.parametric', 'data.loader',\n"
         "          'models.networks', 'pde.ibn', 'train.query',\n"
-        "          'train.trainer', 'utils.export', 'interop'):\n"
+        "          'train.trainer', 'utils.export', 'interop',\n"
+        "          'models.pointnets', 'data.geometry_datasets',\n"
+        "          'utils.mesh3d'):\n"
         "    assert 'diffnet_tpu_torch.' + n in names, n\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
