@@ -45,7 +45,7 @@ exits non-zero (it also does so, printing no result, without CUDA):
   3. gradients: the K1 du/dnu, K3 du, K2 du and K4 dC/du VJPs against
      autograd through the plain versions, at 65^2; the K5 du/dnu and K4-3D
      dC/du VJPs at 17^3; the K6 VJP and its JVP (``torch.func.jvp``) at 33^2.
-  4-12. the main paths (launch counts set to 0 first, read after each):
+  4-14. the main paths (launch counts set to 0 first, read after each):
      A. the README quick start through ``Trainer.fit``, 64^2 MMS resmin
         with LBFGS; rel L2 vs the exact solution must be <= 2.6e-4 (the JAX
         package gives 2.046e-4);
@@ -132,11 +132,36 @@ exits non-zero (it also does so, printing no result, without CUDA):
         maxiter); a surface-nets mesh of the trained network's field on
         a held-out topology, against the mesh of the CPU forward of the
         same weights.
-  13. resident steps: steps/s of the 512^2 x 32 training steps with the
+     J. the parametric KL-sum UQ path (examples/klsum_uq.py at
+        BASELINE.md's 64^2 KL-sum configuration): 4,096 Sobol KL
+        coefficient samples made into diffusivity fields by the host
+        library (``KLSumStochastic``), ``GoodNetwork(filters=16)`` on
+        (nu, bc1, bc2) from the JAX reference's initial weights, the Ritz
+        energy with ``fused_kernels=True`` (K3 forward, K1 in its VJP),
+        batches of 32, Adam 3e-4, 3 epochs through ``Trainer.fit`` with
+        checkpoints; ``query_statistical`` over 256 query samples; the
+        first 64 solved directly by CG through K1; the held-out rel L2
+        (held to 1.25x the JAX package's from
+        scripts/torch_port_reference_klsum.py, and to 0.1x the untrained
+        network's), the UQ mean and standard deviation against the
+        Monte-Carlo ones of the direct solves; steps/s through fit and
+        resident, one profiled resident step.
+     K. round-robin NS training through K6 (the reference's
+        e1_ns_ldc_resmin setup): the 64^2 Re-100 lid-driven cavity, a
+        three-field DirectField from zeros, one optimizer per field
+        residual scoped to its field, Adam 3e-2 (x0.1 after 40 updates
+        each), ``OptimizerSwitch`` at epoch 300 to [LBFGS(u), LBFGS(v),
+        Adam(p)], 308 epochs; each objective's loss and the midline
+        figures at the switch and at the end against the JAX package's
+        (scripts/torch_port_reference_rr.py); the run split in two halves
+        through ``resume_from`` lands on the unbroken run's fields; three
+        epochs more under the Trainer's profiler, whose trace must name
+        the K6 launches.
+  15. resident steps: steps/s of the 512^2 x 32 training steps with the
      batch on the card (fused and unfused) and of G3's NS step; 10 steps
      of each fused 512^2 x 32 loss (K2's, K3's) under ``torch.profiler``:
      device busy and wall ms a step, idle share, top device operations.
-  14. path shapes: each kernel timed again at the shape where most of its
+  16. path shapes: each kernel timed again at the shape where most of its
      launches on the paths above ran (the slice with the most launches, by
      ``SLICE_SHAPES``): ``ms_path_shape`` and ``path_shape`` on the kernel
      table line.
@@ -162,15 +187,17 @@ import torch
 
 from diffnet_tpu_torch.core import fem
 from diffnet_tpu_torch.core.quadrature import make_basis
-from diffnet_tpu_torch.data import (CuboidManufactured, NSLDCDataset,
+from diffnet_tpu_torch.data import (CuboidManufactured, KLSumStochastic,
+                                    NSLDCDataset,
                                     NumpyLoader, RectangleManufactured,
                                     SyntheticPointClouds, TopoDataset3D,
                                     synthesize_topology_3d)
+from diffnet_tpu_torch.data.gen_input import sobol_coefficients
 from diffnet_tpu_torch.interop import (flax_shapes, params_from_jax,
                                        seeded_params)
 from diffnet_tpu_torch.models import (AE, DGCNN2D, DirectField,
-                                      ImmDiffLargeNormals, UNet3D,
-                                      knn_indices)
+                                      GoodNetwork, ImmDiffLargeNormals,
+                                      UNet3D, knn_indices)
 from diffnet_tpu_torch.ops import _build
 from diffnet_tpu_torch.ops import ns_residual as k6
 from diffnet_tpu_torch.ops import poisson_energy as k3
@@ -180,10 +207,10 @@ from diffnet_tpu_torch.ops import poisson_residual_3d as k5
 from diffnet_tpu_torch.ops import stencil_apply as k4
 from diffnet_tpu_torch.pde import (IBNPoisson2D, IBNPoisson3D, NavierStokes,
                                    Poisson2D, Poisson3D, ldc_bcs)
-from diffnet_tpu_torch.train import (Callback, Trainer, cg, extract_verified,
-                                     module_linear_solve,
+from diffnet_tpu_torch.train import (Callback, OptimizerSwitch, Trainer, cg,
+                                     extract_verified, module_linear_solve,
                                      multigrid_preconditioner, newton_solve,
-                                     ns_newton_solve,
+                                     ns_newton_solve, query_statistical,
                                      stokes_block_preconditioner,
                                      stencil_matvec)
 from diffnet_tpu_torch.utils import (export_forward, field_to_obj,
@@ -281,6 +308,68 @@ JAX_I = {"first_epoch_loss": 129.5518341064453,
 I_REL_L2_FACTOR = 1.25
 # Slice H2, the point-cloud inputs: slice H's clouds, batch and rate
 H2_EPOCHS, H2_K, H2_LOWEST = 10, 20, 16
+# Slice J, the parametric KL-sum UQ path (examples/klsum_uq.py at BASELINE.md's
+# 64^2 KL-sum configuration): scripts/torch_port_reference_klsum.py trains
+# the same configuration in the JAX package on a CPU from the same initial
+# weights (interop.seeded_params, J_INIT_SEED) and scores the same held-out
+# instances against the same direct solves. Epochs are the only cut: 3 of
+# BASELINE.md's ceil(200000 / (4096 / 32)) = 1563, where JAX's held-out rel
+# L2 is 0.0193 against 0.518 untrained (0.031 after 2, 0.0147 after 5).
+J_GRID, J_TRAIN, J_BATCH, J_FILTERS = 64, 4096, 32, 16
+J_LR, J_EPOCHS, J_INIT_SEED = 3e-4, 3, 0
+J_QUERY, J_QUERY_SEED, J_HELDOUT = 256, 1, 64
+J_SOLVE_TOL = 1e-6     # CG on 64^2 in float32: the true relres is ~9e-6 there
+JAX_J = {"first_epoch_loss": 0.0007875574519857764,
+         "last_epoch_loss": 0.00013956986367702484,
+         "heldout_rel_l2_by_epoch": [0.13997326628305018,
+                                     0.03099561037379317,
+                                     0.019289986084913835],
+         "heldout_rel_l2_mean": 0.019289986084913835,
+         "heldout_energy_gap_mean": 0.05783042520968022,
+         "untrained_heldout_rel_l2_mean": 0.5183683596551418,
+         "uq_mean_rel_l2": 0.004498706664890051,
+         "uq_sdev_rel_l2": 0.27083393931388855}
+J_REL_L2_FACTOR = 1.25
+J_UNTRAINED_FACTOR = 0.1   # trained held-out rel L2 <= 0.1 x the untrained
+# Slice K, round-robin NS training (the reference's e1_ns_ldc_resmin setup)
+# at 64^2: scripts/torch_port_reference_rr.py runs the same configuration
+# in the JAX package on a CPU. Adam on fields from zeros amplifies rounding
+# where a gradient is near zero (its first steps are ~lr x sign(g)), so the
+# packages part within a few epochs (the CPU port is 0.03% off JAX's loss
+# at epoch 4, 7% at epoch 10); the figures are held loosely, tighter at the
+# switch (Adam only) than at the end (after the LBFGS steps, whose line
+# searches differ too): at the switch each objective's loss within a factor
+# K_SWITCH_FACTOR of JAX's and the midline figures within
+# K_SWITCH_MIDLINE_ATOL; at the end each loss at most K_END_FACTOR x
+# JAX's and the midlines within K_END_MIDLINE_ATOL (the CPU port: losses
+# 0.98-1.10x at the switch, 0.09-1.02x at the end; midlines within 0.0064
+# and 0.025).
+K_GRID, K_LR, K_MILESTONE, K_SWITCH, K_EPOCHS = 64, 3e-2, 40, 300, 308
+K_LBFGS_ITERS, K_SWITCH_TO = 10, ["lbfgs", "lbfgs", "adam"]
+K_DROP = 10.0          # objective 0 must fall this much by the switch
+JAX_K = {"start_objective_losses": [0.0044500576332211494,
+                                    5.850568777532317e-05,
+                                    4.801750947081018e-06],
+         "at_switch": {"objective_losses": [0.0003801248094532639,
+                                            5.134506500326097e-05,
+                                            1.347121360595338e-05],
+                       "u_min_x05": -0.11184895038604736,
+                       "v_min_y05": -0.004890750627964735,
+                       "v_max_y05": 0.004857709165662527,
+                       "p_min_y05": -0.021071413531899452,
+                       "p_max_y05": 0.01999126747250557},
+         "end": {"objective_losses": [0.0002863926056306809,
+                                      0.00015093886759132147,
+                                      1.9991213775938377e-05],
+                 "u_min_x05": -0.11128740012645721,
+                 "v_min_y05": -0.008940170519053936,
+                 "v_max_y05": 0.007819668389856815,
+                 "p_min_y05": -0.04682543873786926,
+                 "p_max_y05": 0.03809063136577606}}
+K_SWITCH_FACTOR, K_SWITCH_MIDLINE_ATOL = 1.5, 0.02
+K_END_FACTOR, K_END_MIDLINE_ATOL = 3.0, 0.05
+K_RESUME_ATOL = 1e-6   # resumed against unbroken fields, x max |field|
+K_PROFILED_EPOCHS = 3  # under profile_dir: LBFGS(u), LBFGS(v), Adam(p)
 
 # The card's peaks for the bound (NVIDIA's H100 SXM data sheet, at 700 W):
 # HBM bytes/s and fp32 operations/s outside the tensor cores.
@@ -1935,6 +2024,307 @@ def slice_h2(dev, smi: str) -> None:
     emit(out)
 
 
+def _klsum_direct_solves(query, dev) -> tuple[np.ndarray, dict]:
+    """Slice J's held-out references: the first J_HELDOUT query instances
+    solved by CG (module_linear_solve, tol J_SOLVE_TOL) on a Poisson2D
+    resmin module whose every residual is K1 (64 nodes a side is no 2^k + 1
+    grid, so no V-cycle). Each solve's CG iterations (its K1 launches less
+    the four residuals solve_linear takes before the loop) must stay below
+    maxiter; its true relative residual is reported."""
+    solver = Poisson2D(domain_size=J_GRID, loss_type="resmin",
+                       fused_kernels=True, bc1_value=1.0, bc2_value=0.0)
+    maxiter = 10 * J_GRID   # solve_linear's default: 10 sqrt(nodes)
+    refs, out = [], {"cg_iters": [], "true_relres": [], "solve_s": []}
+    for i in range(J_HELDOUT):
+        inputs, frc = query[i]
+        before = counts()
+        t0 = time.perf_counter()
+        u_ref, _ = module_linear_solve(solver, inputs_tensor=inputs,
+                                       forcing_tensor=frc, tol=J_SOLVE_TOL,
+                                       maxiter=maxiter, device=dev)
+        out["solve_s"].append(time.perf_counter() - t0)
+        iters = since(before)["poisson_stiffness_action"] - 4
+        inp, f = (torch.from_numpy(a)[None].to(dev) for a in (inputs, frc))
+        with torch.no_grad():
+            r0, r = (float(torch.linalg.vector_norm(solver.residual_for_field(
+                torch.from_numpy(v)[None].to(dev), inp, f)))
+                for v in (np.zeros_like(u_ref), u_ref))
+        out["cg_iters"].append(iters)
+        out["true_relres"].append(r / r0)
+        if not (0 < iters < maxiter and np.isfinite(u_ref).all()):
+            fail(f"slice J: direct solve {i} ran {iters} CG iterations of "
+                 f"{maxiter}: it did not reach tol {J_SOLVE_TOL}")
+        refs.append(u_ref)
+    out["cg_maxiter"] = maxiter
+    out["solve_s_total"] = sum(out.pop("solve_s"))
+    return np.stack(refs), out
+
+
+def _klsum_scores(m, query, refs, dev) -> dict:
+    """The network's field (BCs applied) on each held-out instance against
+    its direct solve: rel L2 on the free nodes (off the two Dirichlet
+    walls) and the energy gap under the module's loss."""
+    rel, gaps = [], []
+    for i in range(J_HELDOUT):
+        batch = tuple(torch.from_numpy(a)[None].to(dev) for a in query[i])
+        with torch.no_grad():
+            u, inp, frc = m(batch)
+            u_net = m.apply_bcs(u, inp)[0].cpu().numpy()
+            e_net, e_ref = (float(m.loss(torch.from_numpy(v)[None].to(dev),
+                                         inp, frc)) for v in (u_net, refs[i]))
+        inputs = query[i][0]
+        free = (inputs[..., 1] < 0.5) & (inputs[..., 2] < 0.5)
+        rel.append(float(np.linalg.norm((u_net - refs[i])[free])
+                         / np.linalg.norm(refs[i][free])))
+        gaps.append((e_net - e_ref) / abs(e_ref))
+        if not np.isfinite(u_net).all():
+            fail(f"slice J: held-out case {i}: the field is not finite")
+    return {"heldout_rel_l2": rel, "heldout_energy_gap": gaps,
+            "heldout_rel_l2_mean": float(np.mean(rel)),
+            "heldout_energy_gap_mean": float(np.mean(gaps))}
+
+
+def _rel_l2(a, b) -> float:
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+def slice_j(dev, smi: str) -> dict:
+    """The parametric KL-sum UQ path at BASELINE.md's 64^2 width: 4,096
+    Sobol KL samples made by the host library, GoodNetwork(filters=16)
+    from the JAX reference's initial weights, the Ritz energy through K3
+    (forward) and K1 (its VJP), batches of 32, Adam 3e-4 through
+    Trainer.fit with checkpoints; then query_statistical over 256 query
+    samples, 64 of them solved directly (K1), the held-out accuracy, the
+    UQ mean and standard deviation against the Monte-Carlo ones of the
+    direct solves, and the resident step's rate and profile."""
+    start = counts()
+    t0 = time.perf_counter()
+    train = KLSumStochastic(sobol_coefficients(J_TRAIN, 6, seed=0),
+                            domain_size=J_GRID)
+    query = KLSumStochastic(sobol_coefficients(J_QUERY, 6,
+                                               seed=J_QUERY_SEED),
+                            domain_size=J_GRID)
+    data_s = time.perf_counter() - t0
+    net = GoodNetwork(in_dim=J_GRID, out_dim=J_GRID, in_channels=3,
+                      filters=J_FILTERS)
+    net.load_state_dict(params_from_jax(seeded_params(flax_shapes(net),
+                                                      J_INIT_SEED)))
+    m = Poisson2D(net, train, domain_size=J_GRID, batch_size=J_BATCH,
+                  learning_rate=J_LR, loss_type="energy", bc1_value=1.0,
+                  bc2_value=0.0, fused_kernels=True).to(dev)
+    before = counts()
+    refs, solves = _klsum_direct_solves(query, dev)
+    solve_launches = since(before)
+    untrained = _klsum_scores(m, query, refs, dev)["heldout_rel_l2_mean"]
+
+    rec = _EpochLosses()
+    loader = NumpyLoader(train, batch_size=J_BATCH, shuffle=True, device=dev)
+    with tempfile.TemporaryDirectory(
+            dir=os.path.dirname(os.path.abspath(__file__))) as tmp:
+        tr = Trainer(max_epochs=J_EPOCHS, optimizer="adam",
+                     learning_rate=J_LR, callbacks=[rec], run_dir=tmp,
+                     checkpoint=True, device=dev)
+        before = counts()
+        t0 = time.perf_counter()
+        tr.fit(m, loader)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        fit_launches = since(before)
+        ckpt_files = sorted(os.listdir(tmp))
+    steps_a_epoch = len(loader)
+    out = {"phase": "slice_J", "nvidia_smi": smi, "grid": [J_GRID, J_GRID],
+           "batch": J_BATCH, "filters": J_FILTERS, "samples": J_TRAIN,
+           "parameters": sum(p.numel() for p in net.parameters()),
+           "epochs": J_EPOCHS, "steps": J_EPOCHS * steps_a_epoch,
+           "data_s": data_s, "fit_s": fit_s,
+           "first_epoch_s": tr.epoch_times[0],
+           "fit_steps_per_s": _spread([steps_a_epoch / t
+                                       for t in tr.epoch_times[1:]]),
+           "epoch_losses": rec.losses, "checkpoints": ckpt_files,
+           "fit_launches": fit_launches, "solve_launches": solve_launches,
+           **solves, "jax_reference": JAX_J,
+           "rel_l2_factor": J_REL_L2_FACTOR,
+           "untrained_heldout_rel_l2_mean": untrained}
+    if not (all(math.isfinite(v) for v in rec.losses)
+            and rec.losses[-1] < rec.losses[0]):
+        fail(f"slice J: epoch losses {rec.losses}")
+    if fit_launches["poisson_energy"] < out["steps"] or \
+            fit_launches["poisson_stiffness_action"] < out["steps"]:
+        fail(f"slice J: K3 / K1 not launched every step: {fit_launches}")
+    out.update(_klsum_scores(m, query, refs, dev))
+    mean, sdev, all_u = query_statistical(m, query, batch_size=J_BATCH,
+                                          device=dev)
+    out["uq_mean_rel_l2"] = _rel_l2(mean, refs.mean(0))
+    out["uq_sdev_rel_l2"] = _rel_l2(sdev, refs.std(0))
+    if not (all_u.shape == (J_QUERY, J_GRID, J_GRID)
+            and np.isfinite(all_u).all()):
+        fail(f"slice J: query fields {all_u.shape}, not all finite")
+
+    batch = next(iter(NumpyLoader(train, batch_size=J_BATCH, device=dev)))
+    out.update(_resident_profile(copy.deepcopy(m), batch))
+    out["launches"] = since(start)
+    emit(out)
+    if not (out["heldout_rel_l2_mean"]
+            <= J_REL_L2_FACTOR * JAX_J["heldout_rel_l2_mean"]):
+        fail(f"slice J: held-out rel L2 {out['heldout_rel_l2_mean']} > "
+             f"{J_REL_L2_FACTOR} x JAX's {JAX_J['heldout_rel_l2_mean']}")
+    if not out["heldout_rel_l2_mean"] <= J_UNTRAINED_FACTOR * untrained:
+        fail(f"slice J: held-out rel L2 {out['heldout_rel_l2_mean']} not "
+             f"below {J_UNTRAINED_FACTOR} x the untrained {untrained}")
+    return out["launches"]
+
+
+class _SwitchFigures(Callback):
+    """Slice K's figures at the optimizer switch (after the Adam phase)."""
+
+    def __init__(self, switch: int):
+        self.switch, self.figures = switch, None
+
+    def on_epoch_end(self, trainer, module, state, epoch, metrics):
+        if epoch + 1 == self.switch:
+            self.figures = _rr_figures(module)
+
+
+def _rr_figures(m) -> dict:
+    """Each objective's loss at the parameters, the midline figures and
+    the lid error of a slice K module (as the JAX reference script's)."""
+    dev = next(m.parameters()).device
+    batch = tuple(torch.from_numpy(a)[None].to(dev) for a in m.dataset[0])
+    with torch.no_grad():
+        losses = [float(m.objective_loss(i, batch)) for i in range(3)]
+        u, v, p = (a[0].cpu().numpy() for a in m.apply_bcs(
+            m.network(batch[0]), batch[0]))
+    if not all(np.isfinite(a).all() for a in (u, v, p)):
+        fail("slice K: the fields are not finite")
+    return {"objective_losses": losses, **midline_figures(u, v, p),
+            "lid_max_err": _lid_err(u)}
+
+
+def _rr_check(name, got, ref, factor, atol, two_sided) -> None:
+    for i, (a, b) in enumerate(zip(got["objective_losses"],
+                                   ref["objective_losses"])):
+        if not (a <= factor * b and (not two_sided or b <= factor * a)):
+            fail(f"slice K {name}: objective {i} loss {a} vs JAX {b} "
+                 f"(factor {factor})")
+    for key in ("u_min_x05", "v_min_y05", "v_max_y05", "p_min_y05",
+                "p_max_y05"):
+        if not abs(got[key] - ref[key]) <= atol:
+            fail(f"slice K {name}: {key} {got[key]} vs JAX {ref[key]}")
+    if not got["lid_max_err"] <= LID_ATOL:
+        fail(f"slice K {name}: lid error {got['lid_max_err']}")
+
+
+def _k6_trace_launches(path: str) -> int:
+    """K6 kernels in a torch.profiler Chrome trace."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return sum(1 for e in events if e.get("cat") == "kernel"
+               and "ns_vms_kernel" in e.get("name", ""))
+
+
+def slice_k(dev, smi: str) -> dict:
+    """Round-robin NS training through K6 (the reference's
+    e1_ns_ldc_resmin setup): the Re-100 lid-driven cavity at 64^2, a
+    three-field DirectField from zeros, one optimizer per field residual
+    (each scoped to its field), Adam with a milestone, then at K_SWITCH
+    [LBFGS(u), LBFGS(v), Adam(p)] through OptimizerSwitch, checkpoints on;
+    the figures against JAX's at the switch and at the end. Then the exact
+    resume: the same run split at K_EPOCHS / 2 (resume_from state.ckpt)
+    lands on the unbroken run's fields. Last, K_PROFILED_EPOCHS more epochs
+    of the unbroken run under the Trainer's profiler, whose trace must name
+    the K6 launches."""
+    n = K_GRID
+
+    def module():
+        return ldc_module(n, True, DirectField((n, n), init=np.zeros((n, n)),
+                                               n_fields=3),
+                          loss_norm="squared")
+
+    def trainer(epochs, callbacks=(), **kw):
+        return Trainer(max_epochs=epochs, optimizer="adam",
+                       learning_rate=K_LR, lr_milestones=[K_MILESTONE],
+                       round_robin=True, lbfgs_max_iter=K_LBFGS_ITERS,
+                       callbacks=[OptimizerSwitch(K_SWITCH, K_SWITCH_TO),
+                                  *callbacks], device=dev, **kw)
+
+    start = counts()
+    half = K_EPOCHS // 2
+    with tempfile.TemporaryDirectory(
+            dir=os.path.dirname(os.path.abspath(__file__))) as tmp:
+        m = module()
+        first = _rr_figures(m.to(dev))
+        rec = _SwitchFigures(K_SWITCH)
+        os.makedirs(os.path.join(tmp, "full"))
+        tr = trainer(K_EPOCHS, [rec], run_dir=os.path.join(tmp, "full"),
+                     checkpoint=True)
+        before = counts()
+        t0 = time.perf_counter()
+        tr.fit(m)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        fit_launches = since(before)
+        end = _rr_figures(m)
+        adam_s = tr.epoch_times[1:K_SWITCH]
+        lbfgs_s = [t for i, t in enumerate(tr.epoch_times)
+                   if i >= K_SWITCH and (i - K_SWITCH) % 3 < 2]
+
+        run1 = os.path.join(tmp, "half")
+        os.makedirs(run1)
+        m1 = module()
+        trainer(half, run_dir=run1, checkpoint=True).fit(m1)
+        m2 = module()
+        trainer(K_EPOCHS - half).fit(
+            m2, resume_from=os.path.join(run1, "state.ckpt"))
+        # three epochs more of the unbroken run (LBFGS(u), LBFGS(v),
+        # Adam(p)) under the Trainer's profiler
+        tr3 = trainer(K_PROFILED_EPOCHS,
+                      profile_dir=os.path.join(tmp, "prof"))
+        before = counts()
+        tr3.fit(module(), resume_from=os.path.join(tmp, "full",
+                                                   "state.ckpt"))
+        torch.cuda.synchronize()
+        profiled_launches = since(before)["ns_vms_residual"]
+        trace_launches = _k6_trace_launches(tr3.trace_path)
+        trace_bytes = os.path.getsize(tr3.trace_path)
+    with torch.no_grad():
+        diff = max(float((a - b).abs().max()) for a, b in zip(
+            m.network.parameters(), m2.network.parameters()))
+        scale = max(float(a.abs().max()) for a in m.network.parameters())
+    out = {"phase": "slice_K", "nvidia_smi": smi, "grid": [n, n],
+           "Re": G1_RE, "epochs": K_EPOCHS, "switch": K_SWITCH,
+           "switch_to": K_SWITCH_TO, "lr": K_LR, "milestone": K_MILESTONE,
+           "fit_s": fit_s,
+           "adam_epoch_ms": 1e3 * statistics.median(adam_s),
+           "lbfgs_epoch_ms": 1e3 * statistics.median(lbfgs_s),
+           "start": first, "at_switch": rec.figures, "end": end,
+           "obj0_drop_at_switch": (first["objective_losses"][0]
+                                   / rec.figures["objective_losses"][0]),
+           "fit_launches": fit_launches, "resume_split": half,
+           "resume_max_abs_diff": diff, "field_max_abs": scale,
+           "profiled_epochs": K_PROFILED_EPOCHS,
+           "profiled_k6_launches": profiled_launches,
+           "trace_k6_launches": trace_launches, "trace_bytes": trace_bytes,
+           "jax_reference": JAX_K, "launches": since(start)}
+    emit(out)
+    if not out["obj0_drop_at_switch"] >= K_DROP:
+        fail(f"slice K: objective 0 fell {out['obj0_drop_at_switch']}x by "
+             f"the switch, not {K_DROP}x")
+    _rr_check("at the switch", rec.figures, JAX_K["at_switch"],
+              K_SWITCH_FACTOR, K_SWITCH_MIDLINE_ATOL, two_sided=True)
+    _rr_check("at the end", end, JAX_K["end"], K_END_FACTOR,
+              K_END_MIDLINE_ATOL, two_sided=False)
+    if not diff <= K_RESUME_ATOL * max(1.0, scale):
+        fail(f"slice K: the resumed fields differ from the unbroken run's "
+             f"by {diff}")
+    if fit_launches["ns_vms_residual"] < K_EPOCHS:
+        fail(f"slice K: K6 launched {fit_launches['ns_vms_residual']} "
+             f"times in {K_EPOCHS} objective steps")
+    if not 0 < trace_launches <= profiled_launches:
+        fail(f"slice K: the profiler trace names {trace_launches} K6 "
+             f"launches, the wrapper counted {profiled_launches}")
+    return out["launches"]
+
+
 FUSED_2D_STEPS = (   # the resident 512^2 x 32 steps on the fused losses
     ("resmin_fused_loss_grad", "resmin",
      {"fused_kernels": True, "fused_loss_grad": True}),
@@ -2018,11 +2408,14 @@ def resident_step_profiles(dev) -> dict:
 # The shape each slice runs each kernel at. D3 and F3 run K4 / K4-3D on
 # every multigrid level; the fine level stands for them, since it takes the
 # outer Krylov matvec on top of the V-cycle's visits that every level takes.
+# J runs K1 at 32 x 64^2 in the energy's VJP and at 1 x 64^2 in the direct
+# solves, which take most of its launches.
 SLICE_SHAPES = {
     "poisson_stiffness_action": {"A": (1, 64, 64), "B": (32, 512, 512),
-                                 "C": (32, 512, 512), "D2": (1, 513, 513)},
+                                 "C": (32, 512, 512), "D2": (1, 513, 513),
+                                 "J": (1, 64, 64)},
     "poisson_resmin_loss_grad": {"B": (32, 512, 512)},
-    "poisson_energy": {"C": (32, 512, 512)},
+    "poisson_energy": {"C": (32, 512, 512), "J": (32, 64, 64)},
     "stencil_apply_2d": {"D3": (1, 513, 513)},
     "poisson_stiffness_action_3d": {"E1": (1, 17, 17, 17),
                                     "E2": (4, 64, 64, 64),
@@ -2030,7 +2423,7 @@ SLICE_SHAPES = {
                                     "I": (1, 32, 32, 32)},
     "stencil_apply_3d": {"F3": (1, 129, 129, 129)},
     "ns_vms_residual": {"G1": (1, 129, 129), "G2": (1, 64, 64),
-                        "G3": (8, 256, 256)},
+                        "G3": (8, 256, 256), "K": (1, 64, 64)},
 }
 
 
@@ -2127,11 +2520,18 @@ def main() -> int:
     reset_counts()           # the 3D IBN path: K5 in the held-out solves
     li = slice_i(dev, smi)
     paths["ibn_3d"] = counts()
+    reset_counts()           # the KL-sum UQ path: K3, K1 (VJP and solves)
+    lj = slice_j(dev, smi)
+    paths["uq_2d"] = counts()
+    reset_counts()           # round-robin NS training: K6 per objective step
+    lk = slice_k(dev, smi)
+    paths["flow_rr"] = counts()
     total = {name: sum(p[name] for p in paths.values()) for name in KERNELS}
     emit({"phase": "main_path_launches", "total": total, **paths,
           "slice_A": la, "slice_B": lb, "slice_C": lc, "slice_E1": le1,
           "slice_E2": le2, "slice_G1": lg1, "slice_G2": lg2,
-          "slice_G3": lg3, "slice_H": lh, "slice_I": li})
+          "slice_G3": lg3, "slice_H": lh, "slice_I": li, "slice_J": lj,
+          "slice_K": lk})
     for path, names in (("training_2d", ("poisson_stiffness_action",
                                          "poisson_resmin_loss_grad",
                                          "poisson_energy")),
@@ -2140,7 +2540,10 @@ def main() -> int:
                         ("solver_3d", ("poisson_stiffness_action_3d",
                                        "stencil_apply_3d")),
                         ("flow_2d", ("ns_vms_residual",)),
-                        ("ibn_3d", ("poisson_stiffness_action_3d",))):
+                        ("ibn_3d", ("poisson_stiffness_action_3d",)),
+                        ("uq_2d", ("poisson_stiffness_action",
+                                   "poisson_energy")),
+                        ("flow_rr", ("ns_vms_residual",))):
         for name in names:
             if paths[path][name] <= 0:
                 fail(f"{name} was never launched on the {path} path")
@@ -2149,7 +2552,8 @@ def main() -> int:
           "steps_per_s": resident_steps_per_s(dev)})
     emit({"phase": "resident_step_profiles", **resident_step_profiles(dev)})
     by_slice = {"A": la, "B": lb, "C": lc, **ld, "E1": le1, "E2": le2, **lf,
-                "G1": lg1, "G2": lg2, "G3": lg3, "I": li}
+                "G1": lg1, "G2": lg2, "G3": lg3, "I": li, "J": lj,
+                "K": lk}
     path = phase_path_shapes(dev, by_slice)
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": source,

@@ -6,14 +6,16 @@ from .geometry_datasets import (PCVox, ParametricNURBS, TopoDataset3D,
                                 synthesize_topology_3d)
 from .loader import InMemoryDataset, NumpyLoader
 from .parametric import (ImageIMBack, ImageIMBackNeumann, ImageIMBackObject,
-                         PointClouds, SyntheticPointClouds)
-from .single_instances import (Cuboid, CuboidManufactured, Rectangle,
+                         KLSumStochastic, PointClouds, SyntheticPointClouds)
+from .single_instances import (Cuboid, CuboidManufactured,
+                               KLSumSingleInstance, Rectangle,
                                RectangleManufactured, SingleInstanceDataset,
                                VoxelIMBackRAW, load_raw)
 
 __all__ = ["NumpyLoader", "InMemoryDataset", "PointClouds",
            "SyntheticPointClouds", "ImageIMBack", "ImageIMBackObject",
-           "ImageIMBackNeumann", "SingleInstanceDataset", "Rectangle",
+           "ImageIMBackNeumann", "KLSumStochastic", "KLSumSingleInstance",
+           "SingleInstanceDataset", "Rectangle",
            "RectangleManufactured", "Cuboid", "CuboidManufactured",
            "load_raw", "VoxelIMBackRAW", "StokesMMSDataset", "NSLDCDataset",
            "FlowPastObjectDataset", "FlowPastObjectEnsemble",

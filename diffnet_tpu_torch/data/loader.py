@@ -24,7 +24,9 @@ __all__ = ["NumpyLoader", "InMemoryDataset"]
 class InMemoryDataset:
     """Pre-built arrays as a dataset: ``(inputs[N, ...], forcing[N, ...])``.
 
-    :meth:`batch` gathers a whole batch with one ``np.take`` per array."""
+    :meth:`batch` gathers a whole batch with the host library's threaded
+    row gather (:func:`~diffnet_tpu_torch.utils.native.gather_batch`), one
+    call per array."""
 
     def __init__(self, inputs: np.ndarray, forcing: np.ndarray):
         if len(inputs) != len(forcing):
@@ -42,9 +44,12 @@ class InMemoryDataset:
     def batch(self, idx):
         """A whole batch: equal to stacking ``self[i]`` for ``i in idx``
         (any dataset exposing ``batch`` must keep it so)."""
+        from ..utils.native import gather_batch
+
         idx = np.asarray(idx, np.int64)
-        return (np.take(self.inputs, idx, axis=0),
-                np.take(self.forcing, idx, axis=0))
+        idx = np.where(idx < 0, idx + len(self), idx)
+        return (gather_batch(self.inputs, idx),
+                gather_batch(self.forcing, idx))
 
 
 class NumpyLoader:

@@ -1,5 +1,5 @@
 """Parametric (ensemble) datasets, channels-last numpy (port of
-``diffnet_tpu/data/parametric.py``, without ``KLSumStochastic``).
+``diffnet_tpu/data/parametric.py``).
 
 Point-cloud samples are ``(cloud[Np, 5], forcing[H, W, 1], sink[H, W,
 1])``, the cloud stacking (x, y, nx, ny, area); image samples are
@@ -15,7 +15,7 @@ import numpy as np
 from ..core.geometry import sample_ellipse_cloud
 
 __all__ = ["ImageIMBack", "ImageIMBackObject", "ImageIMBackNeumann",
-           "PointClouds", "SyntheticPointClouds"]
+           "KLSumStochastic", "PointClouds", "SyntheticPointClouds"]
 
 
 def _load_dir_images(dirname):
@@ -97,6 +97,40 @@ class ImageIMBackNeumann(_ImageEnsembleBase):
         bc3[-1, :] = 1
         bc3[:, -1] = 1
         return np.stack([domain, bc1, bc2, bc3], axis=-1).astype(np.float32)
+
+
+class KLSumStochastic:
+    """Karhunen-Loeve coefficient samples (an ``.npy`` file or an array
+    ``[N, k]``) as a dataset of diffusivity fields: ``inputs[n, n, 3]`` =
+    (nu = exp(KL sum), bc1 on the left wall, bc2 on the right), zero
+    forcing. The fields are made at construction, in one pass of the host
+    library over the whole table (:func:`~diffnet_tpu_torch.utils.native.
+    kl_diffusivity_batch`)."""
+
+    def __init__(self, filename_or_coeffs, domain_size=64, kl_terms=6):
+        from ..utils.native import kl_diffusivity_batch
+
+        if isinstance(filename_or_coeffs, (str, os.PathLike)):
+            coeffs = np.load(filename_or_coeffs)
+        else:
+            coeffs = np.asarray(filename_or_coeffs)
+        self.coeffs = coeffs
+        self.domain_size = n = domain_size
+        self.kl_terms = kl_terms
+        fields = kl_diffusivity_batch(coeffs, n, n_sum_nu=kl_terms)
+        self.dataset = np.zeros((len(fields), n, n, 3), np.float32)
+        self.dataset[..., 0] = fields
+        self.dataset[:, :, 0, 1] = 1.0     # bc1: the left wall
+        self.dataset[:, :, -1, 2] = 1.0    # bc2: the right wall
+        self.n_samples = len(self.dataset)
+
+    def __len__(self):
+        return self.n_samples
+
+    def __getitem__(self, idx):
+        inputs = self.dataset[idx]
+        forcing = np.zeros(inputs.shape[:-1] + (1,), np.float32)
+        return inputs, forcing
 
 
 class PointClouds:

@@ -11,11 +11,14 @@ H, W, 1])`` float32, channels last: ``inputs[..., 0]`` = domain/nu,
 from __future__ import annotations
 
 import math
+import os
 
 import numpy as np
 
+from .gen_input import generate_diffusivity_tensor
+
 __all__ = ["SingleInstanceDataset", "Rectangle", "RectangleManufactured",
-           "Cuboid", "CuboidManufactured", "load_raw", "VoxelIMBackRAW"]
+           "KLSumSingleInstance", "Cuboid", "CuboidManufactured", "load_raw", "VoxelIMBackRAW"]
 
 
 def _grid(n):
@@ -72,6 +75,27 @@ class RectangleManufactured(SingleInstanceDataset):
     @staticmethod
     def exact(x, y):
         return np.sin(math.pi * x) * np.sin(math.pi * y)
+
+
+class KLSumSingleInstance(SingleInstanceDataset):
+    """One Karhunen-Loeve diffusivity nu = exp(KL sum) of the coefficients
+    in a text file: source (u := 1) on the left wall, sink (u := 0) on the
+    right, no forcing."""
+
+    n_samples = 1000
+
+    def __init__(self, coeff_file, domain_size=64):
+        if not os.path.exists(coeff_file):
+            raise FileNotFoundError(
+                "Single instance: Wrong path to coefficient file.")
+        self.coeff = np.loadtxt(coeff_file, dtype=np.float32)
+        n = self.domain_size = domain_size
+        self.nu = generate_diffusivity_tensor(
+            self.coeff, output_size=n).squeeze()
+        self.domain = self.nu
+        self.bc1 = np.zeros((n, n)); self.bc1[:, 0] = 1
+        self.bc2 = np.zeros((n, n)); self.bc2[:, -1] = 1
+        self.forcing = np.zeros((n, n))
 
 
 def _walls_3d(n: int) -> np.ndarray:

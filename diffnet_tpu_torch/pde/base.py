@@ -22,6 +22,7 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..core import fem
 from ..core.quadrature import make_basis
@@ -32,7 +33,8 @@ __all__ = ["PDEModule", "FEM2DModule", "FEM3DModule"]
 class PDEModule(nn.Module):
     """Base PDE module. Keyword arguments as in the JAX package: ``nsd``,
     ``batch_size``, ``learning_rate``, ``domain_size(s)``,
-    ``domain_length(s)``."""
+    ``domain_length(s)``, ``remat`` (recompute the forward pass and the
+    loss in the backward pass instead of keeping their activations)."""
 
     def __init__(self, network: nn.Module | None = None, dataset=None,
                  **kwargs):
@@ -43,6 +45,7 @@ class PDEModule(nn.Module):
         self.nsd = kwargs.get("nsd", 2)
         self.batch_size = kwargs.get("batch_size", 64)
         self.learning_rate = kwargs.get("learning_rate", 3e-4)
+        self.remat = bool(kwargs.get("remat", False))
         self.domain_length = kwargs.get("domain_length", 1.0)
         self.domain_size = kwargs.get("domain_size", 64)
         lengths = kwargs.get("domain_lengths", (self.domain_length,) * 3)
@@ -63,9 +66,21 @@ class PDEModule(nn.Module):
         return self.network(inputs_tensor), inputs_tensor, forcing_tensor
 
     def training_loss(self, batch) -> torch.Tensor:
-        """Mean of ``loss(forward(batch))``: what the Trainer minimises."""
+        """Mean of ``loss(forward(batch))``: what the Trainer minimises.
+        With ``remat`` the whole of it runs under
+        ``torch.utils.checkpoint``."""
+        return self._remat(self._training_loss, batch)
+
+    def _training_loss(self, batch) -> torch.Tensor:
         u, inputs_tensor, forcing_tensor = self(batch)
         return torch.mean(self.loss(u, inputs_tensor, forcing_tensor))
+
+    def _remat(self, fn, batch) -> torch.Tensor:
+        """``fn(batch)``, checkpointed when ``remat`` is set: its saved
+        tensors are recomputed in the backward pass."""
+        if self.remat:
+            return checkpoint(fn, batch, use_reentrant=False)
+        return fn(batch)
 
     @staticmethod
     def apply_dirichlet(u, mask, value):

@@ -12,8 +12,8 @@ Dirichlet rows of the assembled residuals are zeroed. ``fused_kernels=True``
 routes the NS residual through K6 (:mod:`diffnet_tpu_torch.ops.ns_residual`,
 deg 1, 2x2 Gauss, no body forcing); the JAX package's TPU kernel variants
 (``fused_variant``) are not carried over. The round-robin objective
-protocol (``num_objectives``, ``objective_loss``, ``objective_param_mask``)
-waits with the trainer's round-robin mode (ROADMAP).
+protocol of the Trainer (``num_objectives``, ``objective_loss``,
+``objective_param_mask``) makes each field residual an objective.
 
 Fields are ``[B, ny, nx]``; ``inputs[..., (x, y, bc1, bc2, bc3, ...)]``
 carries the Dirichlet masks of u (bc1), v (bc2) and p (bc3).
@@ -184,6 +184,31 @@ class StokesNSBase(FEM2DModule):
              + (self.hx * self.hy) * (4.0 / 9.0) / self.viscosity)
         R3 = R3 + s * torch.mean(p_raw, dim=(-2, -1), keepdim=True)
         return {"u": R1, "v": R2, "p": R3}
+
+    # -- the round-robin objective protocol: one objective a field residual
+    num_objectives = 3
+
+    def objective_loss(self, idx, batch):
+        """The norm of residual `idx` (R1, R2 or R3) of `batch`: squared
+        with ``loss_norm="squared"``, else its root (no momentum scaling).
+        Through K6 with ``fused_kernels``."""
+        inputs_tensor, forcing_tensor = batch[0], batch[1]
+        R = self.calc_residuals(self.network(inputs_tensor), inputs_tensor,
+                                forcing_tensor)[idx]
+        if self.loss_norm == "squared":
+            return torch.sum(R**2)
+        return torch.sqrt(torch.sum(R**2) + 1e-12)
+
+    def objective_param_mask(self, idx):
+        """The network parameters objective `idx` updates: ``field_{idx}``
+        when the network has one parameter a field (``DirectField(n_fields=
+        3)``), None (all of them) for a shared network such as
+        ``MultiOutUNet``."""
+        names = [n for n, _ in self.network.named_parameters()]
+        key = f"field_{idx}"
+        if key in names and len(names) == self.num_objectives:
+            return (key,)
+        return None
 
     def loss(self, pred, inputs_tensor, forcing_tensor):
         R1, R2, R3 = self.calc_residuals(pred, inputs_tensor, forcing_tensor)

@@ -103,7 +103,11 @@ class IBNPoisson2D(FEM2DModule):
     def training_loss(self, batch) -> torch.Tensor:
         """The mean loss of `batch`, plus the weighted KL term when the
         network is a VAE head; with ``ibn_loss_type='mask'`` the squared
-        error of the network's output against the raw winding field."""
+        error of the network's output against the raw winding field. With
+        ``remat`` the whole of it runs under ``torch.utils.checkpoint``."""
+        return self._remat(self._ibn_training_loss, batch)
+
+    def _ibn_training_loss(self, batch) -> torch.Tensor:
         if self.source_from != "winding":
             u, inputs, forcing = self(batch)
             return torch.mean(self.loss(u, inputs, forcing))

@@ -7,12 +7,14 @@ from .stencil import (assemble_stencil, extract_stencil, extract_verified,
                       stencil_diag, stencil_matvec)
 from .query import (calc_mean_stddev, point_histograms, query_batched,
                     query_statistical, save_query_results)
-from .trainer import (Callback, CSVLogger, EarlyStopping, Trainer,
-                      TrainState, load_params, load_state, make_run_dir,
-                      save_params, save_state)
+from .pretrain import ArrayImageDataset, pretrain_autoencoder
+from .trainer import (Callback, CSVLogger, EarlyStopping, OptimizerSwitch,
+                      TensorBoardLogger, Trainer, TrainState, load_params,
+                      load_state, make_run_dir, save_params, save_state)
 
 __all__ = ["Trainer", "TrainState", "Callback", "CSVLogger", "EarlyStopping",
-           "make_run_dir", "save_params", "load_params", "save_state",
+           "OptimizerSwitch", "TensorBoardLogger", "ArrayImageDataset",
+           "pretrain_autoencoder", "make_run_dir", "save_params", "load_params", "save_state",
            "load_state", "query_batched", "query_statistical",
            "calc_mean_stddev", "point_histograms", "save_query_results",
            "coarse_to_fine", "prolong_field", "cg", "bicgstab", "gmres",

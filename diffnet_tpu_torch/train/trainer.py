@@ -4,8 +4,9 @@
 loader from ``module.dataset`` when none is given, and runs epochs of
 optimizer steps on ``module.training_loss``:
 
-  * optimizers: ``"adam"``, ``"sgd"`` and ``"lbfgs"``. LBFGS is
-    ``torch.optim.LBFGS(lr=1, max_iter=lbfgs_max_iter,
+  * optimizers: ``"adam"``, ``"sgd"``, ``"lbfgs"``, or a callable
+    ``params -> torch.optim.Optimizer`` (the counterpart of an optax
+    transform). LBFGS is ``torch.optim.LBFGS(lr=1, max_iter=lbfgs_max_iter,
     line_search_fn="strong_wolfe")`` stepped once per batch; its line
     search is not optax's zoom search, so it agrees with the JAX Trainer in
     the solution reached, not step by step;
@@ -13,11 +14,25 @@ optimizer steps on ``module.training_loss``:
     milestone epoch (torch's ``MultiStepLR``, stepped once an optimizer step
     with the milestones in steps, as optax's ``piecewise_constant_schedule``
     is in the JAX Trainer);
+  * ``round_robin``: one optimizer per objective of a module exposing
+    ``num_objectives`` and ``objective_loss(idx, batch)``, each over the
+    parameters ``objective_param_mask(idx)`` names (all when None), the
+    objective rotating once a batch; ``optimizer`` may be a list with one
+    spec per objective, and the metrics carry ``loss_obj{i}``;
+  * :class:`OptimizerSwitch` / :meth:`Trainer.request_optimizer_switch`:
+    a new optimizer between epochs, the parameters kept, its state fresh;
+  * ``resume_from``: an exact resume from ``state.ckpt`` (parameters,
+    optimizer and scheduler states, step, objective rotation, epoch);
+  * ``nan_guard``: on a non-finite epoch loss, restore ``state.ckpt`` and
+    halve Adam's and SGD's learning rate for each restore so far (LBFGS
+    restores only); abort after three restores;
+  * ``profile_dir``: the fit under ``torch.profiler`` (CPU and CUDA
+    activities), written there as a Chrome trace;
   * versioned run directories ``save_dir/name/version_N``
-    (:func:`make_run_dir`);
-  * CSV metrics per epoch (:class:`CSVLogger`);
+    (:func:`make_run_dir`), CSV metrics per epoch (:class:`CSVLogger`;
+    :class:`TensorBoardLogger` when ``tensorboard`` is installed);
   * checkpoints ``last.ckpt``, ``best.ckpt`` (network parameters) and
-    ``state.ckpt`` (parameters, optimizer state and step);
+    ``state.ckpt`` (the full training state);
   * callbacks with ``on_train_start`` / ``on_epoch_end`` / ``on_train_end``
     hooks, and :class:`EarlyStopping`.
 """
@@ -25,9 +40,10 @@ optimizer steps on ``module.training_loss``:
 from __future__ import annotations
 
 import csv
+import math
 import os
 import time
-from typing import Any, NamedTuple, Sequence
+from typing import Any, Callable, NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -35,15 +51,19 @@ import torch
 from ..data.loader import NumpyLoader
 from ..utils.device import resolve_device
 
-__all__ = ["TrainState", "Trainer", "Callback", "CSVLogger", "EarlyStopping",
+__all__ = ["TrainState", "Trainer", "Callback", "CSVLogger",
+           "TensorBoardLogger", "EarlyStopping", "OptimizerSwitch",
            "make_run_dir", "save_params", "load_params", "save_state",
            "load_state"]
+
+NAN_GUARD_RESTORES = 3   # restores before nan_guard gives up
 
 
 class TrainState(NamedTuple):
     params: dict[str, torch.Tensor]   # the network's state dict
-    optimizer: torch.optim.Optimizer
+    optimizer: Any    # an Optimizer; in round-robin mode one per objective
     step: int
+    schedulers: Any = None   # the lr scheduler(s) beside `optimizer`
 
 
 def make_run_dir(save_dir: str, name: str) -> str:
@@ -66,15 +86,27 @@ def load_params(path: str, map_location=None) -> dict[str, torch.Tensor]:
     return torch.load(path, map_location=map_location, weights_only=True)
 
 
-def save_state(state: TrainState, path: str) -> None:
-    """Full training state (parameters, optimizer state, step)."""
+def _state_dicts(objs):
+    """The state dict of an optimizer or scheduler, a list of them for a
+    tuple (None stays None)."""
+    if isinstance(objs, (tuple, list)):
+        return [None if o is None else o.state_dict() for o in objs]
+    return None if objs is None else objs.state_dict()
+
+
+def save_state(state: TrainState, path: str, **extra) -> None:
+    """Full training state: parameters, optimizer and scheduler states,
+    step, and the `extra` entries (the Trainer adds the epoch, the
+    objective rotation and the optimizer spec)."""
     torch.save({"params": state.params,
-                "opt_state": state.optimizer.state_dict(),
-                "step": state.step}, path)
+                "opt_state": _state_dicts(state.optimizer),
+                "sched_state": _state_dicts(state.schedulers),
+                "step": state.step, **extra}, path)
 
 
 def load_state(path: str, map_location=None) -> dict[str, Any]:
-    """``{"params", "opt_state", "step"}`` as written by :func:`save_state`."""
+    """``{"params", "opt_state", "sched_state", "step", ...}`` as written
+    by :func:`save_state`."""
     return torch.load(path, map_location=map_location, weights_only=True)
 
 
@@ -114,6 +146,28 @@ class EarlyStopping(Callback):
                 trainer.should_stop = True
 
 
+class OptimizerSwitch(Callback):
+    """Switch the optimizer at epoch `epoch` (the reference's Adam -> LBFGS
+    pattern). `optimizer` is anything the Trainer takes, in round-robin
+    mode also a list with one spec per objective. Training resumes on the
+    new optimizer exactly at `epoch`: the parameters carry over, its state
+    starts fresh."""
+
+    def __init__(self, epoch: int, optimizer="lbfgs",
+                 learning_rate: float | None = None,
+                 lbfgs_max_iter: int | None = None):
+        self.switch_epoch = int(epoch)
+        self.optimizer = optimizer
+        self.learning_rate = learning_rate
+        self.lbfgs_max_iter = lbfgs_max_iter
+
+    def on_epoch_end(self, trainer, module, state, epoch, metrics):
+        if epoch + 1 == self.switch_epoch:
+            trainer.request_optimizer_switch(
+                self.optimizer, learning_rate=self.learning_rate,
+                lbfgs_max_iter=self.lbfgs_max_iter)
+
+
 class CSVLogger:
     """One row of metrics per call; a metric that first appears later
     extends the header and the file is rewritten."""
@@ -143,9 +197,40 @@ class CSVLogger:
             w.writerow(metrics)
 
 
-def _make_optimizer(name: str, params, learning_rate: float,
+class TensorBoardLogger:
+    """Scalar metrics as TensorBoard events in `run_dir`, beside the CSV:
+    ``log(metrics)`` writes every number but ``epoch`` at step ``epoch``.
+    Needs the ``tensorboard`` package."""
+
+    def __init__(self, run_dir: str):
+        try:
+            from torch.utils.tensorboard import SummaryWriter
+        except ImportError as e:
+            raise ImportError(
+                "TensorBoardLogger needs the tensorboard package "
+                "(torch.utils.tensorboard imports it); install it or use "
+                "CSVLogger") from e
+        self.writer = SummaryWriter(run_dir)
+
+    def log(self, metrics: dict):
+        step = int(metrics.get("epoch", 0))
+        for k, v in metrics.items():
+            if isinstance(v, (int, float)) and k != "epoch":
+                self.writer.add_scalar(k, v, step)
+
+    def close(self):
+        self.writer.close()
+
+
+def _make_optimizer(spec, params: list, learning_rate: float,
                     lbfgs_max_iter: int) -> torch.optim.Optimizer:
-    name = str(name).lower()
+    if callable(spec):
+        opt = spec(params)
+        if not isinstance(opt, torch.optim.Optimizer):
+            raise TypeError("an optimizer factory must return a "
+                            f"torch.optim.Optimizer, got {type(opt)}")
+        return opt
+    name = str(spec).lower()
     if name == "adam":
         return torch.optim.Adam(params, lr=learning_rate)
     if name == "sgd":
@@ -161,7 +246,23 @@ def _make_optimizer(name: str, params, learning_rate: float,
                                  max_eval=25 * lbfgs_max_iter,
                                  tolerance_grad=0.0, tolerance_change=0.0,
                                  line_search_fn="strong_wolfe")
-    raise ValueError(f"unknown optimizer {name!r}")
+    raise ValueError(f"unknown optimizer {spec!r}")
+
+
+def _spec_key(spec):
+    """An optimizer spec as checkpoints keep it: its lowercase name, a list
+    of names, or None for a factory (which cannot be saved)."""
+    if isinstance(spec, (list, tuple)):
+        keys = [_spec_key(s) for s in spec]
+        return None if None in keys else keys
+    return None if callable(spec) else str(spec).lower()
+
+
+class _Objective(NamedTuple):
+    """One optimizer, its scheduler, and its step function."""
+    optimizer: torch.optim.Optimizer
+    scheduler: Any
+    step: Callable
 
 
 class Trainer:
@@ -169,8 +270,10 @@ class Trainer:
 
     Parameters
     ----------
-    max_epochs : int
-    optimizer : 'adam' | 'sgd' | 'lbfgs'
+    max_epochs : int (epochs to run, after a resumed state's too)
+    optimizer : 'adam' | 'sgd' | 'lbfgs' | a callable ``params ->
+        torch.optim.Optimizer``; in round-robin mode also a list with one
+        of those per objective
     learning_rate : for adam/sgd; defaults to ``module.learning_rate``
     lbfgs_max_iter : LBFGS iterations per step
     callbacks, run_dir, log_every : observability (CSV in `run_dir`)
@@ -179,27 +282,38 @@ class Trainer:
     seed : loader shuffle seed
     lr_milestones, lr_gamma : epochs at which adam's or sgd's learning rate
         is multiplied by `lr_gamma`
+    round_robin : one optimizer per objective of the module, the objective
+        rotating once a batch
+    profile_dir : write a ``torch.profiler`` Chrome trace of the fit there
+    nan_guard : restore ``state.ckpt`` on a non-finite epoch loss
+        (needs `checkpoint`), halving adam's and sgd's learning rate
     device : where the module and the batches go (the card by default);
         'cuda' raises when no GPU is available
     """
 
-    def __init__(self, max_epochs: int = 1, optimizer: str = "adam",
+    def __init__(self, max_epochs: int = 1, optimizer: Any = "adam",
                  learning_rate: float | None = None, lbfgs_max_iter: int = 5,
                  callbacks: Sequence[Callback] = (),
                  run_dir: str | None = None, log_every: int = 1,
                  checkpoint: bool = False, fast_dev_run: bool = False,
                  seed: int = 42, device: str | torch.device = "cuda",
                  lr_milestones: Sequence[int] | None = None,
-                 lr_gamma: float = 0.1):
+                 lr_gamma: float = 0.1, round_robin: bool = False,
+                 profile_dir: str | None = None, nan_guard: bool = False):
         self.max_epochs = 1 if fast_dev_run else max_epochs
         self.optimizer_spec = optimizer
-        if lr_milestones and str(optimizer).lower() == "lbfgs":
+        if lr_milestones and _spec_key(optimizer) == "lbfgs":
             raise ValueError("lr_milestones apply to adam and sgd; lbfgs "
                              "takes unit steps from its line search")
+        if isinstance(optimizer, (list, tuple)) and not round_robin:
+            raise ValueError("a list of optimizers requires round_robin=True")
         self.lr_milestones = lr_milestones
         self.lr_gamma = lr_gamma
         self.learning_rate = learning_rate
         self.lbfgs_max_iter = lbfgs_max_iter
+        self.round_robin = round_robin
+        self.profile_dir = profile_dir
+        self.nan_guard = nan_guard
         self.callbacks = list(callbacks)
         self.run_dir = run_dir
         self.logger = CSVLogger(run_dir) if run_dir else None
@@ -212,8 +326,36 @@ class Trainer:
         self.state: TrainState | None = None
         self.epoch_times: list[float] = []
         self.step_losses: list[float] = []   # the last epoch's, per step
+        self.trace_path: str | None = None   # the profiler's trace
+        self._nan_restores = 0
+        self._pending_switch: dict | None = None
+        self._objectives: list[_Objective] = []
+        self._rr_counter = 0
+        self._last_obj_loss: list = []
 
-    def _step_fn(self, module, opt, sched=None):
+    # -- optimizers and steps --------------------------------------------
+    def request_optimizer_switch(self, optimizer, learning_rate=None,
+                                 lbfgs_max_iter=None):
+        """Queue an optimizer swap; fit() applies it between epochs, after
+        the on_epoch_end callbacks (see OptimizerSwitch). The parameters
+        carry over, the optimizer state starts fresh. In round-robin mode
+        `optimizer` may be a list with one spec per objective."""
+        self._pending_switch = {"optimizer": optimizer,
+                                "learning_rate": learning_rate,
+                                "lbfgs_max_iter": lbfgs_max_iter}
+
+    def _step_fn(self, loss_fn, opt, sched, params=None):
+        """One optimizer step of ``loss_fn(batch)``. With `params` (a
+        round-robin objective's) only their gradients are taken."""
+
+        def backward(loss):
+            if params is None:
+                loss.backward()
+                return
+            grads = torch.autograd.grad(loss, params, allow_unused=True)
+            for p, g in zip(params, grads):
+                p.grad = g
+
         if isinstance(opt, torch.optim.LBFGS):
             def step(batch):
                 # opt.step returns the loss before its first update; the
@@ -224,8 +366,8 @@ class Trainer:
 
                 def closure():
                     opt.zero_grad(set_to_none=True)
-                    loss = module.training_loss(batch)
-                    loss.backward()
+                    loss = loss_fn(batch)
+                    backward(loss)
                     last[:] = [loss.detach()]
                     return loss
                 opt.step(closure)
@@ -234,20 +376,120 @@ class Trainer:
 
         def step(batch):
             opt.zero_grad(set_to_none=True)
-            loss = module.training_loss(batch)
-            loss.backward()
+            loss = loss_fn(batch)
+            backward(loss)
+            # nan_guard's back-off: the learning rate times 0.5 a restore
+            # for this update (exact in both directions: a power of two)
+            scale = 0.5 ** self._nan_restores
+            for g in opt.param_groups:
+                g["lr"] *= scale
             opt.step()
+            for g in opt.param_groups:
+                g["lr"] /= scale
             if sched is not None:
                 sched.step()
             return loss
         return step
 
+    def _objective(self, spec, loss_fn, params, lr, spe, scoped):
+        opt = _make_optimizer(spec, params, lr, self.lbfgs_max_iter)
+        sched = None
+        if self.lr_milestones and not isinstance(opt, torch.optim.LBFGS):
+            sched = torch.optim.lr_scheduler.MultiStepLR(
+                opt, [int(m) * spe for m in self.lr_milestones],
+                gamma=self.lr_gamma)
+        return _Objective(opt, sched, self._step_fn(
+            loss_fn, opt, sched, params if scoped else None))
+
+    def _build_objectives(self, module, lr: float, spe: int) -> None:
+        """Every optimizer, scheduler and step function from
+        ``self.optimizer_spec``, their states fresh."""
+        spec = self.optimizer_spec
+        if not self.round_robin:
+            self._objectives = [self._objective(
+                spec, module.training_loss, list(module.parameters()), lr,
+                spe, scoped=False)]
+            return
+        n_obj = module.num_objectives
+        if isinstance(spec, (list, tuple)):
+            if len(spec) != n_obj:
+                raise ValueError(f"{len(spec)} optimizers given for "
+                                 f"{n_obj} objectives")
+            specs = list(spec)
+        else:
+            specs = [spec] * n_obj
+        named = dict(module.network.named_parameters())
+        mask_hook = getattr(module, "objective_param_mask", None)
+        self._objectives = []
+        for i in range(n_obj):
+            names = mask_hook(i) if mask_hook is not None else None
+            if names is None:
+                params = list(module.parameters())
+            else:
+                unknown = set(names) - set(named)
+                if unknown:
+                    raise ValueError(f"objective {i}: no network parameter "
+                                     f"named {sorted(unknown)}")
+                params = [named[n] for n in names]
+            self._objectives.append(self._objective(
+                specs[i], lambda batch, i=i: module.objective_loss(i, batch),
+                params, lr, spe, scoped=True))
+        self._last_obj_loss = [None] * n_obj
+
+    def _train_state(self, module, n_steps: int) -> TrainState:
+        opts = tuple(o.optimizer for o in self._objectives)
+        scheds = tuple(o.scheduler for o in self._objectives)
+        if not self.round_robin:
+            opts, scheds = opts[0], scheds[0]
+        return TrainState(module.network.state_dict(), opts, n_steps, scheds)
+
+    def _save_state(self, state: TrainState, epoch: int) -> None:
+        save_state(state, os.path.join(self.run_dir, "state.ckpt"),
+                   epoch=epoch, rr_counter=self._rr_counter,
+                   optimizer_spec=_spec_key(self.optimizer_spec),
+                   lbfgs_max_iter=self.lbfgs_max_iter)
+
+    def _restore(self, module, ck: dict, lr: float, spe: int) -> int:
+        """Load a state.ckpt dict into the module and the optimizers
+        (rebuilt first when the checkpoint was written after an optimizer
+        switch); returns its step."""
+        spec = ck.get("optimizer_spec")
+        if spec is not None and spec != _spec_key(self.optimizer_spec):
+            self.optimizer_spec = spec
+            self.lbfgs_max_iter = int(ck["lbfgs_max_iter"])
+            self._build_objectives(module, lr, spe)
+        module.network.load_state_dict(ck["params"])
+        opt_states, sched_states = ck["opt_state"], ck.get("sched_state")
+        if not self.round_robin:
+            opt_states, sched_states = [opt_states], [sched_states]
+        for obj, o, s in zip(self._objectives, opt_states,
+                             sched_states or [None] * len(opt_states)):
+            obj.optimizer.load_state_dict(o)
+            if obj.scheduler is not None and s is not None:
+                obj.scheduler.load_state_dict(s)
+        self._rr_counter = int(ck.get("rr_counter", ck["step"]))
+        return int(ck["step"])
+
+    def _apply_switch(self, module, lr: float, spe: int) -> float:
+        pending, self._pending_switch = self._pending_switch, None
+        if pending["lbfgs_max_iter"] is not None:
+            self.lbfgs_max_iter = int(pending["lbfgs_max_iter"])
+        if pending["learning_rate"] is not None:
+            self.learning_rate = lr = pending["learning_rate"]
+        self.optimizer_spec = pending["optimizer"]
+        self._build_objectives(module, lr, spe)
+        return lr
+
+    # -- fit ---------------------------------------------------------------
     def fit(self, module, dataloader=None, params=None,
-            val_dataloader=None) -> TrainState:
+            val_dataloader=None, resume_from: str | None = None
+            ) -> TrainState:
         """Train `module`. Without `dataloader`, one is built from
         ``module.dataset``. `params` (a state dict of ``module.network``)
         replaces the network's parameters first. `val_dataloader` adds a
-        per-epoch ``val_loss`` metric."""
+        per-epoch ``val_loss`` metric. `resume_from` (a ``state.ckpt``)
+        continues a run exactly where it stopped: `max_epochs` more epochs,
+        numbered on from the checkpoint's."""
         module.to(self.device)
         if dataloader is None:
             if module.dataset is None:
@@ -265,65 +507,116 @@ class Trainer:
         if params is not None:
             module.network.load_state_dict(params)
         lr = self.learning_rate or getattr(module, "learning_rate", 3e-4)
-        opt = _make_optimizer(self.optimizer_spec, module.parameters(), lr,
-                              self.lbfgs_max_iter)
-        sched = None
-        if self.lr_milestones:
-            spe = len(dataloader)
-            sched = torch.optim.lr_scheduler.MultiStepLR(
-                opt, [int(m) * spe for m in self.lr_milestones],
-                gamma=self.lr_gamma)
-        step_fn = self._step_fn(module, opt, sched)
-        n_steps = 0
-
-        def state():
-            return TrainState(module.network.state_dict(), opt, n_steps)
+        spe = len(dataloader)
+        self._rr_counter = 0
+        self._build_objectives(module, lr, spe)
+        n_steps, first_epoch = 0, 0
+        if resume_from:
+            ck = load_state(resume_from, map_location=self.device)
+            n_steps = self._restore(module, ck, lr, spe)
+            first_epoch = int(ck.get("epoch", -1)) + 1
 
         for cb in self.callbacks:
-            cb.on_train_start(self, module, state())
+            cb.on_train_start(self, module,
+                              self._train_state(module, n_steps))
 
+        prof = None
+        if self.profile_dir:
+            activities = [torch.profiler.ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                activities.append(torch.profiler.ProfilerActivity.CUDA)
+            prof = torch.profiler.profile(activities=activities)
+            prof.start()
         best = np.inf
-        for epoch in range(self.max_epochs):
-            t0 = time.perf_counter()
-            losses = []
-            module.train()
-            for batch in dataloader:
-                batch = tuple(t.to(self.device) for t in batch)
-                losses.append(step_fn(batch).detach())
-                n_steps += 1
-                if self.fast_dev_run:
-                    break
-            losses = torch.stack(losses)
-            self.step_losses = losses.tolist()
-            epoch_loss = float(losses.mean())
-            dt = time.perf_counter() - t0
-            self.epoch_times.append(dt)
-            metrics = {"epoch": epoch, "loss": epoch_loss,
-                       "PDE_loss": epoch_loss, "time_sec": dt}
-            if val_dataloader is not None:
-                with torch.no_grad():
-                    vlosses = [module.training_loss(
-                        tuple(t.to(self.device) for t in b))
-                        for b in val_dataloader]
-                metrics["val_loss"] = float(torch.stack(vlosses).mean())
-            if self.logger and epoch % self.log_every == 0:
-                self.logger.log(metrics)
-            self.state = state()
-            if self.checkpoint:
-                save_params(self.state.params,
-                            os.path.join(self.run_dir, "last.ckpt"))
-                save_state(self.state,
-                           os.path.join(self.run_dir, "state.ckpt"))
-                if epoch_loss < best:
-                    best = epoch_loss
+        try:
+            for epoch in range(first_epoch, first_epoch + self.max_epochs):
+                t0 = time.perf_counter()
+                losses = []
+                module.train()
+                for batch in dataloader:
+                    batch = tuple(t.to(self.device) for t in batch)
+                    if self.round_robin:
+                        i = self._rr_counter % len(self._objectives)
+                        self._rr_counter += 1
+                        loss = self._objectives[i].step(batch).detach()
+                        self._last_obj_loss[i] = loss
+                    else:
+                        loss = self._objectives[0].step(batch).detach()
+                    losses.append(loss)
+                    n_steps += 1
+                    if self.fast_dev_run:
+                        break
+                losses = torch.stack(losses)
+                self.step_losses = losses.tolist()
+                epoch_loss = float(losses.mean())
+                if self.nan_guard and not math.isfinite(epoch_loss):
+                    n_steps = self._nan_restore(module, epoch, epoch_loss,
+                                                lr, spe)
+                    continue
+                dt = time.perf_counter() - t0
+                self.epoch_times.append(dt)
+                metrics = {"epoch": epoch, "loss": epoch_loss,
+                           "PDE_loss": epoch_loss, "time_sec": dt}
+                for i, v in enumerate(self._last_obj_loss
+                                      if self.round_robin else ()):
+                    if v is not None:
+                        metrics[f"loss_obj{i}"] = float(v)
+                if val_dataloader is not None:
+                    with torch.no_grad():
+                        vlosses = [module.training_loss(
+                            tuple(t.to(self.device) for t in b))
+                            for b in val_dataloader]
+                    metrics["val_loss"] = float(torch.stack(vlosses).mean())
+                if self.logger and epoch % self.log_every == 0:
+                    self.logger.log(metrics)
+                self.state = self._train_state(module, n_steps)
+                if self.checkpoint:
                     save_params(self.state.params,
-                                os.path.join(self.run_dir, "best.ckpt"))
-            for cb in self.callbacks:
-                cb.on_epoch_end(self, module, self.state, epoch, metrics)
-            if self.should_stop:
-                break
+                                os.path.join(self.run_dir, "last.ckpt"))
+                    self._save_state(self.state, epoch)
+                    if epoch_loss < best:
+                        best = epoch_loss
+                        save_params(self.state.params,
+                                    os.path.join(self.run_dir, "best.ckpt"))
+                for cb in self.callbacks:
+                    cb.on_epoch_end(self, module, self.state, epoch,
+                                    metrics)
+                if self._pending_switch is not None:
+                    lr = self._apply_switch(module, lr, spe)
+                    self.state = self._train_state(module, n_steps)
+                    if self.checkpoint:
+                        # a resume from here starts on the new optimizers
+                        self._save_state(self.state, epoch)
+                if self.should_stop:
+                    break
+        finally:
+            if prof is not None:
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                prof.stop()
+        if prof is not None:
+            os.makedirs(self.profile_dir, exist_ok=True)
+            self.trace_path = os.path.join(
+                self.profile_dir, f"trace_{os.getpid()}_{time.time_ns()}.json")
+            prof.export_chrome_trace(self.trace_path)
 
-        self.state = state()
+        self.state = self._train_state(module, n_steps)
         for cb in self.callbacks:
             cb.on_train_end(self, module, self.state)
         return self.state
+
+    def _nan_restore(self, module, epoch: int, epoch_loss: float, lr: float,
+                     spe: int) -> int:
+        """nan_guard: restore state.ckpt (the step it holds is returned);
+        raise when there is none or after NAN_GUARD_RESTORES restores."""
+        ckpt = os.path.join(self.run_dir or "", "state.ckpt")
+        if not (self.checkpoint and os.path.exists(ckpt)):
+            raise RuntimeError(
+                f"nan_guard: non-finite loss {epoch_loss} at epoch {epoch} "
+                "and no state.ckpt to restore")
+        n_steps = self._restore(module, load_state(
+            ckpt, map_location=self.device), lr, spe)
+        self._nan_restores += 1
+        if self._nan_restores > NAN_GUARD_RESTORES:
+            raise RuntimeError("nan_guard: loss diverged repeatedly; aborting")
+        return n_steps

@@ -20,7 +20,10 @@ JVP as the other VJPs; the 33^2 Newton solve through K6 at |F| < 1e-6 and
 within 1e-4 of the plain solve; the IBN slices' losses and gradients (no
 kernel of ours: the winding number, cuDNN convolutions and the energy; the
 3D one in float32 and float64) at 1e-5 of the CPU's (1e-10 in float64),
-and DGCNN2D's forward at 1e-5 of the CPU's.
+and DGCNN2D's forward at 1e-5 of the CPU's; slice J's energy step through
+K3 and K1 (with and without remat) at 1e-5 of the plain loss and 1e-4 of
+its largest parameter gradient; slice K's objectives through K6 at 1e-5 of
+the plain loss and 2e-5 of the largest field gradient.
 """
 
 import numpy as np
@@ -658,3 +661,77 @@ def test_dgcnn2d_forward_on_the_card_matches_the_cpu(dev):
     clear = (d2[..., 20] - d2[..., 19]) > 1e-5 * d2[..., 20]
     assert clear.float().mean() > 0.9
     assert torch.equal(i_dev[clear], i_cpu[clear])
+
+
+def _klsum_batch(n, bs, dev):
+    from diffnet_tpu_torch.data import KLSumStochastic
+    from diffnet_tpu_torch.data.gen_input import sobol_coefficients
+
+    ds = KLSumStochastic(sobol_coefficients(bs, 6, seed=0), domain_size=n)
+    return (torch.from_numpy(ds.dataset).to(dev),
+            torch.zeros((bs, n, n, 1), device=dev))
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_klsum_energy_through_k3_k1_matches_plain(dev, remat):
+    """Slice J's step at 64^2 x 32: GoodNetwork(filters=16) on KL-sum
+    inputs, the Ritz energy through K3 (forward) and K1 (its VJP), with and
+    without remat (the checkpoint recomputes the forward, K3 included, in
+    the backward pass), against the plain energy: the loss within 1e-5, the
+    parameter gradients within 1e-4 of the largest entry (the energy's
+    gradient is a difference of two O(1) projections, summed in another
+    order)."""
+    from diffnet_tpu_torch.models import GoodNetwork
+
+    n, bs = 64, 32
+    batch = _klsum_batch(n, bs, dev)
+    out = {}
+    for fused in (True, False):
+        net = GoodNetwork(in_dim=n, out_dim=n, in_channels=3, filters=16,
+                          seed=0)
+        m = Poisson2D(net, domain_size=n, loss_type="energy",
+                      bc1_value=1.0, bc2_value=0.0, fused_kernels=fused,
+                      remat=remat and fused).to(dev)
+        l3, l1 = k3.launches, k1.launches
+        loss = m.training_loss(batch)
+        loss.backward()
+        if fused:
+            assert k3.launches - l3 == (2 if remat else 1)
+            assert k1.launches - l1 == 1
+        out[fused] = (float(loss), {k: p.grad for k, p in
+                                    net.named_parameters()})
+    (lf, gf), (lp, gp) = out[True], out[False]
+    assert abs(lf - lp) <= 1e-5 * abs(lp)
+    scale = max(float(g.abs().max()) for g in gp.values())
+    for k in gp:
+        torch.testing.assert_close(gf[k], gp[k], rtol=0, atol=1e-4 * scale)
+
+
+@pytest.mark.parametrize("idx", [0, 1, 2])
+def test_ns_objective_loss_through_k6_matches_plain(dev, idx):
+    """Slice K's objectives at 64^2 (the LDC at Re 100, seeded random
+    fields): objective_loss(idx) through K6, one launch, against the plain
+    residual: the loss within 1e-5 and the field gradients within 2e-5 of
+    the largest entry (K6's residuals are held at 2e-5)."""
+    n = 64
+    u_bc, v_bc, p_bc = ldc_bcs((n, n))
+    ds = NSLDCDataset(domain_sizes=(n, n), Re=100)
+    init = np.random.default_rng(idx).random((n, n)).astype(np.float32)
+    out = {}
+    for fused in (True, False):
+        m = NavierStokes(DirectField((n, n), init=init, n_fields=3), ds,
+                         domain_size=n, Re=100, u_bc=u_bc, v_bc=v_bc,
+                         p_bc=p_bc, loss_norm="squared",
+                         fused_kernels=fused).to(dev)
+        batch = tuple(torch.from_numpy(a)[None].to(dev) for a in ds[0])
+        before = k6.launches
+        loss = m.objective_loss(idx, batch)
+        loss.backward()
+        assert k6.launches - before == int(fused)
+        assert m.objective_param_mask(idx) == (f"field_{idx}",)
+        out[fused] = (float(loss), [p.grad for p in m.network.parameters()])
+    (lf, gf), (lp, gp) = out[True], out[False]
+    assert abs(lf - lp) <= 1e-5 * abs(lp)
+    scale = max(float(g.abs().max()) for g in gp)
+    for a, b in zip(gf, gp):
+        torch.testing.assert_close(a, b, rtol=0, atol=2e-5 * scale)
