@@ -157,14 +157,31 @@ exits non-zero (it also does so, printing no result, without CUDA):
         through ``resume_from`` lands on the unbroken run's fields; three
         epochs more under the Trainer's profiler, whose trace must name
         the K6 launches.
+     L. the single-instance physics, each case at the grid of its JAX
+        figure (scripts/torch_port_reference_physics.py; no kernel of the
+        table lies on it): L1 Helmholtz, the k = 0.5 MMS at 65^2 by LBFGS
+        (one epoch profiled: idle share, top device operations) and the
+        indefinite k = 12 MMS by GMRES through ``module_linear_solve``; L2
+        SUPG advection-diffusion, the nu = 0.05 MMS at 33^2 and at 65^2
+        from four rounding-level starts (their median against JAX's) and
+        the inlet skew to the mesh at 64^2 (bounded, its centre within 0.05
+        of JAX's); L3 space-time heat, Allen-Cahn (the A = 0 linear solve,
+        then ``newton_solve``) and deg-2 Burgers at 33^2; L4 the two-dof and
+        FDM Poisson strong forms; L5 eikonal SDFs: the teardrop airfoil at
+        64^2 by LBFGS (mean |u| on the cloud, the sign structure), the
+        circle at 64^2 and the sphere at 32^3 by ``gauss_newton_solve``
+        (mean |u - sdf|), the FDM variant by LBFGS (its loss falls). MMS
+        errors are held to 1.3x JAX's, SDF errors to 1.25x, each Newton
+        and Gauss-Newton solve's final |F| or loss to 1.3x, and its steps
+        to JAX's + 2 where JAX stopped below the cap.
   15. resident steps: steps/s of the 512^2 x 32 training steps with the
      batch on the card (fused and unfused) and of G3's NS step; 10 steps
      of each fused 512^2 x 32 loss (K2's, K3's) under ``torch.profiler``:
      device busy and wall ms a step, idle share, top device operations.
-  16. path shapes: each kernel timed again at the shape where most of its
-     launches on the paths above ran (the slice with the most launches, by
-     ``SLICE_SHAPES``): ``ms_path_shape`` and ``path_shape`` on the kernel
-     table line.
+  16. path shapes: each kernel timed again at every shape its slices run
+     it at (``SLICE_SHAPES``); the shape where most of its launches on the
+     paths above ran (the slice with the most launches) gives
+     ``ms_path_shape`` and ``path_shape`` on the kernel table line.
   Then the kernel table line (all seven kernels; K1's also carries its
   bf16 time, bound and largest error) and, last, ``{"ok": true, "device":
   ...}``.
@@ -186,12 +203,20 @@ import numpy as np
 import torch
 
 from diffnet_tpu_torch.core import fem
+from diffnet_tpu_torch.core.geometry import (occupancy_from_cloud,
+                                             sample_ellipse_cloud,
+                                             sample_sphere_cloud)
 from diffnet_tpu_torch.core.quadrature import make_basis
-from diffnet_tpu_torch.data import (CuboidManufactured, KLSumStochastic,
-                                    NSLDCDataset,
-                                    NumpyLoader, RectangleManufactured,
+from diffnet_tpu_torch.data import (AdvDiff2dRectangle,
+                                    AllenCahnIceMeltRectangle,
+                                    CuboidManufactured, InMemoryDataset,
+                                    KLSumStochastic, NSLDCDataset,
+                                    NumpyLoader,
+                                    RectangleHelmholtzManufactured,
+                                    RectangleManufactured,
+                                    SpaceTimeRectangleManufactured,
                                     SyntheticPointClouds, TopoDataset3D,
-                                    synthesize_topology_3d)
+                                    nurbs_curve, synthesize_topology_3d)
 from diffnet_tpu_torch.data.gen_input import sobol_coefficients
 from diffnet_tpu_torch.interop import (flax_shapes, params_from_jax,
                                        seeded_params)
@@ -205,12 +230,19 @@ from diffnet_tpu_torch.ops import poisson_loss_grad as k2
 from diffnet_tpu_torch.ops import poisson_residual as k1
 from diffnet_tpu_torch.ops import poisson_residual_3d as k5
 from diffnet_tpu_torch.ops import stencil_apply as k4
-from diffnet_tpu_torch.pde import (IBNPoisson2D, IBNPoisson3D, NavierStokes,
-                                   Poisson2D, Poisson3D, ldc_bcs)
+from diffnet_tpu_torch.pde import (AdvDiff2D, AllenCahnIceMelt,
+                                   BurgersSpaceTime, Eikonal2D, Eikonal3D,
+                                   EikonalFDM2D, Helmholtz2D, IBNPoisson2D,
+                                   IBNPoisson3D, NavierStokes, Poisson2D,
+                                   Poisson3D, PoissonFDM2D, PoissonTwoDof2D,
+                                   SpaceTimeHeat, eikonal_gn_residual,
+                                   ldc_bcs, signed_occupancy_init)
 from diffnet_tpu_torch.train import (Callback, OptimizerSwitch, Trainer, cg,
-                                     extract_verified, module_linear_solve,
+                                     extract_verified, gauss_newton_solve,
+                                     module_linear_solve,
                                      multigrid_preconditioner, newton_solve,
                                      ns_newton_solve, query_statistical,
+                                     solve_linear,
                                      stokes_block_preconditioner,
                                      stencil_matvec)
 from diffnet_tpu_torch.utils import (export_forward, field_to_obj,
@@ -2325,6 +2357,429 @@ def slice_k(dev, smi: str) -> dict:
     return out["launches"]
 
 
+# -- slice L: the single-instance physics ------------------------------------
+# Each case at the grid of its JAX figure (CONVERGENCE.md, or the JAX
+# package's own test), built from scripts/torch_port_reference_physics_cases.py
+# as scripts/torch_port_reference_physics.py builds it; JAX_L holds the
+# figures that script prints.
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "scripts"))
+from torch_port_reference_physics_cases import (  # noqa: E402
+    AC_GRID, AC_LINEAR, AC_NEWTON, ADV_A, ADV_EPOCHS, ADV_GRID,
+    ADV_GRID_COARSE, ADV_NU, ADV_START_SCALES, AIRFOIL_EPOCHS,
+    AIRFOIL_POINTS, BURGERS_EPOCHS, BURGERS_GRID, CIRCLE_POINTS,
+    EIK_FDM_EPOCHS, EIK_FDM_POINTS, EIK_GRID, EIK_WEIGHTS, FDM_EPOCHS,
+    FDM_GRID, GN, HEAT_EPOCHS, HEAT_GRID, HELM_EPOCHS, HELM_GRID,
+    HELM_K12, HELM_K12_MAXITER, HELM_K12_TOL, LBFGS_ITERS, SKEW_EPOCHS,
+    SKEW_GRID, SKEW_NU, SPHERE_GRID, SPHERE_POINTS, TWODOF_EPOCHS,
+    TWODOF_GRID, BurgersMMS, ac_exact, ac_forcing, ac_frame,
+    ac_linforcing, advdiff_exact, advdiff_forcing, advdiff_start,
+    airfoil_control_polygon, airfoil_figures, burgers_exact,
+    burgers_forcing, cloud_of, heat_exact_forcing, sdf_error)
+L_MMS_FACTOR = 1.3     # MMS errors: at most 1.3x JAX's, as slice E1
+L_SDF_FACTOR = 1.25    # SDF errors: at most 1.25x JAX's, as slices H, I
+L_ITERS_SLACK = 2      # Newton and Gauss-Newton steps: at most JAX's + 2
+#                        where JAX stopped below the step cap
+L_FINAL_FACTOR = 1.3   # final loss or residual: at most 1.3x JAX's
+SKEW_CENTRE_ATOL = 0.05
+JAX_L = {   # scripts/torch_port_reference_physics.py, on a CPU
+         "helmholtz_mms_rel_l2": 0.0006049238727428019,
+         "helmholtz_k12_rel_l2": 3.2017800549510866e-05,
+         "advdiff_mms_rel_l2": 0.0006445482140406966,
+         "advdiff_mms_rel_l2_starts": [
+             0.0006445482140406966, 0.0007918801275081933,
+             0.0008782703662291169, 0.0009896422270685434],
+         "advdiff_mms_coarse_rel_l2": 0.0026565827429294586,
+         "skew_min": -0.11087954044342041,
+         "skew_max": 1.0370718240737915,
+         "skew_centre": 0.9588693380355835,
+         "heat_rel_l2": 0.0006390105118043721,
+         "allencahn_rel_l2": 0.00015034442185424268,
+         "allencahn_newton_iters": 5,
+         "allencahn_residual_history": [
+             1.730250005493872e-05, 1.036364210449392e-05,
+             1.0363602086727042e-05, 1.0363413821323775e-05,
+             1.0362932698626537e-05, 1.0362809007347096e-05],
+         "burgers_rel_l2": 5.0200098485220224e-05,
+         "twodof_rel_l2": 0.001202543523373149,
+         "fdm_max_interior_err": 0.001042944229100895,
+         "airfoil": {
+             "mean_abs_u_cloud": 0.0028397856095779233,
+             "h": 0.015873015873015872,
+             "median_inside": -0.10000000149011612,
+             "corner_00": 0.10000000149011612,
+             "corner_11": 0.10000000149011612,
+             "inside_nodes": 526},
+         "circle_gn": {
+             "sdf_err": 0.03729686331407118,
+             "gn_iters": 40,
+             "final_loss": 0.000657864089589566,
+             "start_sdf_err": 0.050580684046932965},
+         "sphere_gn": {
+             "sdf_err": 0.03768868110295273,
+             "gn_iters": 37,
+             "final_loss": 29.531349182128906,
+             "start_sdf_err": 0.05084137394328424},
+         "eikonal_fdm": {
+             "first_loss": 135.82620239257812,
+             "last_loss": 1.3028171062469482}}
+
+
+def _l_fit(m, epochs, dev, loader=None, callbacks=()):
+    """An LBFGS fit (10 iterations a step): the trainer, wall s, ms an
+    epoch."""
+    tr = Trainer(max_epochs=epochs, optimizer="lbfgs",
+                 lbfgs_max_iter=LBFGS_ITERS, callbacks=list(callbacks),
+                 device=dev)
+    t0 = time.perf_counter()
+    tr.fit(m, loader)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return tr, wall, 1e3 * statistics.median(tr.epoch_times)
+
+
+def _rel_l2_module(m, u) -> float:
+    with torch.no_grad():
+        eL2, _, uex = m.calc_l2_err(u)
+    return float(eL2 / uex)
+
+
+def _l_check(line: dict, key: str, ref: float, factor: float) -> None:
+    """Hold figure `key` of a slice L line to factor x JAX's `ref`."""
+    got = line[key]
+    line[f"{key}_jax"] = ref
+    line[f"{key}_limit"] = factor * ref
+    if not (math.isfinite(got) and got <= factor * ref):
+        fail(f"{line['phase']}: {key} {got} > {factor} x JAX's {ref}")
+
+
+def _l_steps(what: str, got: int, ref: int, cap: int) -> None:
+    """Hold a solver's step count to JAX's + L_ITERS_SLACK. Where JAX ran
+    to the cap no count can exceed it, and the final loss or residual is
+    the check."""
+    if ref < cap and got > ref + L_ITERS_SLACK:
+        fail(f"{what} took {got} steps, JAX {ref}")
+
+
+def _l_emit(line: dict, checks) -> None:
+    for args in checks:
+        _l_check(line, *args)
+    emit(line)
+
+
+def slice_l1(dev, smi: str) -> None:
+    """Helmholtz: the k = 0.5 MMS by LBFGS (one epoch profiled) and the
+    indefinite k = 12 MMS by GMRES through module_linear_solve."""
+    n = HELM_GRID
+    ds = RectangleHelmholtzManufactured(domain_size=n)
+    ds.n_samples = 1
+    m = Helmholtz2D(DirectField((n, n), init=np.zeros((n, n))), ds,
+                    domain_size=n, batch_size=1, exact_solution=ds.exact)
+    _, wall, ms = _l_fit(m, HELM_EPOCHS, dev)
+    mms = _rel_l2_module(m, m.network()[0])
+    prof = _device_idle_share(lambda _: Trainer(
+        max_epochs=1, optimizer="lbfgs", lbfgs_max_iter=LBFGS_ITERS,
+        device=dev).fit(m), None)
+
+    k = HELM_K12
+    ds = RectangleHelmholtzManufactured(domain_size=n, khh=k)
+    ds.n_samples = 1
+    m = Helmholtz2D(DirectField((n, n)), ds, domain_size=n, batch_size=1,
+                    khh=k, exact_solution=ds.exact,
+                    forcing=lambda x, y: (2 * math.pi**2 - k**2) * np.sin(
+                        math.pi * x) * np.sin(math.pi * y))
+    t0 = time.perf_counter()
+    u, _ = module_linear_solve(m, method="gmres", tol=HELM_K12_TOL,
+                               maxiter=HELM_K12_MAXITER, device=dev)
+    torch.cuda.synchronize()
+    k12_s = time.perf_counter() - t0
+    line = {"phase": "slice_L1", "nvidia_smi": smi, "grid": [n, n],
+            "helmholtz_mms_rel_l2": mms, "epochs": HELM_EPOCHS,
+            "wall_s": wall, "ms_per_lbfgs_epoch": ms,
+            "lbfgs_epoch_profile": prof, "k12": k,
+            "helmholtz_k12_rel_l2": _rel_l2_module(
+                m, torch.from_numpy(u).to(dev)),
+            "k12_gmres": {"tol": HELM_K12_TOL, "maxiter": HELM_K12_MAXITER},
+            "k12_wall_s": k12_s}
+    _l_emit(line, [("helmholtz_mms_rel_l2", JAX_L["helmholtz_mms_rel_l2"],
+                    L_MMS_FACTOR),
+                   ("helmholtz_k12_rel_l2", JAX_L["helmholtz_k12_rel_l2"],
+                    L_MMS_FACTOR)])
+
+
+def slice_l2(dev, smi: str) -> None:
+    """SUPG advection-diffusion: the nu = 0.05 MMS at 33^2 from zeros and
+    at 65^2 from zeros and three rounding-level starts (ADV_START_SCALES),
+    then the inlet carried skew to the mesh. At 65^2 the error sits on
+    float32's floor and spreads over starts that differ by rounding, in
+    JAX as in the port, so the median of the four is held to 1.3x the
+    median of JAX's four; 33^2, which does not spread, to 1.3x JAX's."""
+    def mms(n, scale):
+        ds = RectangleManufactured(n)
+        ds.n_samples = 1
+        m = AdvDiff2D(DirectField((n, n), init=advdiff_start(n, scale)), ds,
+                      adv=ADV_A, diffusivity=ADV_NU, domain_size=n,
+                      batch_size=1, forcing=advdiff_forcing,
+                      exact_solution=advdiff_exact, bc1_value=0.0)
+        _, wall, ms = _l_fit(m, ADV_EPOCHS, dev)
+        return _rel_l2_module(m, m.network()[0]), wall, ms
+
+    coarse, coarse_wall, _ = mms(ADV_GRID_COARSE, 0.0)
+    starts = [mms(ADV_GRID, scale) for scale in ADV_START_SCALES]
+    fine, wall, ms = starts[0]
+    fine_starts = [r[0] for r in starts]
+    n = ADV_GRID
+
+    ns = SKEW_GRID
+    ds = AdvDiff2dRectangle(domain_size=ns)
+    ds.n_samples = 1
+    m = AdvDiff2D(DirectField((ns, ns), init=np.zeros((ns, ns))), ds,
+                  adv=ADV_A, diffusivity=SKEW_NU, domain_size=ns,
+                  batch_size=1, bc1_value=1.0)
+    _, skew_wall, skew_ms = _l_fit(m, SKEW_EPOCHS, dev)
+    with torch.no_grad():
+        u = m.apply_bcs(m.network(), torch.from_numpy(ds[0][0]).to(dev)[None]
+                        )[0].cpu().numpy()
+    centre = float(u[ns // 2, ns // 2])
+    line = {"phase": "slice_L2", "nvidia_smi": smi, "grid": [n, n],
+            "advdiff_mms_rel_l2": fine,
+            "advdiff_mms_rel_l2_jax": JAX_L["advdiff_mms_rel_l2"],
+            "start_scales": ADV_START_SCALES,
+            "advdiff_mms_rel_l2_starts": fine_starts,
+            "advdiff_mms_rel_l2_jax_starts": JAX_L[
+                "advdiff_mms_rel_l2_starts"],
+            "advdiff_mms_rel_l2_median": statistics.median(fine_starts),
+            "starts_wall_s": sum(r[1] for r in starts),
+            "coarse_grid": [ADV_GRID_COARSE] * 2,
+            "advdiff_mms_coarse_rel_l2": coarse,
+            "coarse_wall_s": coarse_wall, "epochs": ADV_EPOCHS,
+            "wall_s": wall, "ms_per_lbfgs_epoch": ms, "skew_grid": [ns, ns],
+            "skew_epochs": SKEW_EPOCHS, "skew_wall_s": skew_wall,
+            "skew_ms_per_lbfgs_epoch": skew_ms, "skew_min": float(u.min()),
+            "skew_max": float(u.max()), "skew_centre": centre,
+            "skew_centre_jax": JAX_L["skew_centre"],
+            "skew_centre_atol": SKEW_CENTRE_ATOL}
+    _l_emit(line, [("advdiff_mms_coarse_rel_l2",
+                    JAX_L["advdiff_mms_coarse_rel_l2"], L_MMS_FACTOR),
+                   ("advdiff_mms_rel_l2_median",
+                    statistics.median(JAX_L["advdiff_mms_rel_l2_starts"]),
+                    L_MMS_FACTOR)])
+    if not (np.isfinite(u).all() and -0.3 < u.min() and u.max() < 1.3
+            and centre > 0.5):
+        fail(f"slice L2: the skew field leaves its bounds: min {u.min()}, "
+             f"max {u.max()}, centre {centre}")
+    if not abs(centre - JAX_L["skew_centre"]) <= SKEW_CENTRE_ATOL:
+        fail(f"slice L2: centre {centre} against JAX's "
+             f"{JAX_L['skew_centre']}")
+
+
+def slice_l3(dev, smi: str) -> None:
+    """Space-time: heat by LBFGS, Allen-Cahn by the A = 0 linear solve and
+    Newton-Krylov, Burgers (deg 2) by LBFGS."""
+    n = HEAT_GRID
+    ds = SpaceTimeRectangleManufactured(domain_size=n)
+    ds.n_samples = 1
+    ex, fo = heat_exact_forcing(ds)
+    m = SpaceTimeHeat(DirectField((n, n), init=np.zeros((n, n))), ds,
+                      domain_size=n, batch_size=1, exact_solution=ex,
+                      forcing=fo, u0=ds.u0)
+    _, heat_wall, heat_ms = _l_fit(m, HEAT_EPOCHS, dev)
+    inputs = torch.from_numpy(ds[0][0]).to(dev)[None]
+    with torch.no_grad():
+        heat = _rel_l2_module(m, m.apply_bcs(m.network(), inputs)[0])
+
+    n = AC_GRID
+    ds = ac_frame(AllenCahnIceMeltRectangle(domain_size=n), n)
+    inputs = torch.from_numpy(ds[0][0]).to(dev)[None]
+    bc1, bc2 = inputs[..., 1], inputs[..., 2]
+    m1 = AllenCahnIceMelt(None, ds, domain_size=n, batch_size=1, ac_A=0.0,
+                          forcing=ac_linforcing, u0=ds.u0).to(dev)
+    m = AllenCahnIceMelt(None, ds, domain_size=n, batch_size=1,
+                         forcing=ac_forcing, exact_solution=ac_exact,
+                         u0=ds.u0).to(dev)
+    t0 = time.perf_counter()
+    u_lin, _ = solve_linear(
+        lambda u: m1.residual(m1.apply_bcs(u[None], inputs), bc1, bc2)[0],
+        (n, n), device=dev, **AC_LINEAR)
+    x, info = newton_solve(
+        lambda u: m.residual(m.apply_bcs(u[None], inputs), bc1, bc2)[0],
+        u_lin, device=dev, **AC_NEWTON)
+    torch.cuda.synchronize()
+    ac_wall = time.perf_counter() - t0
+    with torch.no_grad():
+        ac = _rel_l2_module(m, m.apply_bcs(x[None], inputs)[0])
+
+    n = BURGERS_GRID
+    ds = BurgersMMS(n)
+    m = BurgersSpaceTime(DirectField((n, n), init=np.zeros((n, n))), ds,
+                         domain_size=n, batch_size=1, forcing=burgers_forcing,
+                         exact_solution=burgers_exact)
+    _, bu_wall, bu_ms = _l_fit(m, BURGERS_EPOCHS, dev)
+    inputs = torch.from_numpy(ds[0][0]).to(dev)[None]
+    with torch.no_grad():
+        burgers = _rel_l2_module(m, m.apply_bcs(m.network(), inputs)[0])
+    line = {"phase": "slice_L3", "nvidia_smi": smi,
+            "heat_grid": [HEAT_GRID] * 2, "heat_rel_l2": heat,
+            "heat_epochs": HEAT_EPOCHS, "heat_wall_s": heat_wall,
+            "heat_ms_per_lbfgs_epoch": heat_ms,
+            "allencahn_grid": [AC_GRID] * 2, "allencahn_rel_l2": ac,
+            "allencahn_newton_iters": info["newton_iters"],
+            "allencahn_newton_iters_jax": JAX_L["allencahn_newton_iters"],
+            "allencahn_residual_history": info["residual_history"],
+            "allencahn_final_residual": info["residual_history"][-1],
+            "allencahn_wall_s": ac_wall,
+            "burgers_grid": [BURGERS_GRID] * 2, "burgers_rel_l2": burgers,
+            "burgers_epochs": BURGERS_EPOCHS, "burgers_wall_s": bu_wall,
+            "burgers_ms_per_lbfgs_epoch": bu_ms}
+    _l_emit(line, [("heat_rel_l2", JAX_L["heat_rel_l2"],
+                    L_MMS_FACTOR),
+                   ("allencahn_rel_l2", JAX_L["allencahn_rel_l2"],
+                    L_MMS_FACTOR),
+                   ("burgers_rel_l2", JAX_L["burgers_rel_l2"],
+                    L_MMS_FACTOR),
+                   ("allencahn_final_residual",
+                    JAX_L["allencahn_residual_history"][-1],
+                    L_FINAL_FACTOR)])
+    _l_steps("slice L3: Allen-Cahn", info["newton_iters"],
+             JAX_L["allencahn_newton_iters"], AC_NEWTON["newton_iters"])
+
+
+def slice_l4(dev, smi: str) -> None:
+    """The strong forms: two-dof Poisson and FDM Poisson, by LBFGS."""
+    n = TWODOF_GRID
+    ds = RectangleManufactured(n)
+    ds.n_samples = 1
+    m = PoissonTwoDof2D(DirectField((n, n), init=np.zeros((n, n)),
+                                    n_fields=3), ds, domain_size=n,
+                        batch_size=1)
+    _, tw_wall, tw_ms = _l_fit(m, TWODOF_EPOCHS, dev)
+    batch = torch.from_numpy(ds[0][0]).to(dev)[None]
+    with torch.no_grad():
+        u = m.apply_bcs(m.network(batch), batch)[0][0].cpu().numpy()
+    ue = RectangleManufactured.exact(ds.xx, ds.yy)
+    twodof = float(np.linalg.norm(u - ue) / np.linalg.norm(ue))
+
+    n = FDM_GRID
+    ds = RectangleManufactured(n)
+    ds.n_samples = 1
+    m = PoissonFDM2D(DirectField((n, n), init=np.zeros((n, n))), ds,
+                     domain_size=n, batch_size=1)
+    _, fdm_wall, fdm_ms = _l_fit(m, FDM_EPOCHS, dev)
+    with torch.no_grad():
+        u = m.network()[0].cpu().numpy()
+    fdm = float(np.abs(u - RectangleManufactured.exact(ds.xx, ds.yy))
+                [1:-1, 1:-1].max())
+    line = {"phase": "slice_L4", "nvidia_smi": smi,
+            "twodof_grid": [TWODOF_GRID] * 2, "twodof_rel_l2": twodof,
+            "twodof_epochs": TWODOF_EPOCHS, "twodof_wall_s": tw_wall,
+            "twodof_ms_per_lbfgs_epoch": tw_ms, "fdm_grid": [n, n],
+            "fdm_max_interior_err": fdm, "fdm_epochs": FDM_EPOCHS,
+            "fdm_wall_s": fdm_wall, "fdm_ms_per_lbfgs_epoch": fdm_ms}
+    _l_emit(line, [("twodof_rel_l2", JAX_L["twodof_rel_l2"],
+                    L_MMS_FACTOR),
+                   ("fdm_max_interior_err", JAX_L["fdm_max_interior_err"],
+                    L_MMS_FACTOR)])
+
+
+def _l_gn(cls, n, cloud_args, dev) -> dict:
+    """A Gauss-Newton SDF solve of the cloud from its signed start: the
+    figures, the steps and ms a step."""
+    shape = (n,) * (2 if cls is Eikonal2D else 3)
+    m = cls(None, None, domain_size=n, batch_size=1, **EIK_WEIGHTS)
+    u0 = signed_occupancy_init(*(torch.from_numpy(a).to(dev)[None]
+                                 for a in cloud_args), shape)[0]
+    r = eikonal_gn_residual(m, cloud_of(*cloud_args)[None], device=dev)
+    t0 = time.perf_counter()
+    x, info = gauss_newton_solve(r, u0, device=dev, **GN)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return {"grid": list(shape), "sdf_err": sdf_error(x.cpu().numpy()),
+            "start_sdf_err": sdf_error(u0.cpu().numpy()),
+            "gn_iters": info["gn_iters"],
+            "final_loss": info["loss_history"][-1], "wall_s": wall,
+            "ms_per_gn_iter": 1e3 * wall / max(1, info["gn_iters"])}
+
+
+def slice_l5(dev, smi: str) -> None:
+    """Eikonal: the airfoil by LBFGS, the circle and the sphere by
+    Gauss-Newton, the FDM variant by LBFGS."""
+    n = EIK_GRID
+    pts, nrm, area = nurbs_curve(airfoil_control_polygon(),
+                                 n_samples=AIRFOIL_POINTS)
+    cloud = cloud_of(pts, nrm, area)
+    ds = InMemoryDataset(cloud[None], np.zeros((1, n, n, 1), np.float32))
+    targs = [torch.from_numpy(a).to(dev)[None] for a in (pts, nrm, area)]
+    chi = occupancy_from_cloud(*targs, (n, n))[0].cpu().numpy()
+    u0 = signed_occupancy_init(*targs, (n, n))[0].cpu().numpy()
+    m = Eikonal2D(DirectField((n, n), init=u0), ds, domain_size=n,
+                  batch_size=1, **EIK_WEIGHTS)
+    _, af_wall, af_ms = _l_fit(m, AIRFOIL_EPOCHS, dev,
+                               NumpyLoader(ds, batch_size=1))
+    with torch.no_grad():
+        airfoil = airfoil_figures(m.network()[0].cpu().numpy(), pts, chi)
+    circle = _l_gn(Eikonal2D, n, sample_ellipse_cloud(
+        n_points=CIRCLE_POINTS, center=(0.5, 0.5), radii=(0.25, 0.25)), dev)
+    sphere = _l_gn(Eikonal3D, SPHERE_GRID, sample_sphere_cloud(
+        n_points=SPHERE_POINTS, radius=0.25), dev)
+
+    pts, nrm, area = sample_ellipse_cloud(n_points=EIK_FDM_POINTS,
+                                          center=(0.5, 0.5),
+                                          radii=(0.28, 0.18))
+    ds = InMemoryDataset(cloud_of(pts, nrm, area)[None],
+                         np.zeros((1, n, n, 1), np.float32))
+    u0 = signed_occupancy_init(*(torch.from_numpy(a).to(dev)[None]
+                                 for a in (pts, nrm, area)), (n, n))[0]
+    m = EikonalFDM2D(DirectField((n, n), init=u0.cpu().numpy()), ds,
+                     domain_size=n, batch_size=1, **EIK_WEIGHTS)
+    rec = _EpochLosses()
+    _, fdm_wall, fdm_ms = _l_fit(m, EIK_FDM_EPOCHS, dev,
+                                 NumpyLoader(ds, batch_size=1), [rec])
+    line = {"phase": "slice_L5", "nvidia_smi": smi,
+            "airfoil": {**airfoil, "grid": [n, n], "points": AIRFOIL_POINTS,
+                        "epochs": AIRFOIL_EPOCHS, "wall_s": af_wall,
+                        "ms_per_lbfgs_epoch": af_ms},
+            "airfoil_mean_abs_u": airfoil["mean_abs_u_cloud"],
+            "circle_gn": circle, "circle_sdf_err": circle["sdf_err"],
+            "circle_final_loss": circle["final_loss"],
+            "sphere_gn": sphere, "sphere_sdf_err": sphere["sdf_err"],
+            "sphere_final_loss": sphere["final_loss"],
+            "gn": GN, "gn_iters_jax": {
+                "circle": JAX_L["circle_gn"]["gn_iters"],
+                "sphere": JAX_L["sphere_gn"]["gn_iters"]},
+            "eikonal_fdm": {"grid": [n, n], "epochs": EIK_FDM_EPOCHS,
+                            "first_loss": rec.losses[0],
+                            "last_loss": rec.losses[-1],
+                            "jax": JAX_L["eikonal_fdm"], "wall_s": fdm_wall,
+                            "ms_per_lbfgs_epoch": fdm_ms}}
+    _l_emit(line, [
+        ("airfoil_mean_abs_u", JAX_L["airfoil"]["mean_abs_u_cloud"],
+         L_SDF_FACTOR),
+        ("circle_sdf_err", JAX_L["circle_gn"]["sdf_err"], L_SDF_FACTOR),
+        ("sphere_sdf_err", JAX_L["sphere_gn"]["sdf_err"], L_SDF_FACTOR),
+        ("circle_final_loss", JAX_L["circle_gn"]["final_loss"],
+         L_FINAL_FACTOR),
+        ("sphere_final_loss", JAX_L["sphere_gn"]["final_loss"],
+         L_FINAL_FACTOR)])
+    if not (airfoil["median_inside"] < 0 and airfoil["corner_00"] > 0
+            and airfoil["corner_11"] > 0):
+        fail(f"slice L5: the airfoil's sign structure is wrong: {airfoil}")
+    for name, got in (("circle", circle), ("sphere", sphere)):
+        _l_steps(f"slice L5: the {name}", got["gn_iters"],
+                 JAX_L[f"{name}_gn"]["gn_iters"], GN["newton_iters"])
+    if not rec.losses[-1] < rec.losses[0]:
+        fail(f"slice L5: the FDM eikonal loss did not fall: {rec.losses}")
+
+
+def slice_l(dev, smi: str) -> dict:
+    """Slice L, the single-instance physics: no kernel of the table lies
+    on it (the JAX package computes these losses with XLA)."""
+    start = counts()
+    t0 = time.perf_counter()
+    for fn in (slice_l1, slice_l2, slice_l3, slice_l4, slice_l5):
+        fn(dev, smi)
+    return {"seconds": time.perf_counter() - t0, "launches": since(start)}
+
+
 FUSED_2D_STEPS = (   # the resident 512^2 x 32 steps on the fused losses
     ("resmin_fused_loss_grad", "resmin",
      {"fused_kernels": True, "fused_loss_grad": True}),
@@ -2456,16 +2911,23 @@ def _kernel_call(name: str, shape, dev):
 
 
 def phase_path_shapes(dev, by_slice: dict) -> dict:
-    """Each kernel's time at the shape where most of its main-path
-    launches ran: the slice (SLICE_SHAPES) with the most launches."""
+    """Each kernel's time at every shape its slices run it at
+    (SLICE_SHAPES): ``ms`` at the slice with the most launches, and
+    ``ms_by_slice``."""
     out = {}
     for name, shapes in SLICE_SHAPES.items():
         runs = {sl: by_slice[sl][name] for sl in shapes}
         sl = max(runs, key=runs.get)
         if runs[sl] <= 0:
             fail(f"{name}: no launch on its slices {runs}")
-        ms = cuda_ms({name: _kernel_call(name, shapes[sl], dev)})[name]
-        out[name] = {"shape": list(shapes[sl]), "slice": sl, "ms": ms,
+        by_shape = {}
+        for shape in dict.fromkeys(shapes.values()):
+            by_shape[shape] = cuda_ms(
+                {name: _kernel_call(name, shape, dev)})[name]
+        out[name] = {"shape": list(shapes[sl]), "slice": sl,
+                     "ms": by_shape[shapes[sl]],
+                     "ms_by_slice": {k: by_shape[v]
+                                     for k, v in shapes.items()},
                      "launches_by_slice": runs}
     emit({"phase": "path_shapes", **out})
     return out
@@ -2526,12 +2988,15 @@ def main() -> int:
     reset_counts()           # round-robin NS training: K6 per objective step
     lk = slice_k(dev, smi)
     paths["flow_rr"] = counts()
+    reset_counts()           # the single-instance physics: no kernel on it
+    ll = slice_l(dev, smi)
+    paths["physics_2d"] = counts()
     total = {name: sum(p[name] for p in paths.values()) for name in KERNELS}
     emit({"phase": "main_path_launches", "total": total, **paths,
           "slice_A": la, "slice_B": lb, "slice_C": lc, "slice_E1": le1,
           "slice_E2": le2, "slice_G1": lg1, "slice_G2": lg2,
           "slice_G3": lg3, "slice_H": lh, "slice_I": li, "slice_J": lj,
-          "slice_K": lk})
+          "slice_K": lk, "slice_L": ll})
     for path, names in (("training_2d", ("poisson_stiffness_action",
                                          "poisson_resmin_loss_grad",
                                          "poisson_energy")),

@@ -1,4 +1,4 @@
-from . import fem, geometry
+from . import fdm, fem, geometry, interp
 from .quadrature import FEMBasis, make_basis
 
-__all__ = ["fem", "geometry", "FEMBasis", "make_basis"]
+__all__ = ["fdm", "fem", "geometry", "interp", "FEMBasis", "make_basis"]

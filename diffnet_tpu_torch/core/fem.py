@@ -163,7 +163,9 @@ def gp_eval(u: torch.Tensor, basis: BasisTables,
     """Dict view of :func:`gp_eval_stacked`:
     quantity -> ``[..., nel*, ngp]``."""
     stacked = gp_eval_stacked(u, basis, quantities)
-    return {q: stacked[..., i, :] for i, q in enumerate(quantities)}
+    # unbind: one stack in the backward pass, where a view per quantity
+    # would scatter each gradient into a zero-filled copy of the whole
+    return dict(zip(quantities, stacked.unbind(-2)))
 
 
 def galerkin_project(integrand_gp: torch.Tensor, basis: BasisTables,

@@ -1,15 +1,22 @@
 from .flow import (FlowPastObjectDataset, FlowPastObjectEnsemble,
                    NSFPSChannelDataset, NSLDCDataset, StokesMMSDataset,
                    synthetic_obstacles)
-from .geometry_datasets import (PCVox, ParametricNURBS, TopoDataset3D,
-                                image_to_point_cloud, nurbs_curve,
-                                synthesize_topology_3d)
+from .geometry_datasets import (Burg2DXT, PCVox, ParametricNURBS,
+                                TopoDataset3D, image_to_point_cloud,
+                                nurbs_curve, synthesize_topology_3d)
 from .loader import InMemoryDataset, NumpyLoader
 from .parametric import (ImageIMBack, ImageIMBackNeumann, ImageIMBackObject,
                          KLSumStochastic, PointClouds, SyntheticPointClouds)
-from .single_instances import (Cuboid, CuboidManufactured,
-                               KLSumSingleInstance, Rectangle,
-                               RectangleManufactured, SingleInstanceDataset,
+from .single_instances import (AdvDiff1dRectangle, AdvDiff2dRectangle,
+                               AllenCahnIceMeltRectangle, Cuboid,
+                               CuboidManufactured, KLSumSingleInstance,
+                               Rectangle, RectangleHelmholtzDeltaForce,
+                               RectangleHelmholtzManufactured,
+                               RectangleManufactured,
+                               RectangleManufacturedNonZeroBC,
+                               RectangleManufacturedStokes,
+                               SingleInstanceDataset,
+                               SpaceTimeRectangleManufactured,
                                VoxelIMBackRAW, load_raw)
 
 __all__ = ["NumpyLoader", "InMemoryDataset", "PointClouds",
@@ -21,4 +28,8 @@ __all__ = ["NumpyLoader", "InMemoryDataset", "PointClouds",
            "FlowPastObjectDataset", "FlowPastObjectEnsemble",
            "NSFPSChannelDataset", "synthetic_obstacles", "PCVox",
            "ParametricNURBS", "TopoDataset3D", "image_to_point_cloud",
-           "nurbs_curve", "synthesize_topology_3d"]
+           "nurbs_curve", "synthesize_topology_3d", "Burg2DXT",
+           "RectangleManufacturedNonZeroBC", "SpaceTimeRectangleManufactured",
+           "AdvDiff1dRectangle", "AdvDiff2dRectangle",
+           "AllenCahnIceMeltRectangle", "RectangleHelmholtzManufactured",
+           "RectangleHelmholtzDeltaForce", "RectangleManufacturedStokes"]

@@ -7,9 +7,10 @@ package's):
   * ``nurbs_curve`` and ``ParametricNURBS``: NURBS boundary clouds from
     randomised control polygons, the winding batches of ``IBNPoisson2D``;
   * ``synthesize_topology_3d`` and ``TopoDataset3D``: 3D topology volumes
-    (npz files or synthetic bar lattices) as ``IBNPoisson3D`` batches.
+    (npz files or synthetic bar lattices) as ``IBNPoisson3D`` batches;
+  * ``Burg2DXT``: the space-time Burgers grid of ``BurgersSpaceTime``.
 
-The space-time Burgers and FSDT plate datasets come with their physics.
+The FSDT plate dataset comes with its physics.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ import os
 import numpy as np
 
 __all__ = ["image_to_point_cloud", "PCVox", "nurbs_curve", "ParametricNURBS",
-           "TopoDataset3D", "synthesize_topology_3d"]
+           "TopoDataset3D", "synthesize_topology_3d", "Burg2DXT"]
 
 
 def image_to_point_cloud(img, n_points=None):
@@ -251,3 +252,38 @@ class TopoDataset3D:
         inputs = self.samples[idx]
         n = self.domain_size
         return inputs, np.zeros((n, n, n, 1), np.float32)
+
+
+class Burg2DXT:
+    """Space-time Burgers grid: channels (x, bc1, bc2, bc1_val), the masks
+    -10 off the boundary; the initial condition cos(4 pi x) on the t = 0
+    row, u = 0 on the x walls; forcing 0.01 / pi.
+
+    x spans [-1, 1]: build the module with ``domain_lengths=(2.0, 1.0)`` so
+    derivatives carry the physical scale (Gauss-point coordinates then run
+    over [0, 2], so forcing and exact callables see x + 1)."""
+
+    n_samples = 100
+
+    def __init__(self, domain_size=64):
+        n = domain_size
+        x = np.linspace(-1, 1, n)
+        t = np.linspace(0, 1, n)
+        self.x, self.t = np.meshgrid(x, t)
+        bc1 = np.full((n, n), -10.0)
+        bc1_val = np.zeros((n, n))
+        bc1[0, :] = 1.0
+        bc1_val[0, :] = np.cos(4 * math.pi * x)
+        bc2 = np.full((n, n), -10.0)
+        bc2[:, 0] = 1
+        bc2[:, -1] = 1
+        self.inputs = np.stack([self.x, bc1, bc2, bc1_val],
+                               -1).astype(np.float32)
+        self.forcing = np.full((n, n, 1), 0.01 / math.pi, np.float32)
+        self.initial_guess = np.tile(bc1_val[0], (n, 1)).astype(np.float32)
+
+    def __len__(self):
+        return self.n_samples
+
+    def __getitem__(self, idx):
+        return self.inputs, self.forcing

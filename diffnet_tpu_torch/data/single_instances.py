@@ -17,8 +17,13 @@ import numpy as np
 
 from .gen_input import generate_diffusivity_tensor
 
-__all__ = ["SingleInstanceDataset", "Rectangle", "RectangleManufactured",
-           "KLSumSingleInstance", "Cuboid", "CuboidManufactured", "load_raw", "VoxelIMBackRAW"]
+__all__ = [
+    "SingleInstanceDataset", "Rectangle", "RectangleManufactured",
+    "RectangleManufacturedNonZeroBC", "SpaceTimeRectangleManufactured",
+    "AdvDiff1dRectangle", "AdvDiff2dRectangle", "AllenCahnIceMeltRectangle",
+    "RectangleHelmholtzManufactured", "RectangleHelmholtzDeltaForce",
+    "RectangleManufacturedStokes", "KLSumSingleInstance", "Cuboid",
+    "CuboidManufactured", "load_raw", "VoxelIMBackRAW"]
 
 
 def _grid(n):
@@ -75,6 +80,148 @@ class RectangleManufactured(SingleInstanceDataset):
     @staticmethod
     def exact(x, y):
         return np.sin(math.pi * x) * np.sin(math.pi * y)
+
+
+def _walls_2d(n: int) -> np.ndarray:
+    """1 on the four walls of an n^2 node grid."""
+    bc = np.zeros((n, n))
+    bc[[0, -1], :] = 1
+    bc[:, [0, -1]] = 1
+    return bc
+
+
+class RectangleManufacturedNonZeroBC(SingleInstanceDataset):
+    """u_exact = exp(-pi x) sin(pi y): bc1 the left and right walls (the
+    nonzero Dirichlet data), bc2 the top and bottom rows; no forcing."""
+
+    def __init__(self, domain_size=64):
+        n = domain_size
+        self.domain = np.ones((n, n))
+        self.bc1 = np.zeros((n, n)); self.bc1[:, [0, -1]] = 1
+        self.bc2 = np.zeros((n, n)); self.bc2[[0, -1], :] = 1
+        self.xx, self.yy = _grid(n)
+        self.om = np.pi
+        self.u_exact = np.exp(-self.om * self.xx) * np.sin(self.om * self.yy)
+        self.forcing = np.zeros((n, n))
+
+
+class SpaceTimeRectangleManufactured(SingleInstanceDataset):
+    """Space-time heat, the y axis time: bc1 the initial row (y = 0), bc2
+    the side walls; u0 = sin(pi x) exp(-0.5 y), diffusivity 0.1. ``domain``
+    and ``initial_guess`` are drawn from ``np.random.default_rng(seed)``."""
+
+    def __init__(self, domain_size=64, seed=0):
+        n = domain_size
+        rng = np.random.default_rng(seed)
+        self.bc1 = np.zeros((n, n)); self.bc1[0, :] = 1
+        self.bc2 = np.zeros((n, n)); self.bc2[:, [0, -1]] = 1
+        xx, yy = _grid(n)
+        self.decay_rt = 0.5
+        self.u0 = np.sin(math.pi * xx) * np.exp(-self.decay_rt * yy)
+        self.diffusivity = 0.1
+        self.forcing = np.zeros_like(xx)
+        self.domain = rng.normal(0, 1.0, size=(n, n))
+        self.initial_guess = (np.tile(self.u0[0, :], (n, 1))
+                              + 0.1 * rng.random((n, n)))
+
+
+class AdvDiff1dRectangle(SingleInstanceDataset):
+    """1D advection-diffusion embedded in 2D: Dirichlet side walls,
+    f = 1."""
+
+    def __init__(self, domain_size=64):
+        n = domain_size
+        self.domain = np.ones((n, n))
+        self.bc1 = np.zeros((n, n))
+        self.bc2 = np.zeros((n, n)); self.bc2[:, [0, -1]] = 1
+        self.xx, self.yy = _grid(n)
+        self.forcing = np.ones((n, n))
+
+
+class AdvDiff2dRectangle(SingleInstanceDataset):
+    """2D advection skew to the mesh: the left wall's inlet (bc1, u = 1)
+    above y = 0.2, u = 0 below it and on the bottom row (bc2)."""
+
+    def __init__(self, domain_size=64):
+        n = domain_size
+        self.domain = np.ones((n, n))
+        self.bc1 = np.zeros((n, n))
+        self.bc2 = np.zeros((n, n))
+        cut = int(0.2 * n)
+        self.bc1[cut:, 0] = 1
+        self.bc2[:cut, 0] = 1
+        self.bc2[0, :] = 1
+        self.xx, self.yy = _grid(n)
+        self.forcing = np.zeros((n, n))
+
+
+class AllenCahnIceMeltRectangle(SingleInstanceDataset):
+    """Allen-Cahn ice melt in space-time: a tanh interface as the initial
+    row (bc1); A = 16, Cn = 0.1, D = 1, k = 2."""
+
+    def __init__(self, domain_size=64):
+        n = domain_size
+        self.ac_A, self.ac_Cn, self.ac_D, self.ac_k = 16.0, 0.1, 1.0, 2.0
+        self.domain = np.ones((n, n))
+        self.bc1 = np.zeros((n, n)); self.bc1[0, :] = 1
+        self.bc2 = np.zeros((n, n))
+        x = np.linspace(0, 1, n)
+        self.xx, self.yy = _grid(n)
+        thick = self.ac_Cn * np.sqrt(2.0 / self.ac_A)
+        u_t0 = 0.5 + 0.5 * np.tanh((x - 0.5) / thick)
+        self.u0 = np.zeros((n, n)); self.u0[0, :] = u_t0
+        self.initial_guess = np.tile(u_t0[None, :], (n, 1))
+        self.forcing = np.zeros((n, n))
+
+
+class RectangleHelmholtzManufactured(SingleInstanceDataset):
+    """Helmholtz MMS: u = sin(pi x) sin(pi y), f = (2 pi^2 - k^2) u,
+    Dirichlet-0 on the walls; k = ``khh``."""
+
+    def __init__(self, domain_size=64, khh=0.5):
+        n = domain_size
+        self.khh = khh
+        self.domain = np.ones((n, n))
+        self.bc1 = np.zeros((n, n))
+        self.bc2 = _walls_2d(n)
+        self.xx, self.yy = _grid(n)
+        self.forcing = (2.0 * math.pi**2 - khh**2) * np.sin(
+            math.pi * self.xx) * np.sin(math.pi * self.yy)
+
+    @staticmethod
+    def exact(x, y):
+        return np.sin(math.pi * x) * np.sin(math.pi * y)
+
+
+class RectangleHelmholtzDeltaForce(SingleInstanceDataset):
+    """Helmholtz with a near-delta Gaussian source at (0.1875, 0.1875),
+    k = 1/8, Dirichlet-0 on the walls."""
+
+    def __init__(self, domain_size=64):
+        n = domain_size
+        self.khh = 1.0 / 8.0
+        self.domain = np.ones((n, n))
+        self.bc1 = np.zeros((n, n))
+        self.bc2 = _walls_2d(n)
+        xx, yy = _grid(n)
+        mu, sig = 0.1875, 0.05
+        self.forcing = np.exp(-0.5 * ((xx - mu) / sig) ** 2
+                              - 0.5 * ((yy - mu) / sig) ** 2) / (
+                                  2 * np.pi * sig * sig)
+
+
+class RectangleManufacturedStokes(SingleInstanceDataset):
+    """The Stokes MMS masks: bc2 the top and bottom rows, f = 2 pi^2
+    sin(pi x) sin(pi y)."""
+
+    def __init__(self, domain_size=64):
+        n = domain_size
+        self.domain = np.ones((n, n))
+        self.bc1 = np.zeros((n, n))
+        self.bc2 = np.zeros((n, n)); self.bc2[[0, -1], :] = 1
+        self.xx, self.yy = _grid(n)
+        self.forcing = 2.0 * math.pi**2 * np.sin(math.pi * self.xx) * np.sin(
+            math.pi * self.yy)
 
 
 class KLSumSingleInstance(SingleInstanceDataset):

@@ -25,9 +25,10 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..core import fem
+from ..core.fdm import make_fdm
 from ..core.quadrature import make_basis
 
-__all__ = ["PDEModule", "FEM2DModule", "FEM3DModule"]
+__all__ = ["PDEModule", "FEM2DModule", "FEM3DModule", "FDMModule"]
 
 
 class PDEModule(nn.Module):
@@ -250,3 +251,40 @@ class FEM3DModule(_FEMMixin, PDEModule):
         if self.nsd != 3:
             raise ValueError(f"FEM3DModule needs nsd=3, got {self.nsd}")
         self._setup_fem(**kwargs)
+
+
+class FDMModule(PDEModule):
+    """FDM PDE base: ``ktype`` and ``stencil_len`` choose the stencils of
+    ``fdm`` (:func:`~diffnet_tpu_torch.core.fdm.make_fdm` on
+    ``domain_size`` nodes); the ``derivative_*`` methods evaluate them in
+    "full" mode (edge padding and boundary correction, the field's
+    shape)."""
+
+    def __init__(self, network=None, dataset=None, **kwargs):
+        kwargs.setdefault("nsd", 2)
+        super().__init__(network, dataset, **kwargs)
+        self.ktype = kwargs.get("ktype", "fdm")
+        self.stencil_len = kwargs.get("stencil_len", 3)
+        self.fdm = make_fdm(self.nsd, self.domain_size, ktype=self.ktype,
+                            num_pt=self.stencil_len)
+
+    def derivative_x(self, g):
+        return self.fdm.dx(g, mode="full")
+
+    def derivative_y(self, g):
+        return self.fdm.dy(g, mode="full")
+
+    def derivative_z(self, g):
+        return self.fdm.dz(g, mode="full")
+
+    def derivative_xx(self, g):
+        return self.fdm.dxx(g, mode="full")
+
+    def derivative_yy(self, g):
+        return self.fdm.dyy(g, mode="full")
+
+    def derivative_zz(self, g):
+        return self.fdm.dzz(g, mode="full")
+
+    def calc_laplacian(self, g):
+        return self.fdm.laplacian(g, mode="full")

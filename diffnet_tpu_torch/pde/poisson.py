@@ -7,7 +7,10 @@ Losses, as in the JAX package:
     default) or the Gauss-point pipeline (``"gp"``), with an optional dense
     left preconditioner;
   * strong-form collocation via FEM second derivatives,
-    ``loss_type="strong"`` (needs deg >= 2).
+    ``loss_type="strong"`` (needs deg >= 2);
+  * the mixed first-order strong form over (u, mx, my),
+    :class:`PoissonTwoDof2D`, and the FDM strong form,
+    :class:`PoissonFDM2D`.
 
 ``fused_kernels=True`` routes the deg-1 losses through the CUDA kernels of
 :mod:`diffnet_tpu_torch.ops`: 2D energy and resmin (K3, K1), 3D resmin
@@ -30,7 +33,7 @@ from ..ops.poisson_energy import poisson_energy_fused
 from ..ops.poisson_loss_grad import poisson_resmin_loss_fused
 from ..ops.poisson_residual import poisson_residual_fused
 from ..ops.poisson_residual_3d import poisson_residual_fused_3d
-from .base import FEM2DModule, FEM3DModule
+from .base import FDMModule, FEM2DModule, FEM3DModule
 
 __all__ = [
     "poisson_energy_loss",
@@ -39,6 +42,8 @@ __all__ = [
     "poisson_strong_form_loss",
     "Poisson2D",
     "Poisson3D",
+    "PoissonFDM2D",
+    "PoissonTwoDof2D",
 ]
 
 
@@ -264,3 +269,73 @@ class Poisson3D(_PoissonCommon, FEM3DModule):
     def __init__(self, network=None, dataset=None, **kwargs):
         super().__init__(network, dataset, **kwargs)
         self._setup_poisson(**kwargs)
+
+
+class PoissonTwoDof2D(FEM2DModule):
+    """Mixed first-order strong form over (u, mx, my): the flux m = nu
+    grad u is a field of its own, so only first derivatives appear (usable
+    at deg 1):
+
+        L = mean_e sum_gp gpw [(mx - nu u_x)^2 + (my - nu u_y)^2
+                               + (mx_x + my_y + f)^2]
+
+    Dirichlet: u = 1 on bc1, u = 0 on bc2; the flux fields are free.
+    ``pred`` is a tuple (u, mx, my) (``DirectField(n_fields=3)``) or a
+    stacked ``[..., 3]`` channels-last tensor; inputs (nu, bc1, bc2)."""
+
+    def _split(self, pred):
+        if isinstance(pred, (tuple, list)):
+            return tuple(_squeeze_field(f) for f in pred)
+        return pred[..., 0], pred[..., 1], pred[..., 2]
+
+    def apply_bcs(self, pred, inputs_tensor):
+        u, mx, my = self._split(pred)
+        u = self.apply_dirichlet(u, inputs_tensor[..., 1], 1.0)
+        u = self.apply_dirichlet(u, inputs_tensor[..., 2], 0.0)
+        return u, mx, my
+
+    def loss(self, pred, inputs_tensor, forcing_tensor):
+        u, mx, my = self.apply_bcs(pred, inputs_tensor)
+        nu = inputs_tensor[..., 0]
+        f = _squeeze_field(forcing_tensor)
+        quants = ("N", "dx", "dy")
+        # one contraction for the three fields and three quantities
+        allgp = fem.gp_eval_stacked(torch.stack([u, mx, my]), self.basis,
+                                    quants)
+        ugp, mxgp, mygp = (dict(zip(quants, f.unbind(-2)))
+                           for f in allgp.unbind(0))
+        nu_gp = self.gauss_pt_evaluation(nu)
+        f_gp = self.gauss_pt_evaluation(f)
+        w = self.basis.gpw(u.dtype)
+        res1 = ((mxgp["N"] - nu_gp * ugp["dx"]) ** 2
+                + (mygp["N"] - nu_gp * ugp["dy"]) ** 2)
+        res2 = (mxgp["dx"] + mygp["dy"] + f_gp) ** 2
+        return torch.mean(torch.sum(w * (res1 + res2), dim=-1))
+
+
+class PoissonFDM2D(FDMModule):
+    """FDM strong-form Poisson: ``res = f + grad u . grad nu + nu lap u``
+    on the interior, u = 0 on bc2; the loss is each sample's 2-norm of
+    res. 5-point first derivatives shrink the grid by two rings, the 3-point
+    laplacian by one: every term is cropped to the common interior."""
+
+    def loss(self, u, inputs_tensor, forcing_tensor):
+        u = _squeeze_field(u)
+        nu = inputs_tensor[..., 0]
+        f = _squeeze_field(forcing_tensor)
+        u = self.apply_dirichlet(u, inputs_tensor[..., 2], 0.0)
+        fdm = self.fdm
+        ux, uy = fdm.dx(u), fdm.dy(u)
+        lap = fdm.dxx(u) + fdm.dyy(u)
+        nux, nuy = fdm.dx(nu), fdm.dy(nu)
+        k1 = (fdm.num_pt - 1) // 2
+        m = max(k1, 1)
+
+        def crop(a, k):
+            d = m - k
+            return a[..., d:a.shape[-2] - d, d:a.shape[-1] - d] if d else a
+
+        res = (f[..., m:-m, m:-m] + crop(ux, k1) * crop(nux, k1)
+               + crop(uy, k1) * crop(nuy, k1)
+               + nu[..., m:-m, m:-m] * crop(lap, 1))
+        return torch.linalg.vector_norm(res.reshape(res.shape[0], -1), dim=1)

@@ -1,7 +1,8 @@
 from .continuation import coarse_to_fine, prolong_field
 from .krylov import bicgstab, cg, gmres
-from .linear import (module_linear_solve, multigrid_preconditioner,
-                     newton_solve, ns_newton_solve, solve_linear,
+from .linear import (gauss_newton_solve, module_linear_solve,
+                     multigrid_preconditioner, newton_solve, ns_newton_solve,
+                     solve_linear,
                      stokes_block_preconditioner, stokes_linear_solve)
 from .stencil import (assemble_stencil, extract_stencil, extract_verified,
                       stencil_diag, stencil_matvec)
@@ -21,5 +22,6 @@ __all__ = ["Trainer", "TrainState", "Callback", "CSVLogger", "EarlyStopping",
            "solve_linear", "module_linear_solve", "multigrid_preconditioner",
            "assemble_stencil", "extract_stencil", "extract_verified",
            "stencil_diag", "stencil_matvec", "newton_solve",
-           "ns_newton_solve", "stokes_block_preconditioner",
+           "ns_newton_solve", "gauss_newton_solve",
+           "stokes_block_preconditioner",
            "stokes_linear_solve"]

@@ -6,10 +6,12 @@ optimizer steps on ``module.training_loss``:
 
   * optimizers: ``"adam"``, ``"sgd"``, ``"lbfgs"``, or a callable
     ``params -> torch.optim.Optimizer`` (the counterpart of an optax
-    transform). LBFGS is ``torch.optim.LBFGS(lr=1, max_iter=lbfgs_max_iter,
-    line_search_fn="strong_wolfe")`` stepped once per batch; its line
-    search is not optax's zoom search, so it agrees with the JAX Trainer in
-    the solution reached, not step by step;
+    transform). LBFGS is :class:`~diffnet_tpu_torch.train.lbfgs.LBFGS`
+    (``torch.optim.LBFGS(lr=1, max_iter=lbfgs_max_iter, history_size=10,
+    line_search_fn="strong_wolfe")`` with a scale-free curvature test)
+    stepped once per batch; its line search is not optax's zoom search, so
+    it agrees with the JAX Trainer in the solution reached, not step by
+    step;
   * ``lr_milestones``: the learning rate times ``lr_gamma`` at each
     milestone epoch (torch's ``MultiStepLR``, stepped once an optimizer step
     with the milestones in steps, as optax's ``piecewise_constant_schedule``
@@ -50,6 +52,7 @@ import torch
 
 from ..data.loader import NumpyLoader
 from ..utils.device import resolve_device
+from .lbfgs import LBFGS
 
 __all__ = ["TrainState", "Trainer", "Callback", "CSVLogger",
            "TensorBoardLogger", "EarlyStopping", "OptimizerSwitch",
@@ -242,10 +245,13 @@ def _make_optimizer(spec, params: list, learning_rate: float,
         # it when line searches take a second evaluation; the JAX Trainer
         # always runs max_iter iterations. 25 evaluations an iteration is
         # the cap torch puts on one line search.
-        return torch.optim.LBFGS(params, lr=1.0, max_iter=lbfgs_max_iter,
-                                 max_eval=25 * lbfgs_max_iter,
-                                 tolerance_grad=0.0, tolerance_change=0.0,
-                                 line_search_fn="strong_wolfe")
+        # LBFGS (train/lbfgs.py) keeps every curvature pair of positive
+        # s.y, where torch's drops those below 1e-10 and stalls near 1e-9;
+        # 10 pairs, optax.lbfgs's memory (torch's default is 100)
+        return LBFGS(params, lr=1.0, max_iter=lbfgs_max_iter,
+                     max_eval=25 * lbfgs_max_iter, tolerance_grad=0.0,
+                     tolerance_change=0.0, history_size=10,
+                     line_search_fn="strong_wolfe")
     raise ValueError(f"unknown optimizer {spec!r}")
 
 

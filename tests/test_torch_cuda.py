@@ -23,7 +23,10 @@ kernel of ours: the winding number, cuDNN convolutions and the energy; the
 and DGCNN2D's forward at 1e-5 of the CPU's; slice J's energy step through
 K3 and K1 (with and without remat) at 1e-5 of the plain loss and 1e-4 of
 its largest parameter gradient; slice K's objectives through K6 at 1e-5 of
-the plain loss and 2e-5 of the largest field gradient.
+the plain loss and 2e-5 of the largest field gradient; slice L's eikonal
+and SUPG losses (no kernel of ours) at 1e-5 of the CPU's loss and largest
+field gradient, and a float64 Gauss-Newton step's losses at 1e-12 of the
+first and its field at 1e-6 of its largest value.
 """
 
 import numpy as np
@@ -735,3 +738,88 @@ def test_ns_objective_loss_through_k6_matches_plain(dev, idx):
     scale = max(float(g.abs().max()) for g in gp)
     for a, b in zip(gf, gp):
         torch.testing.assert_close(a, b, rtol=0, atol=2e-5 * scale)
+
+
+def _physics_case(kind, n):
+    """(module, field, batch) of slice L's card checks at a seeded field."""
+    from diffnet_tpu_torch.core.geometry import (sample_ellipse_cloud,
+                                                 sample_sphere_cloud)
+    from diffnet_tpu_torch.data import AdvDiff2dRectangle
+    from diffnet_tpu_torch.pde import AdvDiff2D, Eikonal2D, Eikonal3D
+
+    rng = np.random.default_rng(4)
+    if kind == "advdiff":
+        ds = AdvDiff2dRectangle(domain_size=n)
+        inputs, forcing = (torch.from_numpy(a)[None] for a in ds[0])
+        inputs[..., 0] = torch.from_numpy(
+            1.0 + 0.5 * rng.random((n, n)).astype(np.float32))
+        m = AdvDiff2D(None, ds, diffusivity=0.05, domain_size=n,
+                      batch_size=1)
+        return m, rng.standard_normal((1, n, n)), (inputs, forcing)
+    nsd = 2 if kind == "eikonal2d" else 3
+    pts, nrm, area = (sample_ellipse_cloud(80) if nsd == 2
+                      else sample_sphere_cloud(400))
+    cloud = torch.from_numpy(np.concatenate([pts, nrm, area[:, None]],
+                                            -1))[None]
+    m = (Eikonal2D if nsd == 2 else Eikonal3D)(
+        None, None, domain_size=n, batch_size=1, sdf_weight=100.0,
+        normals_weight=10.0)
+    return (m, 0.3 * rng.standard_normal((1,) + (n,) * nsd),
+            (cloud, torch.zeros((1,) + (n,) * nsd + (1,))))
+
+
+@pytest.mark.parametrize("kind,n", [("eikonal2d", 64), ("eikonal3d", 32),
+                                    ("advdiff", 65)])
+def test_physics_loss_on_the_card_matches_the_cpu(dev, kind, n):
+    """Slice L runs no kernel of ours: the eikonal losses (grid
+    interpolation's gather, the stabilised residual) and the SUPG
+    residual on the card give the CPU's loss and field gradient, within
+    1e-5 of the loss and of the largest gradient entry."""
+    m, u, batch = _physics_case(kind, n)
+    out = {}
+    for where in ("cpu", dev):
+        m.to(where)
+        tu = torch.tensor(u, dtype=torch.float32, device=where,
+                          requires_grad=True)
+        loss = m.loss(tu, *(t.to(where) for t in batch))
+        loss.backward()
+        out[str(where)] = (float(loss), tu.grad.cpu())
+    (l_cpu, g_cpu), (l_dev, g_dev) = out.values()
+    assert abs(l_dev - l_cpu) <= 1e-5 * abs(l_cpu)
+    torch.testing.assert_close(g_dev, g_cpu, rtol=0,
+                               atol=1e-5 * float(g_cpu.abs().max()))
+
+
+def test_gauss_newton_step_on_the_card_matches_the_cpu(dev):
+    """One Gauss-Newton step of the circle's SDF (the double-VJP products
+    and 100 CG iterations on the card) in float64 lands on the CPU's step:
+    the losses within 1e-12 of the first (the step cancels ~3e6 of it;
+    an H100 read 4.5e-9 relative on the second), the field within 1e-6
+    of its largest value (CG at lm 1e-4 amplifies the other summation
+    order)."""
+    from diffnet_tpu_torch.core.geometry import sample_ellipse_cloud
+    from diffnet_tpu_torch.pde import (Eikonal2D, eikonal_gn_residual,
+                                       signed_occupancy_init)
+    from diffnet_tpu_torch.train import gauss_newton_solve
+
+    n = 32
+    pts, nrm, area = sample_ellipse_cloud(100, center=(0.5, 0.5),
+                                          radii=(0.25, 0.25))
+    cloud = np.concatenate([pts, nrm, area[:, None]], -1)[None]
+    u0 = signed_occupancy_init(*(torch.from_numpy(a)[None]
+                                 for a in (pts, nrm, area)), (n, n))[0]
+    out = {}
+    for where in ("cpu", dev):
+        m = Eikonal2D(None, None, domain_size=n, batch_size=1,
+                      sdf_weight=100.0, normals_weight=10.0)
+        x, info = gauss_newton_solve(
+            eikonal_gn_residual(m, cloud, device=where),
+            u0.double().to(where), newton_iters=1, cg_iters=100, lm=1e-4,
+            device=where)
+        out[str(where)] = (x.cpu(), info)
+    (x_cpu, i_cpu), (x_dev, i_dev) = out.values()
+    assert i_dev["gn_iters"] == i_cpu["gn_iters"] == 1
+    h_dev, h_cpu = i_dev["loss_history"], i_cpu["loss_history"]
+    np.testing.assert_allclose(h_dev, h_cpu, rtol=0, atol=1e-12 * h_cpu[0])
+    torch.testing.assert_close(x_dev, x_cpu, rtol=0,
+                               atol=1e-6 * float(x_cpu.abs().max()))

@@ -115,12 +115,12 @@ def _rel_l2(m, u):
 
 
 class _TEndLosses(_TLosses):
-    """Also records, at every epoch's end, the loss the parameters have
-    and the LBFGS iteration count."""
+    """Also records, at every epoch's end, the loss the parameters have,
+    the LBFGS iteration count and the last line search's step."""
 
     def __init__(self):
         super().__init__()
-        self.end_losses, self.n_iter = [], []
+        self.end_losses, self.n_iter, self.last_t = [], [], []
 
     def on_epoch_end(self, trainer, module, state, epoch, metrics):
         super().on_epoch_end(trainer, module, state, epoch, metrics)
@@ -130,6 +130,7 @@ class _TEndLosses(_TLosses):
             self.end_losses.append(float(module.training_loss(batch)))
         p = next(iter(module.parameters()))
         self.n_iter.append(state.optimizer.state[p]["n_iter"])
+        self.last_t.append(float(state.optimizer.state[p]["t"]))
 
 
 @pytest.fixture(scope="module")
@@ -173,6 +174,19 @@ def test_lbfgs_step_runs_max_iter_below_absolute_tolerances(lbfgs_runs):
     tcb = lbfgs_runs[-1]
     assert max(tcb.losses[:2]) < 1e-9, tcb.losses[:2]
     assert tcb.n_iter[:3] == [10, 20, 30], tcb.n_iter
+
+
+def test_lbfgs_step_after_a_failed_line_search_repeats_it(lbfgs_runs):
+    """Where a step's line search finds no lower loss (t = 0, at the
+    float32 floor) the step counts its remaining iterations as run: each
+    would repeat that search exactly. The epochs after it, which run their
+    iterations, hold the parameters where they are, to the bit."""
+    tcb = lbfgs_runs[-1]
+    assert tcb.n_iter == [10 * (k + 1) for k in range(len(tcb.n_iter))]
+    k = tcb.last_t.index(0.0)
+    assert k < len(tcb.last_t) - 5, tcb.last_t
+    assert set(tcb.last_t[k:]) == {0.0}, tcb.last_t
+    assert set(tcb.end_losses[k:]) == {tcb.end_losses[k]}, tcb.end_losses
 
 
 def test_sgd_lowers_the_loss_and_logs(tmp_path):
@@ -321,3 +335,58 @@ def test_entry_points_default_to_the_card(name):
     else:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
+
+
+def _lbfgs_run(cls, scale, steps):
+    """`steps` 10-iteration steps of `cls` on scale * sum(d x^2 + x^4)
+    from ones (d from 1 to 100), float64."""
+    d = torch.linspace(1.0, 100.0, 50, dtype=torch.float64)
+    x = torch.ones(50, dtype=torch.float64, requires_grad=True)
+    opt = cls([x], lr=1.0, max_iter=10, max_eval=250, tolerance_grad=0.0,
+              tolerance_change=0.0, line_search_fn="strong_wolfe")
+
+    def closure():
+        opt.zero_grad()
+        f = scale * torch.sum(d * x * x + x**4)
+        f.backward()
+        return f
+
+    for _ in range(steps):
+        opt.step(closure)
+    x = x.detach()
+    return x.clone(), float(scale * torch.sum(d * x * x + x**4)), \
+        opt.state[opt.param_groups[0]["params"][0]]
+
+
+@pytest.mark.parametrize("scale", [1.0, 1e-12])
+def test_lbfgs_keeps_the_pairs_torch_drops(scale):
+    """Where every curvature pair has s.y > 1e-10 the port's LBFGS is
+    torch's (float64, within 1e-12: its two-loop multiplies by tensor
+    coefficients where torch's reads them as numbers); at a loss scale of
+    1e-12 torch drops the pairs and stalls, the port's keeps them and
+    converges."""
+    from diffnet_tpu_torch.train.lbfgs import LBFGS
+
+    steps = 2 if scale == 1.0 else 5   # 2 steps: before s.y nears 1e-10
+    xt, ft, st = _lbfgs_run(torch.optim.LBFGS, scale, steps)
+    xp, fp, sp = _lbfgs_run(LBFGS, scale, steps)
+    assert sp["n_iter"] == 10 * steps
+    if scale == 1.0:
+        torch.testing.assert_close(xp, xt, rtol=0, atol=1e-12)
+        assert st["n_iter"] == 10 * steps
+        assert sp["func_evals"] == st["func_evals"]
+    else:
+        assert len(st["old_dirs"]) < 5 < len(sp["old_dirs"])
+        assert fp < 1e-6 * ft, (fp, ft)
+
+
+def test_trainer_lbfgs_is_the_ports():
+    from diffnet_tpu_torch.train.lbfgs import LBFGS
+
+    n = 9
+    _, tm = _modules(n, np.zeros((n, n)), loss_type="resmin")
+    st = Trainer(max_epochs=1, optimizer="lbfgs", lbfgs_max_iter=2,
+                 device="cpu").fit(tm)
+    assert type(st.optimizer) is LBFGS
+    with pytest.raises(ValueError, match="strong_wolfe"):
+        LBFGS(tm.parameters(), line_search_fn=None)
