@@ -40,9 +40,11 @@ __all__ = [
     "gp_eval_stacked",
     "galerkin_project",
     "galerkin_project_multi",
+    "element_matvec",
     "element_tensor",
     "element_action",
     "gp_coords",
+    "gp_eval_1d",
     "dirichlet_zero_rows",
 ]
 
@@ -234,6 +236,16 @@ def gp_coords(basis: FEMBasis, node_shape: Sequence[int],
     return tuple(o.astype(np.float64) for o in out)
 
 
+def element_matvec(u: torch.Tensor, K_elem: np.ndarray, deg: int, nsd: int,
+                   node_shape: Sequence[int]) -> torch.Tensor:
+    """Assembled matvec with a constant element matrix
+    ``R = sum_e scatter(K_elem @ u_e)``: one patch gather, one
+    ``[nbf, nbf]`` contraction, one scatter."""
+    patches = gather_elements(u, deg, nsd)
+    K = torch.as_tensor(np.asarray(K_elem), dtype=u.dtype, device=u.device)
+    return scatter_elements(torch.matmul(patches, K.T), deg, nsd, node_shape)
+
+
 def element_tensor(basis: FEMBasis,
                    quantities: Sequence[str] = ("dx", "dy")) -> np.ndarray:
     """Static Galerkin element tensor (float64 numpy)
@@ -323,6 +335,25 @@ def _element_action_stencil(u, coeff, A, basis, node_shape, gp_terms=()):
         piece = F.pad(r_a, pad)
         total = piece if total is None else total + piece
     return total
+
+
+def gp_eval_1d(u_line: torch.Tensor, basis: BasisTables,
+               quantities: Sequence[str] = ("N",)
+               ) -> dict[str, torch.Tensor]:
+    """Surface-trace evaluation: the 1D Gauss-point values of a nodal line
+    (a row or column of a 2D field, an edge of a 3D one) by the facet
+    tables. ``[..., n]`` -> quantity -> ``[..., nel_1d, ngp_1d]``."""
+    fem_basis = basis.basis
+    deg = fem_basis.deg
+    nel = (u_line.shape[-1] - 1) // deg
+    patches = torch.stack([u_line[..., o:o + (nel - 1) * deg + 1:deg]
+                           for o in range(deg + 1)], dim=-1)
+    table = torch.as_tensor(
+        np.concatenate([fem_basis.surf_tables[q] for q in quantities], 0),
+        dtype=u_line.dtype, device=u_line.device)
+    out = torch.matmul(patches, table.T)
+    out = out.reshape(out.shape[:-1] + (len(quantities), fem_basis.ngp_1d))
+    return dict(zip(quantities, out.unbind(-2)))
 
 
 def dirichlet_zero_rows(R: torch.Tensor, bc_mask: torch.Tensor

@@ -8,9 +8,8 @@ package's):
     randomised control polygons, the winding batches of ``IBNPoisson2D``;
   * ``synthesize_topology_3d`` and ``TopoDataset3D``: 3D topology volumes
     (npz files or synthetic bar lattices) as ``IBNPoisson3D`` batches;
-  * ``Burg2DXT``: the space-time Burgers grid of ``BurgersSpaceTime``.
-
-The FSDT plate dataset comes with its physics.
+  * ``Burg2DXT``: the space-time Burgers grid of ``BurgersSpaceTime``;
+  * ``ElasticFSDTDataset``: the clamped plate of ``ElasticFSDT``.
 """
 
 from __future__ import annotations
@@ -21,7 +20,8 @@ import os
 import numpy as np
 
 __all__ = ["image_to_point_cloud", "PCVox", "nurbs_curve", "ParametricNURBS",
-           "TopoDataset3D", "synthesize_topology_3d", "Burg2DXT"]
+           "TopoDataset3D", "synthesize_topology_3d", "Burg2DXT",
+           "ElasticFSDTDataset"]
 
 
 def image_to_point_cloud(img, n_points=None):
@@ -281,6 +281,34 @@ class Burg2DXT:
                                -1).astype(np.float32)
         self.forcing = np.full((n, n, 1), 0.01 / math.pi, np.float32)
         self.initial_guess = np.tile(bc1_val[0], (n, 1)).astype(np.float32)
+
+    def __len__(self):
+        return self.n_samples
+
+    def __getitem__(self, idx):
+        return self.inputs, self.forcing
+
+
+class ElasticFSDTDataset:
+    """The FSDT plate: channels (x, y, bc1, bc2, bc3), each bc the clamped
+    walls; forcing 1 / Re."""
+
+    n_samples = 100
+
+    def __init__(self, domain_size=64, Re=1):
+        n = domain_size
+        x = np.linspace(0, 1, n)
+        self.x, self.y = np.meshgrid(x, x)
+        walls = np.zeros((n, n))
+        walls[[0, -1], :] = 1.0
+        walls[:, [0, -1]] = 1.0
+        self.bc1 = walls
+        self.bc2 = walls.copy()
+        self.bc3 = walls.copy()
+        self.Re = Re
+        self.inputs = np.stack([self.x, self.y, self.bc1, self.bc2,
+                                self.bc3], -1).astype(np.float32)
+        self.forcing = np.full((n, n, 1), 1.0 / Re, np.float32)
 
     def __len__(self):
         return self.n_samples

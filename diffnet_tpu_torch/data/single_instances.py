@@ -22,8 +22,9 @@ __all__ = [
     "RectangleManufacturedNonZeroBC", "SpaceTimeRectangleManufactured",
     "AdvDiff1dRectangle", "AdvDiff2dRectangle", "AllenCahnIceMeltRectangle",
     "RectangleHelmholtzManufactured", "RectangleHelmholtzDeltaForce",
-    "RectangleManufacturedStokes", "KLSumSingleInstance", "Cuboid",
-    "CuboidManufactured", "load_raw", "VoxelIMBackRAW"]
+    "RectangleManufacturedStokes", "RectangleIM", "RectangleIMBack",
+    "CircleIMBack", "LShaped", "ImageIMBack", "Disk", "KLSumSingleInstance",
+    "Cuboid", "CuboidManufactured", "load_raw", "VoxelIMBackRAW"]
 
 
 def _grid(n):
@@ -222,6 +223,116 @@ class RectangleManufacturedStokes(SingleInstanceDataset):
         self.xx, self.yy = _grid(n)
         self.forcing = 2.0 * math.pi**2 * np.sin(math.pi * self.xx) * np.sin(
             math.pi * self.yy)
+
+
+class RectangleIM(SingleInstanceDataset):
+    """An immersed rectangle solved within the object: source on its first
+    row, sink one row past its last. The sink's row lies outside the
+    object (domain 0 there): a parity quirk kept deliberately."""
+
+    n_samples = 200
+
+    def __init__(self, domain_size=64):
+        n = domain_size
+        x0, y0, w, h = 10, 10, 30, 50
+        self.domain = np.zeros((n, n)); self.domain[y0:y0 + h, x0:x0 + w] = 1.0
+        self.bc1 = np.zeros((n, n)); self.bc1[y0, x0:x0 + w] = 1
+        self.bc2 = np.zeros((n, n)); self.bc2[y0 + h, x0:x0 + w] = 1
+        self.forcing = np.zeros((n, n))
+
+
+class RectangleIMBack(SingleInstanceDataset):
+    """An immersed rectangle in a background grid: the object is the bc1
+    region (u := 1), the walls the sink."""
+
+    n_samples = 200
+
+    def __init__(self, domain_size=64):
+        n = domain_size
+        x0, y0, w, h = 10, 10, 30, 20
+        self.domain = np.ones((n, n)); self.domain[y0:y0 + h, x0:x0 + w] = 0.0
+        self.bc1 = np.zeros((n, n)); self.bc1[y0:y0 + h, x0:x0 + w] = 1.0
+        self.bc2 = _walls_2d(n)
+        self.forcing = np.zeros((n, n))
+
+
+class CircleIMBack(SingleInstanceDataset):
+    """An immersed circle by the sign of its analytic SDF. The pixel
+    coordinates are ``linspace(0, 1, n) * n``, spanning [0, n], so the
+    circle's parameters scale by n / (n - 1) against pixel indices: a
+    parity quirk kept deliberately."""
+
+    def __init__(self, domain_size=64):
+        n = domain_size
+        cx, cy, r = 15, 40, 15
+        x = np.linspace(0, 1, n) * n
+        xx, yy = np.meshgrid(x, x)
+        zz = (xx - cx) ** 2 + (yy - cy) ** 2 - r**2
+        self.domain = (zz > 0.0).astype(float)
+        self.bc1 = (zz < 0.0).astype(float)
+        self.bc2 = _walls_2d(n)
+        self.forcing = np.zeros((n, n))
+
+
+class LShaped(SingleInstanceDataset):
+    """An L-shaped domain solved within the object, forcing 10 chi, the
+    sink on its outline. The far-edge sink indices are one past the
+    object: the parity quirk of ``RectangleIM``, kept deliberately."""
+
+    n_samples = 200
+
+    def __init__(self, domain_size=64):
+        n = domain_size
+        p = [5, 5, 50, 20, 50, 20]
+        self.domain = np.zeros((n, n))
+        self.domain[p[0]:p[0] + p[2], p[1]:p[1] + p[3]] = 1.0
+        self.domain[p[0]:p[0] + p[5], p[1]:p[1] + p[4]] = 1.0
+        self.bc1 = np.zeros((n, n))
+        bc2 = np.zeros((n, n))
+        bc2[p[0]:p[0] + p[2], p[1]] = 1
+        bc2[p[0] + p[2], p[1]:p[1] + p[3]] = 1
+        bc2[p[0] + p[5]:p[0] + p[2], p[1] + p[3]] = 1
+        bc2[p[0] + p[5], p[1] + p[3]:p[1] + p[4]] = 1
+        bc2[p[0]:p[0] + p[5], p[1] + p[4]] = 1
+        bc2[p[0], p[1]:p[1] + p[4]] = 1
+        self.bc2 = bc2
+        self.forcing = self.domain.copy() * 10
+
+
+def _load_binary_image(filename):
+    """A binary mask (pixels > 0) of a grey-scale image file. PIL is
+    imported here only, so the package needs it only for images."""
+    import PIL.Image
+
+    ext = os.path.splitext(filename)[1]
+    if ext not in (".png", ".jpg", ".bmp", ".tiff"):
+        raise ValueError("invalid extension; extension not supported")
+    img = PIL.Image.open(filename).convert("L")
+    return (np.asarray(img) > 0).astype(float)
+
+
+class ImageIMBack(SingleInstanceDataset):
+    """A binary image as an immersed object: solve outside it, u := 1
+    inside, the walls the sink. ``domain_size`` is accepted and unused: the
+    masks keep the image's resolution (a parity quirk kept
+    deliberately)."""
+
+    def __init__(self, filename, domain_size=64):
+        img = _load_binary_image(filename)
+        self.domain = 1 - img
+        self.bc1 = np.zeros_like(self.domain)
+        self.bc1[(1 - self.domain).astype(bool)] = 1
+        self.bc2 = np.zeros_like(self.domain)
+        self.bc2[:, [0, -1]] = 1; self.bc2[[0, -1], :] = 1
+        self.forcing = np.zeros_like(self.domain)
+
+
+class Disk(ImageIMBack):
+    """``ImageIMBack`` with unit forcing."""
+
+    def __init__(self, filename, domain_size=64):
+        super().__init__(filename, domain_size)
+        self.forcing = np.ones_like(self.domain)
 
 
 class KLSumSingleInstance(SingleInstanceDataset):

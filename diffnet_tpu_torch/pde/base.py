@@ -193,6 +193,11 @@ class _FEMMixin:
     def gauss_pt_evaluation_der2_zx(self, u):
         return fem.gp_eval(u, self.basis, ("d2zx",))["d2zx"]
 
+    def gauss_pt_evaluation_surf(self, u_line, quantities=("N",)):
+        """Facet-trace Gauss evaluation of a 1D nodal line
+        (:func:`~diffnet_tpu_torch.core.fem.gp_eval_1d`)."""
+        return fem.gp_eval_1d(u_line, self.basis, quantities)
+
     def assemble(self, integrand_gp, quantity="N", apply_jxw=True):
         """Galerkin-project a Gauss-point integrand onto the test functions
         and scatter it into the nodal residual."""

@@ -22,14 +22,15 @@ which CONVERGENCE.md (or the JAX package's own test) measured it:
      ``AdvDiff2dRectangle`` skew to the mesh at 64^2 (nu = 1e-4, 80 LBFGS
      epochs, tests/test_physics2d.py's settings): the field's min, max and
      centre value;
-  L3 space-time: ``SpaceTimeHeat`` at 33^2 (300 epochs), ``AllenCahnIceMelt``
+  L3 space-time: ``SpaceTimeHeat`` at 33^2 (150 epochs), ``AllenCahnIceMelt``
      at 33^2 by the A = 0 linear solve then ``newton_solve``
      (tests/test_linear_solve.py's homotopy) with 5 Newton steps of at most
      4 GMRES(25) cycles where the test allows 30 of 150: the first step
      already lands on float32's floor (|F| 1.73e-5 to 1.04e-5, then
      1e-9 relative a step; the MMS error 1.50e-4 whatever the budget; the
-     port on a CPU), ``BurgersSpaceTime`` deg 2 at 33^2 (300 epochs);
-  L4 strong forms: ``PoissonTwoDof2D`` MMS at 33^2 (200 epochs, rel L2 of
+     port on a CPU), ``BurgersSpaceTime`` deg 2 at 33^2 (100 epochs; heat
+     and Burgers give the same figures to the bit after 300);
+  L4 strong forms: ``PoissonTwoDof2D`` MMS at 33^2 (100 epochs, rel L2 of
      u on the nodes), ``PoissonFDM2D`` MMS at 64^2 (150 epochs, the largest
      interior error, tests/test_poisson_train.py's metric);
   L5 eikonal: the teardrop airfoil at 64^2 (a 200-point NURBS cloud on

@@ -22,14 +22,14 @@ ADV_GRID_COARSE = 33
 ADV_START_SCALES = (0.0, 1e-7, 1e-6, 1e-5)
 ADV_A = (math.cos(PI / 6), math.sin(PI / 6))
 SKEW_GRID, SKEW_EPOCHS, SKEW_NU = 64, 80, 1e-4
-HEAT_GRID, HEAT_EPOCHS = 33, 300
+HEAT_GRID, HEAT_EPOCHS = 33, 150
 AC_GRID = 33
 AC_CONST = {"A": 16.0, "Cn": 0.1, "D": 1.0, "k": 2.0}
 AC_LINEAR = {"method": "gmres", "tol": 1e-8, "maxiter": 400, "restart": 30}
 AC_NEWTON = {"newton_iters": 5, "gmres_iters": 4, "restart": 25,
              "tol": 1e-9}
-BURGERS_GRID, BURGERS_EPOCHS = 33, 300
-TWODOF_GRID, TWODOF_EPOCHS = 33, 200
+BURGERS_GRID, BURGERS_EPOCHS = 33, 100
+TWODOF_GRID, TWODOF_EPOCHS = 33, 100
 FDM_GRID, FDM_EPOCHS = 64, 150
 EIK_GRID, AIRFOIL_POINTS, AIRFOIL_EPOCHS = 64, 200, 200
 EIK_WEIGHTS = {"sdf_weight": 100.0, "normals_weight": 10.0}

@@ -26,7 +26,10 @@ its largest parameter gradient; slice K's objectives through K6 at 1e-5 of
 the plain loss and 2e-5 of the largest field gradient; slice L's eikonal
 and SUPG losses (no kernel of ours) at 1e-5 of the CPU's loss and largest
 field gradient, and a float64 Gauss-Newton step's losses at 1e-12 of the
-first and its field at 1e-6 of its largest value.
+first and its field at 1e-6 of its largest value; slice M's topology
+optimisation through K1 against the CPU route, its first compliance at
+1e-5 and its second at 1e-4 relative, and its immersed energies through
+K3 and K1 at 1e-5 of the plain loss and of the largest field gradient.
 """
 
 import numpy as np
@@ -823,3 +826,62 @@ def test_gauss_newton_step_on_the_card_matches_the_cpu(dev):
     np.testing.assert_allclose(h_dev, h_cpu, rtol=0, atol=1e-12 * h_cpu[0])
     torch.testing.assert_close(x_dev, x_cpu, rtol=0,
                                atol=1e-6 * float(x_cpu.abs().max()))
+
+
+def test_topopt_optimize_on_the_card_goes_through_k1(dev):
+    """Slice M3's entry point at 17^2, three outer iterations of the JAX
+    test's problem: every CG matvec through K1, against the CPU route
+    (K1's plain version). The first compliance, the state solve before any
+    design step, within 1e-5 relative; the second within 1e-4 (one design
+    step, whose median routes cotangents among values that tie by their
+    rounding); the designs' volume fraction on target."""
+    from diffnet_tpu_torch.pde import TopOpt2D
+
+    n = 17
+    x = np.linspace(0, 1, n)
+    xx, yy = np.meshgrid(x, x)
+    bc2 = np.zeros((n, n)); bc2[0, :] = 1
+    inputs = np.stack([np.zeros((n, n)), bc2, xx, yy], -1).astype(np.float32)
+    forcing = np.ones((n, n, 1), np.float32)
+    hist = {}
+    for device in ("cpu", "cuda"):
+        m = TopOpt2D(None, None, domain_size=n, target_vf=0.4,
+                     compliance_form="variational")
+        before = k1.launches
+        rho, u, hist[device] = m.optimize(inputs, forcing, n_outer=3,
+                                          device=device)
+        assert rho.device.type == device and u.device.type == device
+        launched = k1.launches - before
+        assert (launched > 3) if device == "cuda" else launched == 0
+        assert abs(float(m.project_density(rho).mean()) - 0.4) < 1e-4
+    assert abs(hist["cuda"][0] / hist["cpu"][0] - 1) <= 1e-5
+    assert abs(hist["cuda"][1] / hist["cpu"][1] - 1) <= 1e-4
+
+
+def test_immersed_energy_step_through_k3_matches_plain(dev):
+    """Slice M2's loss: Poisson2D's energy of each immersed instance at its
+    64^2 through K3 (forward) and K1 (its VJP) against the plain energy on
+    the card: the loss within 1e-5 relative, the field gradient within 1e-5
+    of its largest entry."""
+    from diffnet_tpu_torch.data import (CircleIMBack, LShaped, RectangleIM,
+                                        RectangleIMBack)
+
+    for cls in (RectangleIM, RectangleIMBack, CircleIMBack, LShaped):
+        ds = cls()
+        ds.n_samples = 1
+        n = ds.domain.shape[0]
+        batch = tuple(torch.from_numpy(a)[None].to(dev) for a in ds[0])
+        init = np.random.default_rng(8).standard_normal((n, n))
+        out = {}
+        for fused in (True, False):
+            m = Poisson2D(DirectField((n, n), init=init), ds, domain_size=n,
+                          batch_size=1, fused_kernels=fused).to(dev)
+            l3 = k3.launches
+            loss = m.training_loss(batch)
+            loss.backward()
+            assert (k3.launches - l3 == 1) if fused else k3.launches == l3
+            out[fused] = (float(loss.detach()), m.network.field.grad)
+        (lf, gf), (lp, gp) = out[True], out[False]
+        assert abs(lf - lp) <= 1e-5 * abs(lp), cls.__name__
+        torch.testing.assert_close(gf, gp, rtol=0,
+                                   atol=1e-5 * float(gp.abs().max()))
