@@ -193,6 +193,28 @@ exits non-zero (it also does so, printing no result, without CUDA):
         (80 outer iterations, every CG matvec through K1): the test's five
         criteria, the first compliance within 1e-4 of JAX's, the last at
         most 1.05x JAX's, ms an outer iteration and CG iterations a solve.
+     N. the multi-device path (``diffnet_tpu_torch.parallel``): a process
+        group of 4 ranks, NCCL with a card a rank, else (one card) gloo
+        with the 4 ranks sharing it, the halo rows and all-reduces through
+        host memory, the compute on the card; its line prints backend and
+        world. The kernel library is built before the spawn; a rank that
+        fails or outlives its timeout fails the slice. N1 the row-split K1
+        (``poisson_stiffness_spatial_fused``, 4 row blocks) at 1 x 512^2
+        and 32 x 512^2 against the unsplit K1 within 2e-6 x max(1, max
+        |K u|), and 50 fixed CG iterations on 512^2 with that matvec (the
+        inner products all-reduced) against the unsplit solve (iterate
+        within 2e-5 x max(1, max |x|), relres within 1e-4 relative); N2
+        the depth-split K5 at 1 x 128^3 and its VJP through the exchange's
+        backward against autograd through the unsplit K5; the times of
+        each split call with and without its exchange. N3 slice B's 512^2
+        x 32 resmin as 8 rows a rank, 10 Adam steps through
+        ``Trainer.fit``: K2 once a step on each rank, the losses within
+        1e-5 of one process's on the batch of 32, the gradient
+        all-reduce's ms. N4 slice I's 3D IBN (UNet3D(16) from
+        ``seeded_params``, 32^3) at 8 rows a rank, 5 Adam steps: the
+        losses within 1e-4 of one process's on the batch of 32, the
+        parameters after step 1 (N4_PARAM_*), steps/s and peak memory a
+        rank. Then ``dryrun_multigpu(4)``.
   15. resident steps: steps/s of the 512^2 x 32 training steps with the
      batch on the card (fused and unfused) and of G3's NS step; 10 steps
      of each fused 512^2 x 32 loss (K2's, K3's) under ``torch.profiler``:
@@ -220,6 +242,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from diffnet_tpu_torch.core import fem
 from diffnet_tpu_torch.core.geometry import (occupancy_from_cloud,
@@ -250,7 +273,15 @@ from diffnet_tpu_torch.ops import poisson_energy as k3
 from diffnet_tpu_torch.ops import poisson_loss_grad as k2
 from diffnet_tpu_torch.ops import poisson_residual as k1
 from diffnet_tpu_torch.ops import poisson_residual_3d as k5
+from diffnet_tpu_torch.ops.poisson_residual_3d import (
+    poisson_stiffness_action_3d)
 from diffnet_tpu_torch.ops import stencil_apply as k4
+from diffnet_tpu_torch.parallel import (halo_exchange, local_block,
+                                        make_mesh,
+                                        poisson_stiffness_spatial_fused,
+                                        poisson_stiffness_spatial_fused_3d,
+                                        rank_device, run_ranks)
+from diffnet_tpu_torch.parallel.dryrun import dryrun_multigpu
 from diffnet_tpu_torch.pde import (AdvDiff2D, AllenCahnIceMelt,
                                    BurgersSpaceTime, Eikonal2D, Eikonal3D,
                                    EikonalFDM2D, ElasticFSDT, Helmholtz2D,
@@ -3001,6 +3032,427 @@ def slice_m(dev, smi: str, paths: dict) -> dict:
             "M2": paths["physics_2d_immersed"], "M3": paths["topopt_2d"]}
 
 
+# Slice N, the multi-device path (diffnet_tpu_torch.parallel): a process
+# group of N_WORLD ranks. With a card a rank it is NCCL, one rank a card;
+# with fewer cards (one card, say) the ranks share cuda:0 over gloo,
+# the halo rows and all-reduces through host memory, the compute on the
+# card. The choice is by device count and is printed (backend, world).
+# Tolerances, sharded against unsharded on the same card:
+N_WORLD = 4
+N_GRID, N_BATCH = 512, 32   # bench.py's grid (513 rows do not split in 4)
+N_K1_SHAPES = ((1, N_GRID, N_GRID), (N_BATCH, N_GRID, N_GRID))
+N_K5_SHAPE = (1, 128, 128, 128)   # the kernel table's K5 shape
+N_CG_ITERS = 50
+# The split CG solve sums each inner product in another order (4 partial
+# sums, all-reduced): after 50 fixed iterations its iterate within
+# N_CG_ATOL x max(1, max |x|) of the unsplit solve's and its relative
+# residual within N_CG_RELRES_RTOL of it. slice_n on the CPU at full size
+# (plain K1): 1.2e-6 of max |x| and 4e-6 relative.
+N_CG_ATOL = 2e-5
+N_CG_RELRES_RTOL = 1e-4
+N3_LOSS_RTOL = 1e-5   # N3's losses against one process: the K2 batch sum
+#                       in another order (4 partial sums; on the CPU 9.5e-8)
+N4_STEPS = 5
+N4_LOSS_RTOL = 1e-4   # N4's losses against one process: the batch of 32
+#                       against 4 of 8 changes the convolutions' sums, and
+#                       Adam carries it on (on the CPU 1.5e-7)
+# Parameters after the first Adam step (lr 1e-3, each moves lr g/(|g|+eps),
+# less than lr): within N4_PARAM_ATOL but for at most N4_PARAM_FRACTION of
+# them. Where a gradient entry sits at rounding level (~1e-8, sums of O(1)
+# terms that cancel) next to Adam's eps (1e-8), its rounding changes the
+# step by up to ~lr, so no bound on the largest difference below 2 lr
+# holds: on the CPU 4 of 4.2M entries moved more than 1e-6 (at most
+# 1.3e-5), on the card 5 and 6 (at most 1.7e-5 and 6.6e-4 in two runs). A
+# gradient wrong beyond rounding would move a whole tensor's entries.
+N4_PARAM_ATOL = 1e-6
+N4_PARAM_FRACTION = 1e-4
+N_RANK_TIMEOUT = 600.0
+
+
+def _rank_fields(shape, dev, seed=11):
+    """u, nu, g of `shape` on `dev`, the same on every rank (seeded)."""
+    gen = torch.Generator().manual_seed(seed)
+    u = torch.rand(shape, generator=gen)
+    nu = torch.rand(shape, generator=gen) + 0.5
+    g = torch.rand(shape, generator=gen) - 0.5
+    return u.to(dev), nu.to(dev), g.to(dev)
+
+
+def _host_ms(fn, reps=20, warmup=3) -> float:
+    """Wall ms a call of `fn` (a collective, on every rank at once), host
+    clock around `reps` calls after `warmup`, the card synchronised."""
+    for _ in range(warmup):
+        fn()
+    _sync()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    _sync()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def _sync():
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+class _StepParams(IBNPoisson3D):
+    """IBNPoisson3D that keeps a copy of its network's parameters as its
+    second training step begins (the Trainer evaluates training_loss once
+    an Adam step): the parameters after the first step."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.steps = 0
+        self.after_first: dict | None = None
+
+    def training_loss(self, batch):
+        self.steps += 1
+        if self.steps == 2:
+            self.after_first = {k: v.detach().cpu().numpy().copy()
+                                for k, v in self.network.state_dict().items()}
+        return super().training_loss(batch)
+
+
+def _n4_fit(dev, mesh=None) -> dict:
+    """Slice I's configuration (UNet3D(I_FILTERS) from seeded_params, 32^3,
+    Adam I_LR), N4_STEPS steps of a global batch of I_BATCH x N_WORLD
+    through Trainer.fit: one process on the whole batch, or this rank's
+    I_BATCH rows of it over `mesh`."""
+    bs = I_BATCH * N_WORLD
+    ds = TopoDataset3D([synthesize_topology_3d(n=I_GRID, seed=s)
+                        for s in range(N4_STEPS * bs)], domain_size=I_GRID)
+    net = UNet3D(3, 1, base_filters=I_FILTERS)
+    net.load_state_dict(params_from_jax(seeded_params(flax_shapes(net),
+                                                      I_INIT_SEED)))
+    m = _StepParams(net, domain_size=I_GRID, batch_size=bs,
+                    learning_rate=I_LR)
+    loader = NumpyLoader(ds, batch_size=bs, shuffle=True, device=dev,
+                         mesh=mesh)
+    tr = Trainer(max_epochs=1, optimizer="adam", learning_rate=I_LR,
+                 device=dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    tr.fit(m, loader)
+    _sync()
+    dt = time.perf_counter() - t0
+    return {"losses": tr.step_losses, "after_first": m.after_first,
+            "fit_s": dt, "steps_per_s": N4_STEPS / dt,
+            "max_memory_allocated_bytes": (
+                torch.cuda.max_memory_allocated(dev)
+                if dev.type == "cuda" else None)}
+
+
+def _n3_fit(dev, mesh=None) -> dict:
+    """Slice B's 512^2 x 32 resmin (K2), 10 Adam steps through Trainer.fit:
+    one process on the whole batch, or this rank's rows over `mesh`, the
+    loader slice B's fit builds (shuffled, seed 42)."""
+    m = _field_module(N_GRID, N_BATCH, "resmin", fused_kernels=True,
+                      fused_loss_grad=True)
+    loader = NumpyLoader(m.dataset, batch_size=N_BATCH, shuffle=True,
+                         seed=42, device=dev, mesh=mesh)
+    tr = Trainer(max_epochs=1, optimizer="adam", learning_rate=1e-3,
+                 device=dev)
+    before = counts()
+    t0 = time.perf_counter()
+    tr.fit(m, loader)
+    _sync()
+    dt = time.perf_counter() - t0
+    return {"losses": tr.step_losses, "fit_s": dt,
+            "launches": since(before)}
+
+
+def _n_cg(resfn, shape, dev, mesh=None):
+    """N_CG_ITERS CG iterations (tol 0: every one runs) from zeros; the
+    iterate and its relative residual."""
+    x, _ = solve_linear(resfn, shape, tol=0.0, maxiter=N_CG_ITERS,
+                        x0=torch.zeros(shape, device=dev), device=dev,
+                        mesh=mesh)
+    with torch.no_grad():
+        r2, b2 = (resfn(x) ** 2).sum(), (resfn(torch.zeros_like(x)) ** 2).sum()
+        if mesh is not None:
+            r2, b2 = mesh.all_reduce(r2, "space"), mesh.all_reduce(b2, "space")
+    return x, float((r2 / b2).sqrt())
+
+
+def _n_cg_problem(dev):
+    """The 512^2 N1 problem: walls Dirichlet, nu from the N1 fields, a
+    seeded random load off the walls."""
+    _, nu, _ = _rank_fields((1, N_GRID, N_GRID), dev)
+    bc = torch.zeros((N_GRID, N_GRID), device=dev)
+    bc[[0, -1], :] = 1.0
+    bc[:, [0, -1]] = 1.0
+    gen = torch.Generator().manual_seed(12)
+    b = torch.randn((N_GRID, N_GRID), generator=gen).to(dev)
+    return nu[0], bc, torch.where(bc > 0.5, 0.0, b)
+
+
+def _err(got, want) -> dict:
+    return {"max_abs_err": float((got - want).abs().max()),
+            "scale": float(want.abs().max())}
+
+
+N_SIZES = ("N_GRID", "N_BATCH", "N_K1_SHAPES", "N_K5_SHAPE", "N_CG_ITERS",
+           "N4_STEPS", "I_FILTERS")
+
+
+def slice_n_rank(rank: int, world: int, device: str, sizes: dict) -> dict:
+    """Slice N on one rank of the group: N1 and N2 (the spatial K1 and K5
+    path, launches counted), their references and times, N3 and N4 (the
+    data-parallel fits). `sizes`: the parent's N_SIZES (a rank imports
+    this script afresh, so a rehearsal's smaller sizes reach it so)."""
+    globals().update(sizes)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = rank_device(dist.get_backend(), device)
+    mesh = make_mesh(data=1, space=world)
+    dmesh = make_mesh(data=world)
+    out = {"rank": rank, "device": str(dev)}
+
+    # N1 and N2 on the path: counts from 0, read after
+    reset_counts()
+    got = {}
+    for shape in N_K1_SHAPES:
+        u, nu, _ = _rank_fields(shape, dev)
+        tb = basis_for(shape[1], shape[2], False, dev)
+        got[shape] = poisson_stiffness_spatial_fused(
+            *(local_block(t, mesh, 1, "space").contiguous()
+              for t in (u, nu)), tb, mesh)
+    tb = basis_for(N_GRID, N_GRID, False, dev)
+    nu, bc, b = _n_cg_problem(dev)
+    nu_l, bc_l, b_l = (local_block(t, mesh, 0, "space").contiguous()
+                       for t in (nu, bc, b))
+
+    def resfn_l(x):
+        K = poisson_stiffness_spatial_fused(x[None].contiguous(),
+                                            nu_l[None], tb, mesh)[0]
+        return torch.where(bc_l > 0.5, 0.0, K) - b_l
+
+    x_l, relres = _n_cg(resfn_l, tuple(b_l.shape), dev, mesh)
+    u, nu3, g = _rank_fields(N_K5_SHAPE, dev)
+    tb3 = basis_3d(N_K5_SHAPE, False, dev)
+    u_l, nu3_l = (local_block(t, mesh, 1, "space").contiguous()
+                  .requires_grad_(True) for t in (u, nu3))
+    R5 = poisson_stiffness_spatial_fused_3d(u_l, nu3_l, tb3, mesh)
+    (R5 * local_block(g, mesh, 1, "space")).sum().backward()
+    _sync()
+    out["spatial_launches"] = counts()
+
+    # references, not counted: the unsharded kernels' rows
+    errs = {}
+    for shape in N_K1_SHAPES:
+        u, nu_, _ = _rank_fields(shape, dev)
+        tb_ = basis_for(shape[1], shape[2], False, dev)
+        errs["k1 %dx%dx%d" % shape] = _err(got[shape], local_block(
+            k1.stiffness_action(u, nu_, tb_), mesh, 1, "space"))
+
+    def resfn(x):
+        K = k1.stiffness_action(x[None].contiguous(), nu[None], tb)[0]
+        return torch.where(bc > 0.5, 0.0, K) - b
+
+    x_ref, relres_ref = _n_cg(resfn, (N_GRID, N_GRID), dev)
+    errs["cg_iterate"] = _err(x_l, local_block(x_ref, mesh, 0, "space"))
+    out["cg_relres"], out["cg_relres_unsharded"] = relres, relres_ref
+    u, nu3, g = (t.requires_grad_(True) for t in _rank_fields(N_K5_SHAPE,
+                                                               dev))
+    R5_ref = poisson_stiffness_action_3d(u, nu3, tb3)
+    (R5_ref * g.detach()).sum().backward()
+    errs["k5 1x128^3"] = _err(R5.detach(), local_block(R5_ref.detach(),
+                                                       mesh, 1, "space"))
+    errs["k5 vjp du"] = _err(u_l.grad, local_block(u.grad, mesh, 1, "space"))
+    errs["k5 vjp dnu"] = _err(nu3_l.grad, local_block(nu3.grad, mesh, 1,
+                                                      "space"))
+    out["errs"] = errs
+
+    # times: the spatial call (exchange and kernel) against the kernel on
+    # the already halo'd block, every rank at once on the shared card
+    times = {}
+    with torch.no_grad():
+        for shape in N_K1_SHAPES + (N_K5_SHAPE,):
+            u, nu_, _ = _rank_fields(shape, dev)
+            fused = (poisson_stiffness_spatial_fused if len(shape) == 3
+                     else poisson_stiffness_spatial_fused_3d)
+            kern = (k1.stiffness_action if len(shape) == 3
+                    else k5.stiffness_action_3d)
+            tb_ = (basis_for(shape[1], shape[2], False, dev)
+                   if len(shape) == 3 else tb3)
+            ul, nul = (local_block(t, mesh, 1, "space").contiguous()
+                       for t in (u, nu_))
+            ub, nub = (halo_exchange(t, mesh, 1, 1, zero_edges=False)
+                       .contiguous() for t in (ul, nul))
+            name = "x".join(map(str, shape))
+            times[name] = {
+                "spatial_ms": _host_ms(lambda: fused(ul, nul, tb_, mesh)),
+                "kernel_on_block_ms": _host_ms(lambda: kern(ub, nub, tb_))}
+    out["times"] = times
+
+    # N3 and N4: the data-parallel fits
+    reset_counts()
+    out["n3"] = _n3_fit(dev, dmesh)
+    flat = torch.zeros(N_GRID * N_GRID + 1, device=dev)
+    out["n3"]["allreduce_ms"] = _host_ms(
+        lambda: dmesh.all_reduce(flat, "data"))
+    out["n4"] = _n4_fit(dev, dmesh)
+    if rank:
+        after = out["n4"].pop("after_first")
+        out["n4"]["after_first_sum"] = float(sum(
+            np.abs(v).sum(dtype=np.float64) for v in after.values()))
+    out["path_launches"] = {k: out["spatial_launches"][k]
+                            + out["n3"]["launches"][k]
+                            for k in KERNELS}
+    return out
+
+
+def _n_check_errs(name: str, ranks: list, atol: float) -> dict:
+    """The largest error of each comparison over the ranks; fail if one
+    exceeds ``atol * max(1, scale)``."""
+    worst = {}
+    for key in ranks[0]["errs"]:
+        e = max(r["errs"][key]["max_abs_err"] for r in ranks)
+        scale = max(r["errs"][key]["scale"] for r in ranks)
+        worst[key] = {"max_abs_err": e, "scale": scale}
+        if key == "cg_iterate":
+            continue
+        if not e <= atol * max(1.0, scale):
+            fail(f"{name}: {key} is {e} off the unsharded kernel's "
+                 f"(scale {scale})")
+    return worst
+
+
+def slice_n(dev, smi: str) -> dict:
+    """Slice N, the multi-device path: the single-process references on the
+    card, then one group of N_WORLD ranks (slice_n_rank), then
+    dryrun_multigpu(N_WORLD). Returns the ranks' launches on the path,
+    summed."""
+    t0 = time.perf_counter()
+    world = N_WORLD
+    backend = "nccl" if torch.cuda.device_count() >= world else "gloo"
+    ref3 = _n3_fit(dev)
+    ref4 = _n4_fit(dev)
+    unsharded_ms = {}
+    for shape in N_K1_SHAPES + (N_K5_SHAPE,):
+        name = "x".join(map(str, shape))
+        kern = "poisson_stiffness_action" + ("_3d" if len(shape) == 4
+                                             else "")
+        unsharded_ms[name] = cuda_ms({name: _kernel_call(kern, shape, dev)}
+                                     )[name]
+    torch.cuda.empty_cache()
+    t_ranks = time.perf_counter()
+    ranks = run_ranks(slice_n_rank, world,
+                      (dev.type, {k: globals()[k] for k in N_SIZES}),
+                      backend=backend, timeout=N_RANK_TIMEOUT, threads=2)
+    ranks_s = time.perf_counter() - t_ranks
+    r0 = ranks[0]
+    head = {"nvidia_smi": smi, "backend": backend, "world": world,
+            "device_count": torch.cuda.device_count(),
+            "devices": [r["device"] for r in ranks]}
+    emit({"phase": "slice_N", **head, "ranks_s": ranks_s,
+          "spatial_launches_by_rank": [r["spatial_launches"]
+                                       for r in ranks]})
+
+    errs = _n_check_errs("slice N", ranks, FIELD_ATOL)
+    times = {}
+    for name, t in r0["times"].items():
+        times[name] = dict(t, unsharded_ms=unsharded_ms[name],
+                           halo_share=1.0 - t["kernel_on_block_ms"]
+                           / t["spatial_ms"])
+    cg = errs["cg_iterate"]
+    relres = [r["cg_relres"] for r in ranks]
+    emit({"phase": "slice_N1", **head, "shapes": [list(s) for s in
+                                                  N_K1_SHAPES],
+          "errs": {k: v for k, v in errs.items() if k.startswith("k1")},
+          "cg_iters": N_CG_ITERS, "cg_iterate": cg, "cg_atol": N_CG_ATOL,
+          "cg_relres": relres[0], "cg_relres_unsharded":
+              r0["cg_relres_unsharded"], "cg_relres_rtol": N_CG_RELRES_RTOL,
+          "times": {k: v for k, v in times.items() if k.count("x") == 2},
+          "k1_launches_by_rank": [r["spatial_launches"][
+              "poisson_stiffness_action"] for r in ranks]})
+    if not cg["max_abs_err"] <= N_CG_ATOL * max(1.0, cg["scale"]):
+        fail(f"slice N1: the split CG iterate is {cg['max_abs_err']} off "
+             "the unsharded one's")
+    if len(set(relres)) != 1 or abs(relres[0] - r0["cg_relres_unsharded"]) \
+            > N_CG_RELRES_RTOL * r0["cg_relres_unsharded"]:
+        fail(f"slice N1: relres {relres} against unsharded "
+             f"{r0['cg_relres_unsharded']}")
+    emit({"phase": "slice_N2", **head, "shape": list(N_K5_SHAPE),
+          "errs": {k: v for k, v in errs.items() if k.startswith("k5")},
+          "times": {k: v for k, v in times.items() if k.count("x") == 3},
+          "k5_launches_by_rank": [r["spatial_launches"][
+              "poisson_stiffness_action_3d"] for r in ranks]})
+    for r in ranks:
+        for name in ("poisson_stiffness_action",
+                     "poisson_stiffness_action_3d"):
+            if r["spatial_launches"][name] <= 0:
+                fail(f"slice N: rank {r['rank']} never launched {name}")
+
+    n3 = [r["n3"] for r in ranks]
+    rel3 = max(abs(a - b) / abs(b) for a, b in zip(n3[0]["losses"],
+                                                   ref3["losses"]))
+    emit({"phase": "slice_N3", **head, "grid": [N_GRID, N_GRID],
+          "batch": N_BATCH, "rows_a_rank": N_BATCH // world,
+          "losses": n3[0]["losses"], "losses_one_process": ref3["losses"],
+          "max_rel_diff": rel3, "rtol": N3_LOSS_RTOL,
+          "fit_s_by_rank": [r["fit_s"] for r in n3],
+          "fit_s_one_process": ref3["fit_s"],
+          "allreduce_ms": n3[0]["allreduce_ms"],
+          "allreduce_floats": N_GRID * N_GRID + 1,
+          "k2_launches_by_rank": [r["launches"]["poisson_resmin_loss_grad"]
+                                  for r in n3]})
+    _check_losses("slice N3", n3[0]["losses"])
+    for r in n3:
+        if r["launches"]["poisson_resmin_loss_grad"] != 10:
+            fail(f"slice N3: K2 launched {r['launches']} times on a rank, "
+                 "not once a step")
+        if r["losses"] != n3[0]["losses"]:
+            fail("slice N3: the ranks logged different losses")
+    if not rel3 <= N3_LOSS_RTOL:
+        fail(f"slice N3: losses {rel3} off the one-process run's")
+
+    n4 = [r["n4"] for r in ranks]
+    rel4 = max(abs(a - b) / abs(b) for a, b in zip(n4[0]["losses"],
+                                                   ref4["losses"]))
+    diffs = [np.abs(n4[0]["after_first"][k] - v)
+             for k, v in ref4["after_first"].items()]
+    dp = max(float(d.max()) for d in diffs)
+    off = sum(int((d > N4_PARAM_ATOL).sum()) for d in diffs) / sum(
+        d.size for d in diffs)
+    sums = [float(sum(np.abs(v).sum(dtype=np.float64)
+                      for v in n4[0]["after_first"].values()))] + [
+        r["after_first_sum"] for r in n4[1:]]
+    emit({"phase": "slice_N4", **head, "grid": [I_GRID] * 3,
+          "base_filters": I_FILTERS, "batch_a_rank": I_BATCH,
+          "steps": N4_STEPS, "losses": n4[0]["losses"],
+          "losses_one_process": ref4["losses"], "max_rel_diff": rel4,
+          "rtol": N4_LOSS_RTOL, "params_after_first_max_abs_diff": dp,
+          "params_after_first_share_off": off,
+          "params_atol": N4_PARAM_ATOL,
+          "params_fraction": N4_PARAM_FRACTION,
+          "steps_per_s_by_rank": [r["steps_per_s"] for r in n4],
+          "steps_per_s_one_process": ref4["steps_per_s"],
+          "max_memory_allocated_bytes_by_rank": [
+              r["max_memory_allocated_bytes"] for r in n4],
+          "max_memory_allocated_bytes_one_process":
+              ref4["max_memory_allocated_bytes"]})
+    if not all(math.isfinite(v) for v in n4[0]["losses"]) \
+            or len(n4[0]["losses"]) != N4_STEPS:
+        fail(f"slice N4: losses {n4[0]['losses']}")
+    if len(set(sums)) != 1:
+        fail(f"slice N4: the ranks' parameters after step 1 differ: {sums}")
+    if not off <= N4_PARAM_FRACTION:
+        fail(f"slice N4: a share {off} of the parameters after step 1 more "
+             f"than {N4_PARAM_ATOL} off one process's (at most {dp})")
+    if not rel4 <= N4_LOSS_RTOL:
+        fail(f"slice N4: losses {rel4} off the one-process run's")
+
+    t_dry = time.perf_counter()
+    dry = dryrun_multigpu(world, device=dev.type, threads=2)
+    emit({"phase": "slice_N_dryrun", **head, **dry,
+          "seconds": time.perf_counter() - t_dry})
+    emit({"phase": "slice_N_done", "seconds": time.perf_counter() - t0})
+    return {k: sum(r["path_launches"][k] for r in ranks) for k in KERNELS}
+
+
 FUSED_2D_STEPS = (   # the resident 512^2 x 32 steps on the fused losses
     ("resmin_fused_loss_grad", "resmin",
      {"fused_kernels": True, "fused_loss_grad": True}),
@@ -3218,12 +3670,15 @@ def main() -> int:
     # slice M sets the counts to 0 before each of its two paths:
     # physics_2d_immersed (K3, K1 in its VJP) and topopt_2d (K1)
     lm = slice_m(dev, smi, paths)
+    # the multi-device path: launched in the group's ranks, each counting
+    # from 0 before its path and read after; summed over the ranks
+    paths["multi_gpu"] = ln = slice_n(dev, smi)
     total = {name: sum(p[name] for p in paths.values()) for name in KERNELS}
     emit({"phase": "main_path_launches", "total": total, **paths,
           "slice_A": la, "slice_B": lb, "slice_C": lc, "slice_E1": le1,
           "slice_E2": le2, "slice_G1": lg1, "slice_G2": lg2,
           "slice_G3": lg3, "slice_H": lh, "slice_I": li, "slice_J": lj,
-          "slice_K": lk, "slice_L": ll, "slice_M": lm})
+          "slice_K": lk, "slice_L": ll, "slice_M": lm, "slice_N": ln})
     for path, names in (("training_2d", ("poisson_stiffness_action",
                                          "poisson_resmin_loss_grad",
                                          "poisson_energy")),
@@ -3237,7 +3692,10 @@ def main() -> int:
                                    "poisson_energy")),
                         ("flow_rr", ("ns_vms_residual",)),
                         ("physics_2d_immersed", ("poisson_energy",)),
-                        ("topopt_2d", ("poisson_stiffness_action",))):
+                        ("topopt_2d", ("poisson_stiffness_action",)),
+                        ("multi_gpu", ("poisson_stiffness_action",
+                                       "poisson_resmin_loss_grad",
+                                       "poisson_stiffness_action_3d"))):
         for name in names:
             if paths[path][name] <= 0:
                 fail(f"{name} was never launched on the {path} path")

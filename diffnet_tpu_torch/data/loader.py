@@ -1,12 +1,20 @@
 """Batching iterator over numpy datasets, yielding torch tensors.
 
-Port of ``diffnet_tpu/data/loader.py`` (without sharding). Datasets have
-``__len__`` and ``__getitem__`` returning a tuple of channels-last numpy
-arrays; a dataset with a callable ``batch(idx)`` (:class:`InMemoryDataset`)
-assembles a whole batch in one call instead. The loader moves each batch to
-`device`, and with ``prefetch > 0`` assembles the next batches on a
-background thread. The shuffle order is the JAX package's:
-``np.random.default_rng(seed).shuffle`` of ``arange(n)`` once per epoch.
+Port of ``diffnet_tpu/data/loader.py``. Datasets have ``__len__`` and
+``__getitem__`` returning a tuple of channels-last numpy arrays; a dataset
+with a callable ``batch(idx)`` (:class:`InMemoryDataset`) assembles a whole
+batch in one call instead. The loader moves each batch to `device`, and
+with ``prefetch > 0`` assembles the next batches on a background thread.
+The shuffle order is the JAX package's: ``np.random.default_rng(seed)
+.shuffle`` of ``arange(n)`` once per epoch.
+
+``mesh=`` is the counterpart of the JAX loader's ``sharding=``: every rank
+of a :class:`~diffnet_tpu_torch.parallel.Mesh` draws the same permutation
+from the seed, takes the same global batch indices and assembles only its
+own rows of each batch (its block along the mesh's 'data' axis), so the
+ranks' rows together are the JAX loader's global batch. ``batch_size``
+stays the global batch size, which 'data' must divide; the Trainer reads
+``loader.mesh`` to all-reduce the gradients.
 """
 
 from __future__ import annotations
@@ -53,16 +61,21 @@ class InMemoryDataset:
 
 
 class NumpyLoader:
-    """Parameters: dataset; batch_size; shuffle (reshuffle every epoch);
-    drop_last (drop the trailing partial batch); seed (shuffle seed);
-    device (where the batches go, default the CPU); prefetch (batches
-    assembled ahead on a background thread, 0 for none)."""
+    """Parameters: dataset; batch_size (the global batch); shuffle
+    (reshuffle every epoch); drop_last (drop the trailing partial batch);
+    seed (shuffle seed); device (where the batches go, default the CPU);
+    prefetch (batches assembled ahead on a background thread, 0 for none);
+    mesh (a process mesh: yield this rank's rows of each batch)."""
 
     def __init__(self, dataset, batch_size: int = 1, shuffle: bool = False,
                  drop_last: bool = True, seed: int = 42,
                  device: str | torch.device | None = None,
-                 prefetch: int = 0):
+                 prefetch: int = 0, mesh=None):
+        if mesh is not None and batch_size % mesh.data:
+            raise ValueError(f"batch_size {batch_size} does not split into "
+                             f"{mesh.data} equal blocks along 'data'")
         self.dataset = dataset
+        self.mesh = mesh
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.drop_last = drop_last
@@ -124,6 +137,16 @@ class NumpyLoader:
         finally:
             stop.set()
 
+    def _rows(self, idx: np.ndarray) -> np.ndarray:
+        """This rank's block of a global batch's indices along 'data'."""
+        k = self.mesh.data
+        if len(idx) % k:
+            raise ValueError(f"a batch of {len(idx)} does not split into {k} "
+                             "equal blocks along 'data' (drop_last=True "
+                             "drops the partial batch)")
+        m = len(idx) // k
+        return idx[self.mesh.data_index * m:(self.mesh.data_index + 1) * m]
+
     def _plain_iter(self) -> Iterator[tuple[torch.Tensor, ...]]:
         n = len(self.dataset)
         order = np.arange(n)
@@ -136,6 +159,8 @@ class NumpyLoader:
             batch_fn = None
         for b in range(len(self)):
             idx = order[b * self.batch_size:(b + 1) * self.batch_size]
+            if self.mesh is not None:
+                idx = self._rows(idx)
             if batch_fn is not None:
                 arrays = tuple(batch_fn(idx))
             else:

@@ -1,0 +1,21 @@
+"""Multi-device work over ``torch.distributed`` (port of
+``diffnet_tpu/parallel``): process meshes with data-parallel batches and
+row-sharded fields (``mesh``), the spatially sharded Poisson stiffness
+actions through K1 and K5 (``spatial``), spawning a process group
+(``launch``), the four-workload dry run (``dryrun``) and the torchrun
+scaling demo (``scaling``).
+"""
+
+from .launch import rank_device, run_ranks
+from .mesh import (Mesh, gather_block, halo_exchange, halo_exchange_y,
+                   halo_exchange_z, local_block, make_mesh, replicate,
+                   shard_batch)
+from .spatial import (poisson_residual_spatial,
+                      poisson_stiffness_spatial_fused,
+                      poisson_stiffness_spatial_fused_3d)
+
+__all__ = ["Mesh", "make_mesh", "shard_batch", "local_block", "gather_block",
+           "replicate", "halo_exchange", "halo_exchange_y",
+           "halo_exchange_z", "poisson_residual_spatial",
+           "poisson_stiffness_spatial_fused",
+           "poisson_stiffness_spatial_fused_3d", "run_ranks", "rank_device"]

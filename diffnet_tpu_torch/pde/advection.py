@@ -62,6 +62,9 @@ class AdvDiff2D(FEM2DModule):
         u = self.apply_dirichlet(u, inputs_tensor[..., 1], self.bc1_value)
         return self.apply_dirichlet(u, inputs_tensor[..., 2], 0.0)
 
+    # the loss sums squared residuals over the batch
+    batch_reduction = "sum"
+
     def loss(self, u, inputs_tensor, forcing_tensor):
         u = self.apply_bcs(u, inputs_tensor)
         if self.f_gp is not None:

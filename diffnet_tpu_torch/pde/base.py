@@ -61,6 +61,16 @@ class PDEModule(nn.Module):
     def loss(self, u, inputs_tensor, forcing_tensor):
         raise NotImplementedError
 
+    @property
+    def batch_reduction(self) -> str | None:
+        """How :meth:`training_loss` combines a batch's samples, which
+        data-parallel training needs (``Trainer.fit`` over a loader on a
+        data mesh): ``"mean"`` (the mean of equal row blocks' losses is the
+        batch's, the default: a mean of per-sample or batch-mean terms),
+        ``"sum"`` (their sum is) or None (neither, e.g. a norm over the
+        whole batch, which does not split over ranks)."""
+        return "mean"
+
     def forward(self, batch):
         """``u = network(inputs)``; returns ``(u, inputs, forcing)``."""
         inputs_tensor, forcing_tensor = batch

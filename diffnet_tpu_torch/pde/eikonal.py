@@ -70,6 +70,9 @@ class _EikonalMixin:
             [(tau * gp["N"] * gp[q], q) for q in grads]
             + [((1.0 + tau) * (grad2 - 1.0), "N")])
 
+    # norms over the whole batch: the loss does not split over ranks
+    batch_reduction = None
+
     def loss(self, u, cloud, forcing_tensor):
         nsd = self.nsd
         u = _squeeze_field(u)

@@ -88,6 +88,12 @@ class ElasticFSDT(FEM2DModule):
         return (torch.where(clamped, z, R1), torch.where(clamped, z, R2),
                 torch.where(clamped, z, R3))
 
+    @property
+    def batch_reduction(self) -> str | None:
+        """The squared norm sums over the batch; the root of a sum over the
+        batch does not split over ranks."""
+        return "sum" if self.loss_norm == "squared" else None
+
     def loss(self, pred, inputs_tensor, forcing_tensor):
         R1, R2, R3 = self.calc_residuals(pred, inputs_tensor, forcing_tensor)
         if self.loss_norm == "squared":

@@ -210,6 +210,12 @@ class StokesNSBase(FEM2DModule):
             return (key,)
         return None
 
+    @property
+    def batch_reduction(self) -> str | None:
+        """The squared norm sums over the batch; the root of a sum over the
+        batch does not split over ranks."""
+        return "sum" if self.loss_norm == "squared" else None
+
     def loss(self, pred, inputs_tensor, forcing_tensor):
         R1, R2, R3 = self.calc_residuals(pred, inputs_tensor, forcing_tensor)
         s = self.momentum_scale

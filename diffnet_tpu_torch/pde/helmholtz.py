@@ -51,6 +51,9 @@ class Helmholtz2D(FEM2DModule):
         u = self.apply_dirichlet(_squeeze_field(u), bc2, 0.0)
         return self.residual(u, self._f_gp(forcing_tensor, u.dtype), bc2)
 
+    # the loss sums squared residuals over the batch
+    batch_reduction = "sum"
+
     def loss(self, u, inputs_tensor, forcing_tensor):
         return torch.sum(self.residual_for_field(u, inputs_tensor,
                                                  forcing_tensor) ** 2)

@@ -128,6 +128,16 @@ class IBNPoisson2D(FEM2DModule):
         return (torch.mean(self.loss(u, inputs, forcing))
                 + self.vae_kl_weight * kl)
 
+    @property
+    def batch_reduction(self) -> str | None:
+        """resmin sums R^2 over the batch (None with a VAE, whose KL term is
+        a batch mean); the energy and the mask regression take means."""
+        from ..models.networks import VAE
+
+        if self.ibn_loss_type != "resmin":
+            return "mean"
+        return None if isinstance(self.network, VAE) else "sum"
+
     def _nu_and_dirichlet(self, inputs_tensor):
         """The diffusivity and the constrained node set: with ``neumann``,
         nu = 0 inside the object and the outer sets bc2 (and bc3);

@@ -213,6 +213,11 @@ class _PoissonCommon:
         return poisson_resmin_residual(
             self, u, self.gauss_pt_evaluation(nu), f_gp, bc_mask)
 
+    @property
+    def batch_reduction(self) -> str:
+        """resmin sums R^2 over the batch; energy and strong take means."""
+        return "sum" if self.loss_type == "resmin" else "mean"
+
     def loss(self, u, inputs_tensor, forcing_tensor):
         u = _squeeze_field(u)
         nu = inputs_tensor[..., 0]

@@ -78,6 +78,11 @@ class SpaceTimeHeat(_SpaceTimeMixin, FEM2DModule):
         R = torch.where(bc2 > 0.5, torch.zeros_like(R), R)
         return torch.where(bc1 > 0.5, torch.zeros_like(R), R)
 
+    @property
+    def batch_reduction(self) -> str:
+        """The energy is a mean; resmin sums R^2 over the batch."""
+        return "mean" if self.loss_type == "energy" else "sum"
+
     def loss(self, u, inputs_tensor, forcing_tensor):
         u = self.apply_bcs(u, inputs_tensor)
         if self.f_gp is not None:
@@ -131,6 +136,9 @@ class AllenCahnIceMelt(_SpaceTimeMixin, FEM2DModule):
             (D * Cn**2 * gp["dy"], "dy")])
         R = torch.where(bc1 > 0.5, torch.zeros_like(R), R)
         return torch.where(bc2 > 0.5, torch.zeros_like(R), R)
+
+    # the loss sums squared residuals over the batch
+    batch_reduction = "sum"
 
     def loss(self, u, inputs_tensor, forcing_tensor):
         u = self.apply_bcs(u, inputs_tensor)

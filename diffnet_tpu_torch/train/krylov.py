@@ -12,6 +12,13 @@ linear solves call), kept exactly:
 - the ``(x, info)`` return: ``info`` is None for cg and bicgstab, and for
   gmres a 0-dim tensor, -1 when x holds a NaN, else 0.
 
+With ``mesh=`` (cg and bicgstab) the vectors are this rank's blocks of
+fields split along a process mesh's 'space' axis
+(:mod:`diffnet_tpu_torch.parallel`): every inner product and norm is
+all-reduced over 'space', so each rank takes the unsplit solve's steps on
+its own rows, and ``A`` and ``M`` map blocks to blocks (their halo
+exchanges are theirs).
+
 The iteration reads back no scalar when ``tol == atol == 0``: each step
 then computes its update for every iteration up to ``maxiter`` and keeps
 the old state (``torch.where`` on a device flag) once the stopping rule has
@@ -32,6 +39,14 @@ __all__ = ["cg", "bicgstab", "gmres"]
 
 def _vdot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return torch.vdot(x.reshape(-1), y.reshape(-1))
+
+
+def _dot(mesh) -> Callable:
+    """The inner product of fields: of whole ones, or of blocks along the
+    mesh's 'space' axis, all-reduced over it."""
+    if mesh is None or mesh.space == 1:
+        return _vdot
+    return lambda x, y: mesh.all_reduce(_vdot(x, y), "space")
 
 
 def _identity(x):
@@ -69,39 +84,41 @@ def _setup(b, x0, maxiter, M):
     return x0, int(maxiter), (_identity if M is None else M)
 
 
-def _atol2(b, tol, atol):
-    bs = _vdot(b, b)
+def _atol2(b, tol, atol, dot=_vdot):
+    bs = dot(b, b)
     return torch.clamp(tol * tol * bs, min=atol * atol)
 
 
 @torch.no_grad()
 def cg(A: Callable, b: torch.Tensor, x0: torch.Tensor | None = None, *,
        tol: float = 1e-5, atol: float = 0.0, maxiter: int | None = None,
-       M: Callable | None = None):
-    """Preconditioned conjugate gradients for SPD ``A`` (``M`` SPD too)."""
+       M: Callable | None = None, mesh=None):
+    """Preconditioned conjugate gradients for SPD ``A`` (``M`` SPD too);
+    `mesh`: the vectors are blocks along its 'space' axis."""
     x0, maxiter, Mf = _setup(b, x0, maxiter, M)
-    atol2 = _atol2(b, tol, atol)
+    dot = _dot(mesh)
+    atol2 = _atol2(b, tol, atol, dot)
     k0 = torch.zeros((), dtype=torch.int64, device=b.device)
 
     def cond(s):
         _, r, gamma, _, k = s
-        rs = gamma if Mf is _identity else _vdot(r, r)
+        rs = gamma if Mf is _identity else dot(r, r)
         return (rs > atol2) & (k < maxiter)
 
     def body(s):
         x, r, gamma, p, k = s
         Ap = A(p)
-        alpha = gamma / _vdot(p, Ap)
+        alpha = gamma / dot(p, Ap)
         x_ = x + alpha * p
         r_ = r - alpha * Ap
         z_ = Mf(r_)
-        gamma_ = _vdot(r_, z_)
+        gamma_ = dot(r_, z_)
         p_ = z_ + (gamma_ / gamma) * p
         return x_, r_, gamma_, p_, k + 1
 
     r0 = b - A(x0)
     z0 = Mf(r0)
-    state = (x0, r0, _vdot(r0, z0), z0, k0)
+    state = (x0, r0, dot(r0, z0), z0, k0)
     x, *_ = _while(cond, body, state, maxiter, tol != 0 or atol != 0)
     return x, None
 
@@ -109,29 +126,32 @@ def cg(A: Callable, b: torch.Tensor, x0: torch.Tensor | None = None, *,
 @torch.no_grad()
 def bicgstab(A: Callable, b: torch.Tensor, x0: torch.Tensor | None = None,
              *, tol: float = 1e-5, atol: float = 0.0,
-             maxiter: int | None = None, M: Callable | None = None):
+             maxiter: int | None = None, M: Callable | None = None,
+             mesh=None):
     """Preconditioned BiCGSTAB for general ``A``. A breakdown (rho, alpha or
-    omega of 0) stops the iteration, as in JAX."""
+    omega of 0) stops the iteration, as in JAX. `mesh`: the vectors are
+    blocks along its 'space' axis."""
     x0, maxiter, Mf = _setup(b, x0, maxiter, M)
-    atol2 = _atol2(b, tol, atol)
+    dot = _dot(mesh)
+    atol2 = _atol2(b, tol, atol, dot)
 
     def cond(s):
         r, k = s[1], s[-1]
-        return (_vdot(r, r) > atol2) & (k < maxiter) & (k >= 0)
+        return (dot(r, r) > atol2) & (k < maxiter) & (k >= 0)
 
     def body(s):
         x, r, rhat, alpha, omega, rho, p, q, k = s
-        rho_ = _vdot(rhat, r)
+        rho_ = dot(rhat, r)
         beta = rho_ / rho * alpha / omega
         p_ = r + beta * (p - omega * q)
         phat = Mf(p_)
         q_ = A(phat)
-        alpha_ = rho_ / _vdot(rhat, q_)
+        alpha_ = rho_ / dot(rhat, q_)
         s_ = r - alpha_ * q_
-        exit_early = _vdot(s_, s_) < atol2
+        exit_early = dot(s_, s_) < atol2
         shat = Mf(s_)
         t = A(shat)
-        omega_ = _vdot(t, s_) / _vdot(t, t)
+        omega_ = dot(t, s_) / dot(t, t)
         x_ = torch.where(exit_early, x + alpha_ * phat,
                          x + (alpha_ * phat + omega_ * shat))
         r_ = torch.where(exit_early, s_, s_ - omega_ * t)

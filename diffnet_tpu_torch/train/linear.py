@@ -81,7 +81,8 @@ def solve_linear(residual_fn: Callable, shape, method: str = "cg",
                  M: Callable | None = None, x0=None,
                  restart: int | None = None,
                  assemble: str | None = None, stencil_width: int = 3,
-                 stencil_kernel: str | None = None, device="cuda"):
+                 stencil_kernel: str | None = None, device="cuda",
+                 mesh=None):
     """Solve ``residual_fn(u) == 0`` for an affine ``residual_fn``.
 
     residual_fn: nodal field ``[*shape]`` on `device` -> residual of the
@@ -96,6 +97,13 @@ def solve_linear(residual_fn: Callable, shape, method: str = "cg",
         ``stencil_width=2*deg+1`` for deg-d elements).
     stencil_kernel: with ``assemble='stencil'``, ``'cuda'`` applies the
         stencil through the K4 kernel (width 3, 2D).
+    mesh: a process mesh whose 'space' axis splits the field (the JAX
+        package's spatially sharded fields): `shape` is then this rank's
+        block, ``residual_fn`` maps blocks to blocks (e.g. through
+        :func:`~diffnet_tpu_torch.parallel.poisson_stiffness_spatial_fused`)
+        and every rank calls ``solve_linear`` at once; the inner products
+        and norms run over the whole field (cg and bicgstab; no stencil
+        assembly). Returns this rank's block of the solution.
 
     Returns ``(u, info)`` as the Krylov solver does. Raises ValueError if
     the residual is not affine (one extra residual evaluation at a random
@@ -103,6 +111,9 @@ def solve_linear(residual_fn: Callable, shape, method: str = "cg",
     """
     check_kernel(stencil_kernel)
     device = resolve_device(device, "solve_linear")
+    if mesh is not None and (method == "gmres" or assemble is not None):
+        raise ValueError("a solve over a mesh takes method 'cg' or "
+                         "'bicgstab' and no assemble")
     if isinstance(shape, Mapping):
         shapes = {tuple(a.shape) for a in shape.values()}
         if len(shapes) != 1:
@@ -117,7 +128,7 @@ def solve_linear(residual_fn: Callable, shape, method: str = "cg",
         x, info = solve_linear(st.wrap(residual_fn),
                                (len(st.keys),) + shapes.pop(), method, tol,
                                maxiter, st.wrap(M), x0, restart, None,
-                               stencil_width, stencil_kernel, device)
+                               stencil_width, stencil_kernel, device, mesh)
         return st.unpack(x), info
     if not (isinstance(shape, (tuple, list))
             and all(isinstance(s, (int, np.integer)) for s in shape)):
@@ -135,7 +146,13 @@ def solve_linear(residual_fn: Callable, shape, method: str = "cg",
                       device)
     A2 = A(2.0 * probe)
     A1 = A(probe)
-    lin = float(_norm(A2 - 2.0 * A1) / (_norm(A1) + 1e-30))
+
+    def norm(x):
+        if mesh is None:
+            return _norm(x)
+        return mesh.all_reduce(torch.sum(x * x), "space").sqrt()
+
+    lin = float(norm(A2 - 2.0 * A1) / (norm(A1) + 1e-30))
     if lin > 1e-3:
         raise ValueError(
             "residual_fn is not affine in the field (relative linearity "
@@ -160,9 +177,13 @@ def solve_linear(residual_fn: Callable, shape, method: str = "cg",
         raise ValueError("stencil_kernel requires assemble='stencil'")
 
     if maxiter is None:
-        maxiter = 10 * int(zero.numel() ** 0.5)
+        # the whole field's size
+        maxiter = 10 * int((zero.numel() * (mesh.space if mesh else 1))
+                           ** 0.5)
     kwargs = {"tol": tol, "maxiter": maxiter, "M": M,
               "x0": None if x0 is None else _as_field(x0, device)}
+    if mesh is not None:
+        kwargs["mesh"] = mesh
     if restart is not None:
         if method != "gmres":
             raise ValueError("restart applies to gmres only")

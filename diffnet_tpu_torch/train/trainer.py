@@ -36,7 +36,18 @@ optimizer steps on ``module.training_loss``:
   * checkpoints ``last.ckpt``, ``best.ckpt`` (network parameters) and
     ``state.ckpt`` (the full training state);
   * callbacks with ``on_train_start`` / ``on_epoch_end`` / ``on_train_end``
-    hooks, and :class:`EarlyStopping`.
+    hooks, and :class:`EarlyStopping`;
+  * data-parallel training: a loader on a process mesh
+    (``NumpyLoader(..., mesh=)``, one process a rank) hands each rank its
+    rows of every global batch, and ``fit`` then starts every rank from the
+    first rank's parameters and, after each backward, all-reduces the
+    gradients and the loss over the mesh's 'data' axis as
+    ``module.batch_reduction`` says (a sum for a loss that sums over the
+    batch, a mean for one that averages): every rank takes the step the
+    global batch gives, LBFGS's line search and curvature pairs included,
+    and ``nan_guard``, the switch and the callbacks see the same losses on
+    every rank. Only the mesh's first rank writes logs and checkpoints
+    (give every rank the same ``run_dir``).
 """
 
 from __future__ import annotations
@@ -51,6 +62,7 @@ import numpy as np
 import torch
 
 from ..data.loader import NumpyLoader
+from ..parallel.mesh import replicate
 from ..utils.device import resolve_device
 from .lbfgs import LBFGS
 
@@ -264,6 +276,20 @@ def _spec_key(spec):
     return None if callable(spec) else str(spec).lower()
 
 
+def _data_mesh(loader, module):
+    """``(mesh, module.batch_reduction)`` for a loader on a mesh whose
+    'data' axis has more than one rank, else ``(None, None)``."""
+    mesh = getattr(loader, "mesh", None)
+    if mesh is None or mesh.data == 1:
+        return None, None
+    reduction = getattr(module, "batch_reduction", "mean")
+    if reduction not in ("mean", "sum"):
+        raise ValueError(
+            f"{type(module).__name__}'s loss does not split over the batch "
+            f"(batch_reduction={reduction!r}); it cannot train data-parallel")
+    return mesh, reduction
+
+
 class _Objective(NamedTuple):
     """One optimizer, its scheduler, and its step function."""
     optimizer: torch.optim.Optimizer
@@ -338,6 +364,8 @@ class Trainer:
         self._objectives: list[_Objective] = []
         self._rr_counter = 0
         self._last_obj_loss: list = []
+        self._mesh = None           # fit's data mesh, None without one
+        self._reduction = None      # its module's batch_reduction
 
     # -- optimizers and steps --------------------------------------------
     def request_optimizer_switch(self, optimizer, learning_rate=None,
@@ -350,17 +378,46 @@ class Trainer:
                                 "learning_rate": learning_rate,
                                 "lbfgs_max_iter": lbfgs_max_iter}
 
+    def _all_reduce(self, loss: torch.Tensor, params: list) -> torch.Tensor:
+        """With a data mesh: replace this rank's gradients of `params` and
+        its loss by the global batch's, in one all-reduce over 'data' (a sum
+        or a mean, as the module's ``batch_reduction``); returns the global
+        loss, detached. A parameter that this rank's rows left without a
+        gradient gets a zero one, so that every rank reduces the same
+        layout. Without a mesh, `loss` as it is."""
+        if self._mesh is None:
+            return loss
+        grads = []
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+            grads.append(p.grad)
+        dtype = grads[0].dtype if grads else loss.dtype
+        flat = torch.cat([g.reshape(-1) for g in grads]
+                         + [loss.detach().reshape(1).to(dtype)])
+        flat = self._mesh.all_reduce(flat, "data", self._reduction)
+        i = 0
+        for g in grads:
+            g.copy_(flat[i:i + g.numel()].view_as(g))
+            i += g.numel()
+        return flat[-1].to(loss.dtype)
+
     def _step_fn(self, loss_fn, opt, sched, params=None):
         """One optimizer step of ``loss_fn(batch)``. With `params` (a
         round-robin objective's) only their gradients are taken."""
+        synced = params if params is not None else [
+            p for g in opt.param_groups for p in g["params"]]
 
         def backward(loss):
+            """Gradients of `loss`, global over a data mesh; returns the
+            loss (the global one over a mesh)."""
             if params is None:
                 loss.backward()
-                return
-            grads = torch.autograd.grad(loss, params, allow_unused=True)
-            for p, g in zip(params, grads):
-                p.grad = g
+            else:
+                grads = torch.autograd.grad(loss, params, allow_unused=True)
+                for p, g in zip(params, grads):
+                    p.grad = g
+            return self._all_reduce(loss, synced)
 
         if isinstance(opt, torch.optim.LBFGS):
             def step(batch):
@@ -372,8 +429,7 @@ class Trainer:
 
                 def closure():
                     opt.zero_grad(set_to_none=True)
-                    loss = loss_fn(batch)
-                    backward(loss)
+                    loss = backward(loss_fn(batch))
                     last[:] = [loss.detach()]
                     return loss
                 opt.step(closure)
@@ -382,8 +438,7 @@ class Trainer:
 
         def step(batch):
             opt.zero_grad(set_to_none=True)
-            loss = loss_fn(batch)
-            backward(loss)
+            loss = backward(loss_fn(batch))
             # nan_guard's back-off: the learning rate times 0.5 a restore
             # for this update (exact in both directions: a power of two)
             scale = 0.5 ** self._nan_restores
@@ -450,6 +505,8 @@ class Trainer:
         return TrainState(module.network.state_dict(), opts, n_steps, scheds)
 
     def _save_state(self, state: TrainState, epoch: int) -> None:
+        if not self._writes:
+            return
         save_state(state, os.path.join(self.run_dir, "state.ckpt"),
                    epoch=epoch, rr_counter=self._rr_counter,
                    optimizer_spec=_spec_key(self.optimizer_spec),
@@ -512,6 +569,7 @@ class Trainer:
                 "NumpyLoader(..., drop_last=False)")
         if params is not None:
             module.network.load_state_dict(params)
+        self._mesh, self._reduction = _data_mesh(dataloader, module)
         lr = self.learning_rate or getattr(module, "learning_rate", 3e-4)
         spe = len(dataloader)
         self._rr_counter = 0
@@ -521,6 +579,11 @@ class Trainer:
             ck = load_state(resume_from, map_location=self.device)
             n_steps = self._restore(module, ck, lr, spe)
             first_epoch = int(ck.get("epoch", -1)) + 1
+        if self._mesh is not None:
+            # every rank starts from the first rank's parameters
+            replicate([t.data for t in module.parameters()]
+                      + [t for t in module.buffers()
+                         if t.is_floating_point()], self._mesh)
 
         for cb in self.callbacks:
             cb.on_train_start(self, module,
@@ -572,11 +635,16 @@ class Trainer:
                         vlosses = [module.training_loss(
                             tuple(t.to(self.device) for t in b))
                             for b in val_dataloader]
-                    metrics["val_loss"] = float(torch.stack(vlosses).mean())
-                if self.logger and epoch % self.log_every == 0:
+                    vloss = torch.stack(vlosses).mean()
+                    vmesh, vred = _data_mesh(val_dataloader, module)
+                    if vmesh is not None:
+                        vloss = vmesh.all_reduce(vloss, "data", vred)
+                    metrics["val_loss"] = float(vloss)
+                if self.logger and self._writes \
+                        and epoch % self.log_every == 0:
                     self.logger.log(metrics)
                 self.state = self._train_state(module, n_steps)
-                if self.checkpoint:
+                if self.checkpoint and self._writes:
                     save_params(self.state.params,
                                 os.path.join(self.run_dir, "last.ckpt"))
                     self._save_state(self.state, epoch)
@@ -610,6 +678,12 @@ class Trainer:
         for cb in self.callbacks:
             cb.on_train_end(self, module, self.state)
         return self.state
+
+    @property
+    def _writes(self) -> bool:
+        """Whether this process writes logs and checkpoints: the data mesh's
+        first rank, or the only process."""
+        return self._mesh is None or self._mesh.lead
 
     def _nan_restore(self, module, epoch: int, epoch_loss: float, lr: float,
                      spe: int) -> int:

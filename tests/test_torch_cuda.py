@@ -20,7 +20,10 @@ JVP as the other VJPs; the 33^2 Newton solve through K6 at |F| < 1e-6 and
 within 1e-4 of the plain solve; the IBN slices' losses and gradients (no
 kernel of ours: the winding number, cuDNN convolutions and the energy; the
 3D one in float32 and float64) at 1e-5 of the CPU's (1e-10 in float64),
-and DGCNN2D's forward at 1e-5 of the CPU's; slice J's energy step through
+and DGCNN2D's forward at 1e-5 of the CPU's; the spatially sharded K1
+and K5 (slice N1 and N2: 4 ranks sharing the card over gloo) and their
+VJPs through the halo exchange at 2e-6 times max(1, max |ref|) of the
+unsharded kernels'; slice J's energy step through
 K3 and K1 (with and without remat) at 1e-5 of the plain loss and 1e-4 of
 its largest parameter gradient; slice K's objectives through K6 at 1e-5 of
 the plain loss and 2e-5 of the largest field gradient; slice L's eikonal
@@ -885,3 +888,27 @@ def test_immersed_energy_step_through_k3_matches_plain(dev):
         assert abs(lf - lp) <= 1e-5 * abs(lp), cls.__name__
         torch.testing.assert_close(gf, gp, rtol=0,
                                    atol=1e-5 * float(gp.abs().max()))
+
+
+@pytest.mark.parametrize("shapes", [[(1, 512, 512), (32, 512, 512)],
+                                    [(1, 128, 128, 128), (2, 16, 16, 16)]],
+                         ids=["k1_512", "k5_128"])
+def test_spatial_kernels_over_four_ranks_match_the_unsharded(dev, shapes,
+                                                             tmp_path):
+    """Slice N1 and N2 on the card: 4 gloo ranks on one card split the rows
+    (planes); each rank's block of the spatial K1 / K5 action and of its
+    VJPs through the halo exchange against the unsharded kernel's, and
+    every rank launched the kernel."""
+    from diffnet_tpu_torch.parallel import run_ranks
+    from tests import torch_parallel_ranks as ranks
+
+    k1.load_library()   # built once, before the ranks load it
+    out = run_ranks(ranks.spatial_cuda_rank, 4, (shapes,),
+                    init_method="file://" + str(tmp_path / "rendezvous"),
+                    timeout=300.0, threads=2)
+    for r in out:
+        for shape in shapes:
+            res = r[tuple(shape)]
+            assert res["launches"][0 if len(shape) == 3 else 1] > 0
+            for err, scale in res["errs"]:
+                assert err <= 2e-6 * max(1.0, scale), (shape, err, scale)
