@@ -23,8 +23,10 @@ exits non-zero (it also does so, printing no result, without CUDA):
      at every K1 shape, within 8e-3 x max(1, |plain|) (each rounds once
      from float32). K4 (the assembled 9-point stencil apply)
      against its plain version at 2x33^2, 1x40x56, 3x17x129, slice D's
-     levels 1x513^2, 1x257^2, 1x129^2, 1x65^2, and 32x512^2, each with
-     per-sample and batch-1 C.
+     levels 1x513^2, 1x257^2, 1x129^2, 1x65^2, and 32x512^2, and slice
+     O's halo'd row blocks of the split V-cycle (1x130x513, 1x129x513,
+     1x66x257, 1x65x257, 1x34x129, 1x33x129, 1x18x65, 1x17x65; the middle
+     ones timed), each with per-sample and batch-1 C.
      The time of each at 512^2 x 32 (K1 in float32 and bf16) beside its
      plain version's and its bound (CUDA events around 10 back-to-back
      calls queued behind a spin kernel, median of 20 runs; see
@@ -41,11 +43,15 @@ exits non-zero (it also does so, printing no result, without CUDA):
      2x40^2 with forcing, 2x65^2, 1x2^2 and 1x97^2 (its tile edges),
      1x129^2 (slice G1's grid), 8x256^2 and 8x512^2, visco 0.01, each
      residual within 2e-5 x max(1, max |plain|) (the JAX package's
-     kernel-vs-XLA tolerance), timed at the last two.
+     kernel-vs-XLA tolerance), timed at the last two; through its row-block
+     entry (the split route: ny != nx, the square grid's spacing) at the
+     halo'd blocks 1x33x129, 1x34x129, 1x35x129, 8x66x256, 2x9x32 (with
+     forcing) and 1x2x65, each timed; the global entry must refuse
+     ny != nx.
   3. gradients: the K1 du/dnu, K3 du, K2 du and K4 dC/du VJPs against
      autograd through the plain versions, at 65^2; the K5 du/dnu and K4-3D
      dC/du VJPs at 17^3; the K6 VJP and its JVP (``torch.func.jvp``) at 33^2.
-  4-14. the main paths (launch counts set to 0 first, read after each):
+  4-15. the main paths (launch counts set to 0 first, read after each):
      A. the README quick start through ``Trainer.fit``, 64^2 MMS resmin
         with LBFGS; rel L2 vs the exact solution must be <= 2.6e-4 (the JAX
         package gives 2.046e-4);
@@ -213,18 +219,40 @@ exits non-zero (it also does so, printing no result, without CUDA):
         all-reduce's ms. N4 slice I's 3D IBN (UNet3D(16) from
         ``seeded_params``, 32^3) at 8 rows a rank, 5 Adam steps: the
         losses within 1e-4 of one process's on the batch of 32, the
-        parameters after step 1 (N4_PARAM_*), steps/s and peak memory a
-        rank. Then ``dryrun_multigpu(4)``.
-  15. resident steps: steps/s of the 512^2 x 32 training steps with the
+        all-reduced gradient of step 1 entry by entry within 1e-5 of its
+        L2 norm of one process's, the parameters after step 1
+        (N4_PARAM_*), steps/s and peak memory a rank. Then
+        ``dryrun_multigpu(4)`` (its workload (b) split over data and
+        space).
+     O. the split solvers, the split NS residual and the root-norm losses
+        over 4 ranks, as slice N's group runs (``slice_o_rank``), each
+        against one process on the same card: O1 slice D's 513^2
+        54x-contrast MG-CG in D3's variant with the rows split over
+        'space' (``multigrid_preconditioner(mesh=)``: levels 513-257-129-65
+        on row blocks through K4, 33 gathered; the outer matvec through
+        K4 on halo'd blocks), 14 iterations: the iterate within 2e-5 x
+        max(1, max |x|), the relres under its own and the element path's
+        operator within slice D's bound; O2 slice G1's 129^2 cavity
+        residual (mean-control gauge) on row blocks, through K6's row-block
+        entry and without it, within 2e-6 x max(1, max |R|); O3 one cycle
+        of GMRES(10) on that residual's Jacobian action (torch.func.jvp
+        through the exchange and the gauge's all-reduce) within 1e-4 x
+        max |dx|; O4 G3's 8 x 256^2 cavity with the Frobenius loss
+        (``batch_reduction="global"``), 2 rows a rank, 2 Adam steps: the
+        losses within 1e-5 and step 1's all-reduced gradient within 1e-5
+        of its largest entry. Beside each: the split call's ms and its
+        exchange or all-reduce share (host clock).
+  16. resident steps: steps/s of the 512^2 x 32 training steps with the
      batch on the card (fused and unfused) and of G3's NS step; 10 steps
      of each fused 512^2 x 32 loss (K2's, K3's) under ``torch.profiler``:
      device busy and wall ms a step, idle share, top device operations.
-  16. path shapes: each kernel timed again at every shape its slices run
+  17. path shapes: each kernel timed again at every shape its slices run
      it at (``SLICE_SHAPES``); the shape where most of its launches on the
      paths above ran (the slice with the most launches) gives
      ``ms_path_shape`` and ``path_shape`` on the kernel table line.
   Then the kernel table line (all seven kernels; K1's also carries its
-  bf16 time, bound and largest error) and, last, ``{"ok": true, "device":
+  bf16 time, bound and largest error, K4's and K6's their times at slice
+  O's block shapes, ``ms_blocks``) and, last, ``{"ok": true, "device":
   ...}``.
 """
 
@@ -243,6 +271,7 @@ import time
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.optim.optimizer import register_optimizer_step_pre_hook
 
 from diffnet_tpu_torch.core import fem
 from diffnet_tpu_torch.core.geometry import (occupancy_from_cloud,
@@ -276,7 +305,8 @@ from diffnet_tpu_torch.ops import poisson_residual_3d as k5
 from diffnet_tpu_torch.ops.poisson_residual_3d import (
     poisson_stiffness_action_3d)
 from diffnet_tpu_torch.ops import stencil_apply as k4
-from diffnet_tpu_torch.parallel import (halo_exchange, local_block,
+from diffnet_tpu_torch.parallel import (all_reduce_sum, gather_block,
+                                        halo_exchange, local_block,
                                         make_mesh,
                                         poisson_stiffness_spatial_fused,
                                         poisson_stiffness_spatial_fused_3d,
@@ -293,12 +323,14 @@ from diffnet_tpu_torch.pde import (AdvDiff2D, AllenCahnIceMelt,
                                    signed_occupancy_init)
 from diffnet_tpu_torch.train import (Callback, OptimizerSwitch, Trainer, cg,
                                      extract_verified, gauss_newton_solve,
+                                     gmres,
                                      module_linear_solve,
                                      multigrid_preconditioner, newton_solve,
                                      ns_newton_solve, query_statistical,
                                      solve_linear,
                                      stokes_block_preconditioner,
                                      stencil_matvec)
+from diffnet_tpu_torch.train.stencil import SplitStencil
 from diffnet_tpu_torch.utils import (export_forward, field_to_obj,
                                      load_exported, save_exported,
                                      surface_nets)
@@ -765,17 +797,26 @@ def phase_kernels(dev) -> dict:
     return {"errs": errs, "times": times}
 
 
-# 1 x 513^2 .. 1 x 65^2: the levels on which slice D runs K4, at batch 1
+# 1 x 513^2 .. 1 x 65^2: the levels on which slice D runs K4, at batch 1;
+# then the halo'd row blocks slice O's split V-cycle runs it on (513 rows
+# over 4 ranks: blocks of 128 and 129, halo'd 129 and 130; the coarser
+# levels' 64/65, 32/33, 16/17)
 STENCIL_SHAPES = ((2, 33, 33), (1, 40, 56), (3, 17, 129), (1, 513, 513),
-                  (1, 257, 257), (1, 129, 129), (1, 65, 65), (32, 512, 512))
+                  (1, 257, 257), (1, 129, 129), (1, 65, 65), (32, 512, 512),
+                  (1, 130, 513), (1, 129, 513), (1, 66, 257), (1, 65, 257),
+                  (1, 34, 129), (1, 33, 129), (1, 18, 65), (1, 17, 65))
 STENCIL_NODE_BYTES = 44   # 9 C planes and u read, out written, float32
+# the split V-cycle's middle blocks, timed
+STENCIL_BLOCKS_TIMED = ((1, 130, 513), (1, 66, 257), (1, 34, 129),
+                        (1, 18, 65))
 
 
 def phase_stencil_kernel(dev) -> dict:
     """K4 against its plain version, with a C per sample and a C shared by
-    the batch (read with a batch stride of 0); its time at 512^2 x 32."""
+    the batch (read with a batch stride of 0); its time at 512^2 x 32 and
+    at slice O's block shapes."""
     g = torch.Generator(device=dev).manual_seed(2)
-    err, times = 0.0, None
+    err, times, block_times = 0.0, None, {}
     for B, ny, nx in STENCIL_SHAPES:
         u = torch.rand((B, ny, nx), generator=g, device=dev) - 0.5
         row = {"phase": "kernels_K4", "shape": [B, ny, nx],
@@ -801,8 +842,15 @@ def phase_stencil_kernel(dev) -> dict:
                 row["bound_ms"] = times["bound_ms"]
                 row["kernel_GBps"] = (STENCIL_NODE_BYTES * B * ny * nx
                                       / (t["K4"] * 1e-3) / 1e9)
+            if (B, ny, nx) in STENCIL_BLOCKS_TIMED:
+                t = cuda_ms({"K4_plain": lambda: k4.stencil_apply_plain(C, u),
+                             "K4": lambda: k4.apply_2d(C, u)})
+                block_times["x".join(map(str, (B, ny, nx)))] = dict(
+                    ms=t["K4"], plain_ms=t["K4_plain"],
+                    **bound("stencil_apply_2d", (C, u, out), (B, ny, nx)))
+                row["ms"] = t
         emit(row)
-    return {"err": err, "times": times}
+    return {"err": err, "times": times, "block_times": block_times}
 
 
 # 1 x 129^3: slice F's fine level; 4 x 64^3: bench.py's p3d shape
@@ -937,6 +985,15 @@ K6_SHAPES = ((2, 33, True, False), (2, 40, False, True), (2, 65, False, False),
              (1, 129, False, False), (8, 256, False, False),
              (8, 512, False, False))
 K6_TIMED = ((8, 256), (8, 512))
+# K6's row-block entry (the split route): (B, rows, nx, forcing) halo'd
+# blocks of an nx^2 grid with its spacing. 129^2 over 4 ranks gives 33 and
+# 34 rows (32 + 1, 32 + 2, 33 + 1), 35 the most a middle block of 33 would;
+# 8 x 66 x 256 a middle block of 256 over 4, 2 x 9 x 32 of 32 over 4 (one
+# tile row: fewer rows than a block's 4 ty - 1 at every strip); 1 x 2 x 65
+# the least a block can be
+K6_BLOCK_SHAPES = ((1, 33, 129, False), (1, 34, 129, False),
+                   (1, 35, 129, False), (8, 66, 256, False),
+                   (2, 9, 32, True), (1, 2, 65, False))
 
 
 def phase_k6(dev) -> dict:
@@ -976,8 +1033,47 @@ def phase_k6(dev) -> dict:
             row["kernel_GFLOPps"] = b["operations"] / (t["K6"] * 1e-3) / 1e9
         emit(row)
         del u, v, p, fx, fy, R, Rp
+    blocks = {}
+    for B, ny, nx, with_f in K6_BLOCK_SHAPES:
+        tb = basis_for(nx, nx, False, dev)
+        u, v, p, fx, fy = (torch.rand((B, ny, nx), generator=g, device=dev)
+                           for _ in range(5))
+        if not with_f:
+            fx = fy = None
+        row = {"phase": "kernels_K6_block", "shape": [B, ny, nx],
+               "grid": [nx, nx], "forcing": with_f, "visco": visco,
+               "tolerance": {"K6_atol": K6_ATOL}}
+        R = k6.ns_vms_residual(u, v, p, fx, fy, tb, visco, square=False)
+        Rp = k6.ns_vms_residual_plain(u, v, p, fx, fy, tb, visco)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("R1", "R2", "R3"), R, Rp):
+            e = float((a - b).abs().max())
+            ref = float(b.abs().max())
+            row[name] = {"max_abs_err": e, "rel_err": e / ref}
+            err = max(err, e)
+            if not e <= K6_ATOL * max(1.0, ref):
+                fail(f"K6 {name} at block {row['shape']}: max abs err {e}")
+        t = cuda_ms({"K6_plain": lambda: k6.ns_vms_residual_plain(
+            u, v, p, fx, fy, tb, visco),
+            "K6": lambda: k6.ns_vms_residual(u, v, p, fx, fy, tb, visco,
+                                             square=False)})
+        b = bound("ns_vms_residual", (u, v, p) + tuple(R), (B, ny, nx))
+        blocks["x".join(map(str, (B, ny, nx)))] = dict(
+            ms=t["K6"], plain_ms=t["K6_plain"], **b)
+        row["ms"] = t
+        row.update(b)
+        emit(row)
+    # the global entry keeps JAX's square fields
+    try:
+        k6.ns_vms_residual(u, v, p, None, None, tb, visco)
+    except ValueError:
+        pass
+    else:
+        fail("K6: the global entry took non-square fields")
+    del u, v, p, fx, fy, R, Rp
     return {"err": err, "times": times[(8, 512)], "by_shape": {
-        f"{B}x{n}x{n}": v for (B, n), v in times.items()}}
+        f"{B}x{n}x{n}": v for (B, n), v in times.items()},
+        "by_block_shape": blocks}
 
 
 def phase_gradients(dev) -> None:
@@ -1230,10 +1326,10 @@ def _device_idle_share(solve, b) -> dict:
             "top_ms": {k: v / 1e3 for k, v in top}}
 
 
-def slice_d(dev) -> dict:
-    """The MG-CG solve of bench.py's ``_solve_time``, in its three
-    variants (see the module docstring)."""
-    n, iters = SOLVE_GRID, SOLVE_ITERS
+def d_problem(n: int, dev):
+    """bench.py's solve instance on n^2 nodes: the fine dataset, the level
+    factory (coarse levels get the fine nu restricted), the fine inputs and
+    forcing on `dev`, and the right-hand side b (numpy)."""
     x = np.linspace(0.0, 1.0, n)
     X, Y = np.meshgrid(x, x, indexing="xy")
     g = (np.cos(2 * np.pi * X) * np.cos(np.pi * Y)
@@ -1259,16 +1355,30 @@ def slice_d(dev) -> dict:
     bc[:, [0, -1]] = 1.0
     b_np = np.where(bc > 0.5, 0.0, np.random.default_rng(0).standard_normal(
         (n, n))).astype(np.float32)
+    return ds_fine, factory, inputs, forcing, b_np
+
+
+def d_linear_op(module, inputs, forcing):
+    """v -> R(v) - R(0) of `module` on the instance (inputs, forcing)."""
+    n = inputs.shape[1]
+    b0 = module.residual_for_field(
+        torch.zeros((1, n, n), device=inputs.device), inputs, forcing)[0]
+
+    def A(v):
+        return module.residual_for_field(v[None], inputs, forcing)[0] - b0
+    return A
+
+
+def slice_d(dev) -> dict:
+    """The MG-CG solve of bench.py's ``_solve_time``, in its three
+    variants (see the module docstring)."""
+    n, iters = SOLVE_GRID, SOLVE_ITERS
+    ds_fine, factory, inputs, forcing, b_np = d_problem(n, dev)
     b = torch.from_numpy(b_np).to(dev)
 
     def linear_op(module):
         """v -> R(v) - R(0) of `module` on the fine instance."""
-        b0 = module.residual_for_field(torch.zeros((1, n, n), device=dev),
-                                       inputs, forcing)[0]
-
-        def A(v):
-            return module.residual_for_field(v[None], inputs, forcing)[0] - b0
-        return A
+        return d_linear_op(module, inputs, forcing)
 
     def mg(**kw):
         return multigrid_preconditioner(factory, n, n_coarse=33,
@@ -3066,7 +3176,30 @@ N4_LOSS_RTOL = 1e-4   # N4's losses against one process: the batch of 32
 # gradient wrong beyond rounding would move a whole tensor's entries.
 N4_PARAM_ATOL = 1e-6
 N4_PARAM_FRACTION = 1e-4
+# The all-reduced gradient of step 1 itself, entry by entry, within
+# N4_GRAD_RTOL of its L2 norm of one process's on the global batch: the
+# batch of 32 against 4 of 8 changes the convolutions' sums (on the CPU the
+# 2D UNet's data-parallel gradient is within 1e-7 of its norm).
+N4_GRAD_RTOL = 1e-5
 N_RANK_TIMEOUT = 600.0
+
+
+def first_step_grads(module, fit) -> dict:
+    """``fit()``, recording the gradients of `module`'s network as the
+    first optimizer step begins (the all-reduced ones over a data mesh)."""
+    grads = {}
+
+    def hook(opt, args, kwargs):
+        if not grads:
+            grads.update({k: p.grad.detach().cpu().numpy().copy()
+                          for k, p in module.network.named_parameters()})
+
+    handle = register_optimizer_step_pre_hook(hook)
+    try:
+        fit()
+    finally:
+        handle.remove()
+    return grads
 
 
 def _rank_fields(shape, dev, seed=11):
@@ -3134,10 +3267,11 @@ def _n4_fit(dev, mesh=None) -> dict:
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    tr.fit(m, loader)
+    grads = first_step_grads(m, lambda: tr.fit(m, loader))
     _sync()
     dt = time.perf_counter() - t0
     return {"losses": tr.step_losses, "after_first": m.after_first,
+            "grad_first": grads,
             "fit_s": dt, "steps_per_s": N4_STEPS / dt,
             "max_memory_allocated_bytes": (
                 torch.cuda.max_memory_allocated(dev)
@@ -3295,9 +3429,10 @@ def slice_n_rank(rank: int, world: int, device: str, sizes: dict) -> dict:
         lambda: dmesh.all_reduce(flat, "data"))
     out["n4"] = _n4_fit(dev, dmesh)
     if rank:
-        after = out["n4"].pop("after_first")
-        out["n4"]["after_first_sum"] = float(sum(
-            np.abs(v).sum(dtype=np.float64) for v in after.values()))
+        for key in ("after_first", "grad_first"):
+            after = out["n4"].pop(key)
+            out["n4"][key + "_sum"] = float(sum(
+                np.abs(v).sum(dtype=np.float64) for v in after.values()))
     out["path_launches"] = {k: out["spatial_launches"][k]
                             + out["n3"]["launches"][k]
                             for k in KERNELS}
@@ -3420,6 +3555,14 @@ def slice_n(dev, smi: str) -> dict:
     sums = [float(sum(np.abs(v).sum(dtype=np.float64)
                       for v in n4[0]["after_first"].values()))] + [
         r["after_first_sum"] for r in n4[1:]]
+    g_ref = ref4["grad_first"]
+    g_norm = math.sqrt(sum(float((g.astype(np.float64) ** 2).sum())
+                           for g in g_ref.values()))
+    g_err = max(float(np.abs(n4[0]["grad_first"][k] - g).max())
+                for k, g in g_ref.items())
+    g_sums = [float(sum(np.abs(v).sum(dtype=np.float64)
+                        for v in n4[0]["grad_first"].values()))] + [
+        r["grad_first_sum"] for r in n4[1:]]
     emit({"phase": "slice_N4", **head, "grid": [I_GRID] * 3,
           "base_filters": I_FILTERS, "batch_a_rank": I_BATCH,
           "steps": N4_STEPS, "losses": n4[0]["losses"],
@@ -3428,6 +3571,9 @@ def slice_n(dev, smi: str) -> dict:
           "params_after_first_share_off": off,
           "params_atol": N4_PARAM_ATOL,
           "params_fraction": N4_PARAM_FRACTION,
+          "grad_first_max_abs_diff": g_err, "grad_first_norm": g_norm,
+          "grad_first_rel_to_norm": g_err / g_norm,
+          "grad_rtol": N4_GRAD_RTOL,
           "steps_per_s_by_rank": [r["steps_per_s"] for r in n4],
           "steps_per_s_one_process": ref4["steps_per_s"],
           "max_memory_allocated_bytes_by_rank": [
@@ -3439,6 +3585,11 @@ def slice_n(dev, smi: str) -> dict:
         fail(f"slice N4: losses {n4[0]['losses']}")
     if len(set(sums)) != 1:
         fail(f"slice N4: the ranks' parameters after step 1 differ: {sums}")
+    if len(set(g_sums)) != 1:
+        fail(f"slice N4: the ranks' gradients of step 1 differ: {g_sums}")
+    if not g_err <= N4_GRAD_RTOL * g_norm:
+        fail(f"slice N4: the all-reduced gradient of step 1 is {g_err} off "
+             f"one process's (norm {g_norm})")
     if not off <= N4_PARAM_FRACTION:
         fail(f"slice N4: a share {off} of the parameters after step 1 more "
              f"than {N4_PARAM_ATOL} off one process's (at most {dp})")
@@ -3450,6 +3601,369 @@ def slice_n(dev, smi: str) -> dict:
     emit({"phase": "slice_N_dryrun", **head, **dry,
           "seconds": time.perf_counter() - t_dry})
     emit({"phase": "slice_N_done", "seconds": time.perf_counter() - t0})
+    return {k: sum(r["path_launches"][k] for r in ranks) for k in KERNELS}
+
+
+# -- slice O: the split solvers, the split NS residual, root-norm losses ----
+# Four paths over O_WORLD ranks (as slice N: gloo with the ranks sharing the
+# card where there are fewer cards than ranks), each held to one process
+# on the same card: O1 slice D's 513^2 54x-contrast MG-CG (D3's variant: K4
+# on every assembled level and the outer matvec) with the rows split over
+# 'space'; O2 slice G1's 129^2 Re-100 cavity residual (mean-control gauge)
+# on row blocks, through K6's row-block entry and without it; O3 one
+# restart cycle of split GMRES on that residual's Jacobian action; O4 G3's
+# 8 x 256^2 cavity with the Frobenius loss (a root of a sum over the
+# batch), data-parallel over 'data' = O_WORLD, 2 rows a rank.
+O_WORLD = 4
+O_GRID, O_ITERS, O_COARSE = SOLVE_GRID, SOLVE_ITERS, 33   # slice D's
+O_NS_GRID = G1_GRID
+O_GMRES = {"tol": 0.0, "restart": 10, "maxiter": 1}
+O4_STEPS = 2
+# Tolerances, split against one process on the same card:
+O1_ATOL = 2e-5          # the MG-CG iterate, x max(1, max |x|) (as N1's CG);
+#                         the relres within slice D's RELRES_LIMIT, under
+#                         the split operator and the element path's (it
+#                         sits near float32's floor, where rounding moves
+#                         it: 1.64e-6 split, 1.72e-6 whole at 65^2 on the
+#                         CPU, with iterates 3e-7 of max |x| apart)
+O3_RTOL = 1e-4          # the GMRES direction, x max |dx|: ten Arnoldi steps
+#                         from all-reduced projections (on the CPU 6e-6 of
+#                         max |dx| at 32^2, and float32's own GMRES iterate
+#                         5e-5 of max |x| from its float64 run)
+O4_LOSS_RTOL = 1e-5     # O4's losses; its gradient of step 1 within
+O4_GRAD_RTOL = 1e-5     # O4_GRAD_RTOL of its largest entry
+O_SIZES = ("O_GRID", "O_ITERS", "O_COARSE", "O_NS_GRID", "G3_GRID",
+           "G3_BATCH", "O4_STEPS")
+
+
+def _o1_solve(dev, mesh=None) -> dict:
+    """Slice D's MG-CG in D3's variant, whole or with the rows split over
+    `mesh`: the iterate (this rank's rows), its relres under its own
+    operator and under the element path's, the setup s and the split
+    operator (for the times)."""
+    n = O_GRID
+    ds_fine, factory, inputs, forcing, b_np = d_problem(n, dev)
+    t0 = time.perf_counter()
+    M, info = multigrid_preconditioner(
+        factory, n, n_coarse=O_COARSE, inputs_per_level="restrict",
+        stencil_kernel="cuda", device=dev, mesh=mesh)
+    A_plain = d_linear_op(factory(n).to(dev), inputs, forcing)
+    Cf, defect = extract_verified(A_plain, (n, n), device=dev)
+    if defect > 1e-4:
+        fail(f"slice O1: fine-operator stencil defect {defect}")
+    b = torch.from_numpy(b_np).to(dev)
+    if mesh is None:
+        def A(v):
+            return stencil_matvec(Cf, v, kernel="cuda")
+    else:
+        A = SplitStencil(local_block(Cf, mesh, 1, "space"), mesh,
+                         kernel="cuda")
+        b = local_block(b, mesh, 0, "space").contiguous()
+    _sync()
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    x, _ = cg(A, b, tol=0.0, maxiter=O_ITERS, M=M, mesh=mesh)
+    _sync()
+    solve_ms = (time.perf_counter() - t0) * 1e3
+    with torch.no_grad():
+        r2, b2 = ((A(x) - b) ** 2).sum(), (b ** 2).sum()
+        if mesh is not None:
+            r2, b2 = (mesh.all_reduce(t, "space") for t in (r2, b2))
+        x_all = x if mesh is None else gather_block(x, mesh, 0, n=n)
+        b_all = torch.from_numpy(b_np).to(dev)
+        rel_plain = float(torch.linalg.vector_norm(A_plain(x_all) - b_all)
+                          / torch.linalg.vector_norm(b_all))
+    return {"x": x, "relres": float((r2 / b2).sqrt()),
+            "relres_plain_op": rel_plain, "setup_s": setup_s,
+            "solve_ms": solve_ms, "levels": info["levels"],
+            "split_levels": info["split_levels"], "A": A, "M": M, "b": b}
+
+
+def _o_fields(n, dev):
+    """O2 and O3's state: seeded cavity fields (one sample), as the JAX
+    package's spatial test draws its (tests/test_parallel.py:167-168)."""
+    rng = np.random.default_rng(13)
+    return [torch.from_numpy((rng.random((1, n, n)) * 0.1).astype(
+        np.float32)).to(dev) for _ in range(3)]
+
+
+def _o_residual(m, fields, inputs, mesh=None):
+    """The mean-control mixed residual of (u, v, p), stacked."""
+    R = m.mixed_residual(dict(zip("uvp", fields)), inputs, None, mesh)
+    return torch.stack([R[k] for k in "uvp"])
+
+
+def _o3_gmres(m, fields, inputs, mesh=None):
+    """O_GMRES's cycle of GMRES on the Jacobian action at `fields`
+    (torch.func.jvp through the residual), its right-hand side -F: one
+    Newton direction."""
+    x = torch.stack(fields)
+
+    def F(y):
+        return _o_residual(m, list(y.unbind(0)), inputs, mesh)
+
+    def Jv(v):
+        return torch.func.jvp(F, (x,), (v,))[1]
+
+    with torch.no_grad():
+        rhs = -F(x)
+    return gmres(Jv, rhs, mesh=mesh, **O_GMRES)[0]
+
+
+def _o4_fit(dev, mesh=None) -> dict:
+    """G3's 8 x 256^2 cavity fields with the Frobenius loss, O4_STEPS Adam
+    steps through Trainer.fit and K6: one process on the whole batch, or
+    this rank's rows of it over `mesh`; the losses and step 1's
+    gradient."""
+    n, bs = G3_GRID, G3_BATCH
+    m = ldc_module(n, True, DirectField((n, n), n_fields=3),
+                   loss_norm="frobenius", batch_size=bs)
+    m.dataset.n_samples = O4_STEPS * bs
+    rng = np.random.default_rng(0)
+    m.network.load_state_dict({f"field_{i}": torch.from_numpy(
+        rng.random((n, n)).astype(np.float32)) for i in range(3)})
+    loader = NumpyLoader(m.dataset, batch_size=bs, shuffle=True, seed=42,
+                         device=dev, mesh=mesh)
+    tr = Trainer(max_epochs=1, optimizer="adam", learning_rate=1e-3,
+                 device=dev)
+    t0 = time.perf_counter()
+    grads = first_step_grads(m, lambda: tr.fit(m, loader))
+    _sync()
+    return {"losses": tr.step_losses, "grad_first": grads,
+            "fit_s": time.perf_counter() - t0,
+            "reduction": m.batch_reduction}
+
+
+def slice_o_rank(rank: int, world: int, device: str, sizes: dict) -> dict:
+    """Slice O on one rank: the four split paths, launches counted; then
+    their times. `sizes`: the parent's O_SIZES."""
+    globals().update(sizes)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = rank_device(dist.get_backend(), device)
+    mesh = make_mesh(data=1, space=world)
+    dmesh = make_mesh(data=world)
+    out = {"rank": rank, "device": str(dev)}
+
+    reset_counts()
+    o1 = _o1_solve(dev, mesh)
+    out["o1"] = {k: v for k, v in o1.items() if k not in ("A", "M", "b")}
+    out["o1"]["x"] = o1["x"].cpu().numpy()
+    n = O_NS_GRID
+    fields = [local_block(f, mesh, 1, "space").contiguous()
+              for f in _o_fields(n, dev)]
+    o2 = {}
+    for fused in (True, False):
+        m = ldc_module(n, fused).to(dev)
+        inputs = local_block(torch.from_numpy(m.dataset[0][0])[None].to(dev),
+                             mesh, 1, "space").contiguous()
+        with torch.no_grad():
+            o2[fused] = _o_residual(m, fields, inputs, mesh)
+    out["o2"] = {k: v.cpu().numpy() for k, v in o2.items()}
+    m = ldc_module(n, True).to(dev)
+    _sync()
+    t0 = time.perf_counter()
+    dx = _o3_gmres(m, fields, inputs, mesh)
+    _sync()
+    out["o3"] = {"dx": dx.cpu().numpy(),
+                 "ms": (time.perf_counter() - t0) * 1e3}
+    out["o4"] = _o4_fit(dev, dmesh)
+    _sync()
+    out["path_launches"] = counts()
+
+    # times: each split call against its work without the exchange, every
+    # rank at once on the shared card (host clock)
+    A, b = o1["A"], o1["b"]
+    ub = halo_exchange(b, mesh, 1, 0, zero_edges=False).contiguous()
+    t0 = time.perf_counter()
+    cg(A, b, tol=0.0, maxiter=O_ITERS, M=o1["M"], mesh=mesh)
+    _sync()
+    scalar = torch.zeros((), device=dev)
+    stacked = torch.stack(fields)
+    with torch.no_grad():
+        out["times"] = {
+            "o1_solve_ms_again": (time.perf_counter() - t0) * 1e3,
+            "o1_matvec_split_ms": _host_ms(lambda: A(b)),
+            "o1_matvec_kernel_on_block_ms": _host_ms(
+                lambda: stencil_matvec(A.C, ub, kernel="cuda")),
+            "allreduce_scalar_ms": _host_ms(
+                lambda: mesh.all_reduce(scalar, "space")),
+            "o2_split_ms": _host_ms(
+                lambda: _o_residual(m, fields, inputs, mesh)),
+            "o2_exchange_ms": _host_ms(lambda: halo_exchange(
+                stacked, mesh, 1, -2, zero_edges=False)),
+            "o2_allreduce_ms": _host_ms(lambda: all_reduce_sum(
+                stacked[2].sum((-2, -1), keepdim=True), mesh)),
+            # a step's gradient all-reduce (the three fields) and parts'
+            "o4_allreduce_ms": _host_ms(lambda: dmesh.all_reduce(
+                torch.zeros(3 * G3_GRID ** 2, device=dev), "data"))
+            + _host_ms(lambda: dmesh.all_reduce(torch.zeros(3, device=dev),
+                                                "data"))}
+    if rank:
+        g = out["o4"].pop("grad_first")
+        out["o4"]["grad_first_sum"] = float(sum(
+            np.abs(v).sum(dtype=np.float64) for v in g.values()))
+    return out
+
+
+def slice_o(dev, smi: str) -> dict:
+    """Slice O: the one-process references on the card, then one group of
+    O_WORLD ranks (slice_o_rank). Returns the ranks' launches on the
+    paths, summed."""
+    t0 = time.perf_counter()
+    world = O_WORLD
+    backend = "nccl" if torch.cuda.device_count() >= world else "gloo"
+    ref1 = _o1_solve(dev)
+    t1 = time.perf_counter()
+    cg(ref1["A"], ref1["b"], tol=0.0, maxiter=O_ITERS, M=ref1["M"])
+    _sync()
+    ref1["solve_ms_again"] = (time.perf_counter() - t1) * 1e3
+    ref1 = {k: v for k, v in ref1.items() if k not in ("A", "M", "b")}
+    ref1["x"] = ref1["x"].cpu().numpy()
+    n = O_NS_GRID
+    fields = _o_fields(n, dev)
+    ref2 = {}
+    for fused in (True, False):
+        m = ldc_module(n, fused).to(dev)
+        inputs = torch.from_numpy(m.dataset[0][0])[None].to(dev)
+        with torch.no_grad():
+            ref2[fused] = _o_residual(m, fields, inputs).cpu().numpy()
+            if fused:
+                ref2_ms = _host_ms(lambda: _o_residual(m, fields, inputs))
+    m = ldc_module(n, True).to(dev)
+    _sync()
+    t3 = time.perf_counter()
+    ref3 = _o3_gmres(m, fields, inputs).cpu().numpy()
+    _sync()
+    ref3_ms = (time.perf_counter() - t3) * 1e3
+    ref4 = _o4_fit(dev)
+    del m, fields, inputs
+    torch.cuda.empty_cache()
+    t_ranks = time.perf_counter()
+    ranks = run_ranks(slice_o_rank, world,
+                      (dev.type, {k: globals()[k] for k in O_SIZES}),
+                      backend=backend, timeout=N_RANK_TIMEOUT, threads=2)
+    ranks_s = time.perf_counter() - t_ranks
+    r0 = ranks[0]
+    times = r0["times"]
+    head = {"nvidia_smi": smi, "backend": backend, "world": world}
+    emit({"phase": "slice_O", **head, "ranks_s": ranks_s,
+          "devices": [r["device"] for r in ranks],
+          "path_launches_by_rank": [r["path_launches"] for r in ranks]})
+
+    # O1: the split MG-CG against D3's variant in one process
+    x = np.concatenate([r["o1"]["x"] for r in ranks], axis=0)
+    err = float(np.abs(x - ref1["x"]).max())
+    scale = float(np.abs(ref1["x"]).max())
+    rel = [r["o1"]["relres"] for r in ranks]
+    emit({"phase": "slice_O1", **head, "grid": [O_GRID, O_GRID],
+          "iters": O_ITERS, "levels": r0["o1"]["levels"],
+          "split_levels": r0["o1"]["split_levels"],
+          "iterate_max_abs_err": err, "iterate_scale": scale,
+          "atol": O1_ATOL, "relres": rel[0],
+          "relres_plain_op": r0["o1"]["relres_plain_op"],
+          "relres_one_process": ref1["relres"],
+          "relres_plain_op_one_process": ref1["relres_plain_op"],
+          "limit": RELRES_LIMIT,
+          "setup_s_by_rank": [r["o1"]["setup_s"] for r in ranks],
+          "setup_s_one_process": ref1["setup_s"],
+          "solve_ms": r0["o1"]["solve_ms"],
+          "solve_ms_again": times["o1_solve_ms_again"],
+          "solve_ms_one_process": ref1["solve_ms"],
+          "solve_ms_again_one_process": ref1["solve_ms_again"],
+          "matvec_split_ms": times["o1_matvec_split_ms"],
+          "matvec_kernel_on_block_ms": times["o1_matvec_kernel_on_block_ms"],
+          "halo_share": 1.0 - times["o1_matvec_kernel_on_block_ms"]
+          / times["o1_matvec_split_ms"],
+          "allreduce_ms": times["allreduce_scalar_ms"],
+          "k4_launches_by_rank": [r["path_launches"]["stencil_apply_2d"]
+                                  for r in ranks]})
+    if not err <= O1_ATOL * max(1.0, scale):
+        fail(f"slice O1: the split MG-CG iterate is {err} off one "
+             "process's")
+    if len(set(rel)) != 1:
+        fail(f"slice O1: the ranks' relres differ: {rel}")
+    for key in ("relres", "relres_plain_op"):
+        if not r0["o1"][key] <= RELRES_LIMIT:
+            fail(f"slice O1: {key} {r0['o1'][key]} > {RELRES_LIMIT}")
+
+    # O2: the split residual, with K6 and without, against one process
+    errs = {}
+    for fused in (True, False):
+        got = np.concatenate([r["o2"][fused] for r in ranks], axis=-2)
+        want = ref2[fused]
+        route = "k6" if fused else "plain"
+        errs[route] = e = {"max_abs_err": float(np.abs(got - want).max()),
+                           "scale": float(np.abs(want).max())}
+        if not e["max_abs_err"] <= FIELD_ATOL * max(1.0, e["scale"]):
+            fail(f"slice O2: the split residual ({route}) is {e} off one "
+                 "process's")
+    split = times["o2_split_ms"]
+    emit({"phase": "slice_O2", **head, "grid": [n, n],
+          "block_rows": [r["o2"][True].shape[-2] for r in ranks],
+          "errs": errs, "atol": FIELD_ATOL, "split_ms": split,
+          "one_process_ms": ref2_ms,
+          "exchange_ms": times["o2_exchange_ms"],
+          "allreduce_ms": times["o2_allreduce_ms"],
+          "halo_and_allreduce_share": (times["o2_exchange_ms"]
+                                       + times["o2_allreduce_ms"]) / split})
+
+    # O3: GMRES on the Jacobian action
+    got = np.concatenate([r["o3"]["dx"] for r in ranks], axis=-2)
+    e3 = float(np.abs(got - ref3).max())
+    s3 = float(np.abs(ref3).max())
+    emit({"phase": "slice_O3", **head, "grid": [n, n], **O_GMRES,
+          "max_abs_err": e3, "scale": s3, "rtol": O3_RTOL,
+          "ms_by_rank": [r["o3"]["ms"] for r in ranks],
+          "one_process_ms": ref3_ms,
+          # the split run's time beyond one process's: its exchanges and
+          # all-reduces (a Jacobian action takes two exchanges and two
+          # all-reduces, an Arnoldi step three more)
+          "overhead_share": 1.0 - ref3_ms / r0["o3"]["ms"]})
+    if not (np.isfinite(got).all() and e3 <= O3_RTOL * s3):
+        fail(f"slice O3: the split GMRES direction is {e3} off one "
+             f"process's (scale {s3})")
+
+    # O4: the data-parallel Frobenius loss
+    o4 = [r["o4"] for r in ranks]
+    rel4 = max(abs(a - b) / abs(b) for a, b in zip(o4[0]["losses"],
+                                                   ref4["losses"]))
+    g_ref = ref4["grad_first"]
+    g_scale = max(float(np.abs(g).max()) for g in g_ref.values())
+    g_err = max(float(np.abs(o4[0]["grad_first"][k] - g).max())
+                for k, g in g_ref.items())
+    g_sums = [float(sum(np.abs(v).sum(dtype=np.float64)
+                        for v in o4[0]["grad_first"].values()))] + [
+        r["grad_first_sum"] for r in o4[1:]]
+    emit({"phase": "slice_O4", **head, "grid": [G3_GRID, G3_GRID],
+          "batch": G3_BATCH, "rows_a_rank": G3_BATCH // world,
+          "reduction": o4[0]["reduction"], "losses": o4[0]["losses"],
+          "losses_one_process": ref4["losses"], "max_rel_diff": rel4,
+          "rtol": O4_LOSS_RTOL, "grad_first_max_abs_diff": g_err,
+          "grad_first_scale": g_scale, "grad_rtol": O4_GRAD_RTOL,
+          "fit_s_by_rank": [r["fit_s"] for r in o4],
+          "fit_s_one_process": ref4["fit_s"],
+          "allreduce_ms": times["o4_allreduce_ms"],
+          "allreduce_share": times["o4_allreduce_ms"]
+          / (o4[0]["fit_s"] * 1e3 / O4_STEPS),
+          "k6_launches_by_rank": [r["path_launches"]["ns_vms_residual"]
+                                  for r in ranks]})
+    if o4[0]["reduction"] != "global" or len(o4[0]["losses"]) != O4_STEPS \
+            or not all(math.isfinite(v) for v in o4[0]["losses"]):
+        fail(f"slice O4: {o4[0]['reduction']} losses {o4[0]['losses']}")
+    if any(r["losses"] != o4[0]["losses"] for r in o4) \
+            or len(set(g_sums)) != 1:
+        fail("slice O4: the ranks' losses or gradients differ")
+    if not rel4 <= O4_LOSS_RTOL:
+        fail(f"slice O4: losses {rel4} off the one-process run's")
+    if not g_err <= O4_GRAD_RTOL * g_scale:
+        fail(f"slice O4: the gradient of step 1 is {g_err} off one "
+             f"process's (scale {g_scale})")
+    for r in ranks:
+        for name in ("stencil_apply_2d", "ns_vms_residual"):
+            if r["path_launches"][name] <= 0:
+                fail(f"slice O: rank {r['rank']} never launched {name}")
+    emit({"phase": "slice_O_done", "seconds": time.perf_counter() - t0})
     return {k: sum(r["path_launches"][k] for r in ranks) for k in KERNELS}
 
 
@@ -3538,7 +4052,10 @@ def resident_step_profiles(dev) -> dict:
 # outer Krylov matvec on top of the V-cycle's visits that every level takes.
 # J runs K1 at 32 x 64^2 in the energy's VJP and at 1 x 64^2 in the direct
 # solves, which take most of its launches. M2 runs K3 and K1 (its VJP) at
-# 1 x 64^2, M3 K1 at 1 x 32^2 in its CG solves.
+# 1 x 64^2, M3 K1 at 1 x 32^2 in its CG solves. O runs K4 on the split
+# V-cycle's halo'd blocks (a middle fine block, 1 x 130 x 513, stands for
+# them) and K6 on 129^2's halo'd row blocks (34 rows but the first's 33)
+# and on O4's 2 x 256^2 rows a rank.
 SLICE_SHAPES = {
     "poisson_stiffness_action": {"A": (1, 64, 64), "B": (32, 512, 512),
                                  "C": (32, 512, 512), "D2": (1, 513, 513),
@@ -3547,14 +4064,15 @@ SLICE_SHAPES = {
     "poisson_resmin_loss_grad": {"B": (32, 512, 512)},
     "poisson_energy": {"C": (32, 512, 512), "J": (32, 64, 64),
                        "M2": (1, 64, 64)},
-    "stencil_apply_2d": {"D3": (1, 513, 513)},
+    "stencil_apply_2d": {"D3": (1, 513, 513), "O": (1, 130, 513)},
     "poisson_stiffness_action_3d": {"E1": (1, 17, 17, 17),
                                     "E2": (4, 64, 64, 64),
                                     "F2": (1, 129, 129, 129),
                                     "I": (1, 32, 32, 32)},
     "stencil_apply_3d": {"F3": (1, 129, 129, 129)},
     "ns_vms_residual": {"G1": (1, 129, 129), "G2": (1, 64, 64),
-                        "G3": (8, 256, 256), "K": (1, 64, 64)},
+                        "G3": (8, 256, 256), "K": (1, 64, 64),
+                        "O": (1, 34, 129)},
 }
 
 
@@ -3583,7 +4101,10 @@ def _kernel_call(name: str, shape, dev):
         f = rand(*shape)
         return lambda: k3.energy(u, nu, f, tb)
     v, p = rand(*shape), rand(*shape)
-    return lambda: k6.ns_vms_residual(u, v, p, None, None, tb, 0.01)
+    # a row block of a square grid (slice O's) takes the grid's spacing
+    tb = basis_for(shape[2], shape[2], False, dev)
+    return lambda: k6.ns_vms_residual(u, v, p, None, None, tb, 0.01,
+                                      square=shape[1] == shape[2])
 
 
 def phase_path_shapes(dev, by_slice: dict) -> dict:
@@ -3618,7 +4139,8 @@ def main() -> int:
         k["errs"].pop("poisson_stiffness_action_bf16")
     k4_res = phase_stencil_kernel(dev)
     k["errs"]["stencil_apply_2d"] = k4_res["err"]
-    k["times"]["stencil_apply_2d"] = k4_res["times"]
+    k["times"]["stencil_apply_2d"] = dict(
+        k4_res["times"], ms_blocks=k4_res["block_times"])
     k5_res = phase_k5(dev)
     k["errs"]["poisson_stiffness_action_3d"] = k5_res["err"]
     k["times"]["poisson_stiffness_action_3d"] = k5_res["times"]
@@ -3627,7 +4149,8 @@ def main() -> int:
     k["times"]["stencil_apply_3d"] = k43_res["times"]
     k6_res = phase_k6(dev)
     k["errs"]["ns_vms_residual"] = k6_res["err"]
-    k["times"]["ns_vms_residual"] = k6_res["times"]
+    k["times"]["ns_vms_residual"] = dict(
+        k6_res["times"], ms_blocks=k6_res["by_block_shape"])
     phase_gradients(dev)
 
     paths = {}               # each path: counts set to 0 before, read after
@@ -3673,12 +4196,16 @@ def main() -> int:
     # the multi-device path: launched in the group's ranks, each counting
     # from 0 before its path and read after; summed over the ranks
     paths["multi_gpu"] = ln = slice_n(dev, smi)
+    # the split solvers, the split NS residual and the root-norm losses
+    # over the ranks: counted as slice N's
+    paths["multi_gpu_solvers"] = lo = slice_o(dev, smi)
     total = {name: sum(p[name] for p in paths.values()) for name in KERNELS}
     emit({"phase": "main_path_launches", "total": total, **paths,
           "slice_A": la, "slice_B": lb, "slice_C": lc, "slice_E1": le1,
           "slice_E2": le2, "slice_G1": lg1, "slice_G2": lg2,
           "slice_G3": lg3, "slice_H": lh, "slice_I": li, "slice_J": lj,
-          "slice_K": lk, "slice_L": ll, "slice_M": lm, "slice_N": ln})
+          "slice_K": lk, "slice_L": ll, "slice_M": lm, "slice_N": ln,
+          "slice_O": lo})
     for path, names in (("training_2d", ("poisson_stiffness_action",
                                          "poisson_resmin_loss_grad",
                                          "poisson_energy")),
@@ -3695,7 +4222,9 @@ def main() -> int:
                         ("topopt_2d", ("poisson_stiffness_action",)),
                         ("multi_gpu", ("poisson_stiffness_action",
                                        "poisson_resmin_loss_grad",
-                                       "poisson_stiffness_action_3d"))):
+                                       "poisson_stiffness_action_3d")),
+                        ("multi_gpu_solvers", ("stencil_apply_2d",
+                                               "ns_vms_residual"))):
         for name in names:
             if paths[path][name] <= 0:
                 fail(f"{name} was never launched on the {path} path")
@@ -3705,7 +4234,7 @@ def main() -> int:
     emit({"phase": "resident_step_profiles", **resident_step_profiles(dev)})
     by_slice = {"A": la, "B": lb, "C": lc, **ld, "E1": le1, "E2": le2, **lf,
                 "G1": lg1, "G2": lg2, "G3": lg3, "I": li, "J": lj,
-                "K": lk, "M2": lm["M2"], "M3": lm["M3"]}
+                "K": lk, "M2": lm["M2"], "M3": lm["M3"], "O": lo}
     path = phase_path_shapes(dev, by_slice)
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": source,
@@ -3717,7 +4246,7 @@ def main() -> int:
          "ms_path_shape": path[name]["ms"],
          "path_shape": path[name]["shape"],
          **{key: k["times"][name][key] for key in (
-             "ms_bf16", "bound_ms_bf16", "max_abs_err_bf16")
+             "ms_bf16", "bound_ms_bf16", "max_abs_err_bf16", "ms_blocks")
             if key in k["times"][name]},
          # no single PyTorch call computes any of these: K1-K5 have a
          # coefficient that varies by node (nu, or the stencil planes C),

@@ -6,8 +6,11 @@
 //                    diffnet_tpu/ops/ns_residual.py _ns_fwd_impl /
 //                    _ns_fwd_bs, body _strip_accs)
 //
-// Fields are row-major [B, n, n] float32 (x fastest); the outputs are not
-// masked (Dirichlet rows are the caller's concern).
+// Fields are row-major [B, ny, nx] float32 (x fastest); the outputs are not
+// masked (Dirichlet rows are the caller's concern). The global op takes
+// square fields (as JAX's does); the split route hands the kernel a halo'd
+// row block of a square grid, [B, ny_loc + 1 or 2, nx], with the global
+// grid's spacing: nothing in the body depends on ny == nx.
 //
 // What bounds it: instruction issue. At 8 x 512^2 it moves u, v, p in and
 // R1-R3 out, 24 B a node (50.3 MB, 15.0 us at 3.35 TB/s), against the
@@ -209,8 +212,8 @@ __global__ void __launch_bounds__(32 * kWarps)
 ns_vms_kernel(const float* __restrict__ u, const float* __restrict__ v,
               const float* __restrict__ p, const float* __restrict__ fx,
               const float* __restrict__ fy, float* __restrict__ r1,
-              float* __restrict__ r2, float* __restrict__ r3, int n, int ty,
-              NSConsts k) {
+              float* __restrict__ r2, float* __restrict__ r3, int ny, int nx,
+              int ty, NSConsts k) {
   constexpr int kF = kHasF ? 5 : 3;
   __shared__ float edge[kWarps][3][32];   // a strip's last bottom sums
   const int lane = threadIdx.x, w = threadIdx.y;
@@ -218,24 +221,24 @@ ns_vms_kernel(const float* __restrict__ u, const float* __restrict__ v,
   // the block's element rows start at y0 - 1; warp w walks ty of them
   const int y0 = blockIdx.y * (kWarps * ty - 1);
   const int e0 = y0 - 1 + w * ty;
-  const int64_t off = (int64_t)blockIdx.z * n * n;
+  const int64_t off = (int64_t)blockIdx.z * ny * nx;
 
   // this lane's element column ex; its node columns cl and cl + 1 clamped
   // into the grid (an element outside the grid contributes 0 whatever it
   // reads)
   const int ex = x0 - 1 + lane;
-  const bool col_ok = ex >= 0 && ex < n - 1;
-  const int cl = min(max(ex, 0), n - 2);
+  const bool col_ok = ex >= 0 && ex < nx - 1;
+  const int cl = min(max(ex, 0), nx - 2);
   const float* __restrict__ col[5] = {u + off + cl, v + off + cl,
                                       p + off + cl,
                                       kHasF ? fx + off + cl : nullptr,
                                       kHasF ? fy + off + cl : nullptr};
   float* __restrict__ res[3] = {r1 + off, r2 + off, r3 + off};
   const int x = x0 + lane;
-  const bool writes = lane < kCols && x < n;
+  const bool writes = lane < kCols && x < nx;
 
   auto load_row = [&](int row, float (&l)[kF], float (&r)[kF]) {
-    const int64_t ro = (int64_t)min(max(row, 0), n - 1) * n;
+    const int64_t ro = (int64_t)min(max(row, 0), ny - 1) * nx;
 #pragma unroll
     for (int f = 0; f < kF; ++f) {
       l[f] = __ldg(col[f] + ro);
@@ -263,7 +266,7 @@ ns_vms_kernel(const float* __restrict__ u, const float* __restrict__ v,
     }
     float a[3][4];
     element_body<kHasF>(c, k, a);
-    const bool ok = col_ok && ey >= 0 && ey < n - 1;
+    const bool ok = col_ok && ey >= 0 && ey < ny - 1;
     // node (ey, x): the bottom corners of the row above, then the right
     // corners of this lane's element (ey, x - 1) and the left corners of
     // element (ey, x) from lane + 1
@@ -275,8 +278,8 @@ ns_vms_kernel(const float* __restrict__ u, const float* __restrict__ v,
       top[r] = (ok ? a[r][1] : 0.f) + right0;
       bot[r] = (ok ? a[r][3] : 0.f) + right2;
     }
-    const bool store = s > 0 && ey < n && writes;
-    const int64_t o = (int64_t)ey * n + x;
+    const bool store = s > 0 && ey < ny && writes;
+    const int64_t o = (int64_t)ey * nx + x;
 #pragma unroll
     for (int r = 0; r < 3; ++r) {
       if (s == 0) first[r] = top[r];
@@ -295,10 +298,10 @@ ns_vms_kernel(const float* __restrict__ u, const float* __restrict__ v,
 #pragma unroll
   for (int r = 0; r < 3; ++r) edge[w][r][lane] = carry[r];
   __syncthreads();
-  if (w > 0 && e0 < n && writes) {
+  if (w > 0 && e0 < ny && writes) {
 #pragma unroll
     for (int r = 0; r < 3; ++r)
-      res[r][(int64_t)e0 * n + x] = edge[w - 1][r][lane] + first[r];
+      res[r][(int64_t)e0 * nx + x] = edge[w - 1][r][lane] + first[r];
   }
 }
 
@@ -309,27 +312,30 @@ inline unsigned cdiv(int a, int b) { return (unsigned)((a + b - 1) / b); }
 extern "C" {
 
 // ty: node rows a warp walks, >= 1 (the wrapper picks it from the grid);
-// anything else is refused with cudaErrorInvalidValue.
+// ny, nx >= 2; anything else is refused with cudaErrorInvalidValue.
 int ns_vms_residual(const float* u, const float* v, const float* p,
                     const float* fx, const float* fy, float* r1, float* r2,
-                    float* r3, int B, int n, int ty, int has_f, float h,
+                    float* r3, int B, int ny, int nx, int ty, int has_f,
+                    float h,
                     float h2, float nkx, float kxh, float nky, float kyh,
                     float visco, float gxx, float gyy, float diff,
                     float isum_g, float wq, float wh, float wh2, float ax,
                     float ay, float bx, float by, void* stream) {
-  if (ty < 1 || n < 2) return (int)cudaErrorInvalidValue;
-  // a block writes node rows y0 .. y0 + kWarps * ty - 2
-  const dim3 grid(cdiv(n, kCols), cdiv(n, kWarps * ty - 1), (unsigned)B);
+  if (ty < 1 || ny < 2 || nx < 2) return (int)cudaErrorInvalidValue;
+  // a block writes node rows y0 .. y0 + kWarps * ty - 2; a last block
+  // whose rows pass ny (or a grid shorter than one block) loads clamped
+  // rows and stores none past ny
+  const dim3 grid(cdiv(nx, kCols), cdiv(ny, kWarps * ty - 1), (unsigned)B);
   const dim3 block(32, kWarps);
   const NSConsts k{h,    h2,   nkx,    kxh, nky, kyh, visco, gxx, gyy,
                    diff, isum_g, wq, wh, wh2, ax,  ay,  bx,    by};
   cudaStream_t s = (cudaStream_t)stream;
   if (has_f)
-    ns_vms_kernel<true><<<grid, block, 0, s>>>(u, v, p, fx, fy, r1, r2, r3, n,
-                                            ty, k);
+    ns_vms_kernel<true><<<grid, block, 0, s>>>(u, v, p, fx, fy, r1, r2, r3,
+                                            ny, nx, ty, k);
   else
-    ns_vms_kernel<false><<<grid, block, 0, s>>>(u, v, p, fx, fy, r1, r2, r3, n,
-                                             ty, k);
+    ns_vms_kernel<false><<<grid, block, 0, s>>>(u, v, p, fx, fy, r1, r2, r3,
+                                             ny, nx, ty, k);
   return (int)cudaGetLastError();
 }
 

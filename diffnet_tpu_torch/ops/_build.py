@@ -49,7 +49,7 @@ _SIGNATURES = {
     "poisson_stiffness_action_3d": (_I, [_P, _P, _P, _I, _I, _I, _I, _I]
                                     + [_F] * 7 + [_P]),
     "stencil_apply_3d": (_I, [_P, _LL, _P, _P, _I, _I, _I, _I, _I, _P]),
-    "ns_vms_residual": (_I, [_P] * 8 + [_I] * 4 + [_F] * 18 + [_P]),
+    "ns_vms_residual": (_I, [_P] * 8 + [_I] * 5 + [_F] * 18 + [_P]),
     "poisson2d_error_string": (ctypes.c_char_p, [_I]),
 }
 

@@ -8,7 +8,11 @@ the 2x2 Gauss points of every bilinear element, forms the VMS stabilisation
 Reynolds-stress, PSPG and grad-div terms, and assembles the three
 residuals R1, R2 (momentum) and R3 (continuity) into the nodes. Deg 1,
 2x2 Gauss, square ``[B, n, n]`` float32 fields, visco > 0; Dirichlet rows
-are the caller's concern (``pde.flow.StokesNSBase.calc_residuals``).
+are the caller's concern (``pde.flow.StokesNSBase.calc_residuals``). The
+split route (the residual over a mesh's 'space' axis, JAX's GSPMD path)
+reaches the same kernel through :func:`ns_vms_residual_rows_fused`, which
+takes a halo'd row block ``[B, n_loc + 1 or 2, nx]`` of a square grid and
+the global grid's basis.
 
 The element body is the JAX package's sum-factorised algebra: for deg 1,
 d/dx of a field takes one value per y Gauss index and d/dy one per x
@@ -59,8 +63,8 @@ from ._build import check, load_library, sm_count
 from .poisson_residual import check_fields, require_cuda
 
 __all__ = ["calc_tau", "ns_vms_residual", "ns_vms_residual_fused",
-           "ns_vms_residual_plain", "ns_vms_residual_plain_jvp",
-           "vms_residuals"]
+           "ns_vms_residual_rows_fused", "ns_vms_residual_plain",
+           "ns_vms_residual_plain_jvp", "vms_residuals"]
 
 # Launches of the CUDA kernel (a plain count; callers reset it to 0).
 launches = 0
@@ -116,13 +120,13 @@ def ns_consts(basis: FEMBasis, visco: float) -> tuple[float, ...]:
             W * h / hx, W * h / hy)
 
 
-def strip_rows(B: int, n: int, sms: int) -> int:
-    """Element rows a warp walks for a ``[B, n, n]`` launch on `sms` SMs:
+def strip_rows(B: int, ny: int, nx: int, sms: int) -> int:
+    """Element rows a warp walks for a ``[B, ny, nx]`` launch on `sms` SMs:
     the longest strip whose launch still gives each SM ``MIN_WARPS_PER_SM``
     warps, else one element row a lane."""
-    cols = -(-n // COLS)
+    cols = -(-nx // COLS)
     for ty in STRIPS:
-        blocks = B * cols * -(-n // (WARPS * ty - 1))
+        blocks = B * cols * -(-ny // (WARPS * ty - 1))
         if blocks * WARPS >= MIN_WARPS_PER_SM * sms:
             return ty
     return STRIPS[-1]
@@ -245,9 +249,11 @@ def ns_vms_residual_plain_jvp(primals, tangents, basis: fem.BasisTables,
     return dR1, dR2, dR3
 
 
-def _validate(op, u, v, p, fx, fy, basis, visco) -> tuple[float, ...]:
-    """What the kernel takes (and JAX's fused op checks); returns the
-    kernel's constants."""
+def _validate(op, u, v, p, fx, fy, basis, visco, square=True
+              ) -> tuple[float, ...]:
+    """What the kernel takes (and JAX's fused op checks; `square`: its
+    square fields, which the split route's row blocks are not); returns
+    the kernel's constants."""
     if (fx is None) != (fy is None):
         raise ValueError(f"{op}: fx and fy must both be given or both None")
     fields = {"v": v, "p": p}
@@ -257,27 +263,29 @@ def _validate(op, u, v, p, fx, fy, basis, visco) -> tuple[float, ...]:
     if not visco > 0.0:
         # tau = 1/sqrt(...) is inf where the metric's diffusive part is 0
         raise ValueError(f"{op}: visco must be > 0, got {visco}")
-    if u.shape[1] != u.shape[2]:
+    if square and u.shape[1] != u.shape[2]:
         raise ValueError(f"{op}: the kernel needs square fields (ny == nx, "
                          f"as the JAX op), got {tuple(u.shape[1:])}")
     # raises on deg != 1 or another quadrature
     return ns_consts(basis.basis, visco)
 
 
-def ns_vms_residual(u, v, p, fx, fy, basis: fem.BasisTables, visco: float):
+def ns_vms_residual(u, v, p, fx, fy, basis: fem.BasisTables, visco: float,
+                    square: bool = True):
     """(R1, R2, R3): the CUDA kernel for CUDA tensors, the plain version for
     CPU tensors; any other device raises. Not differentiable (see
-    :func:`ns_vms_residual_fused`)."""
+    :func:`ns_vms_residual_fused`). ``square=False`` takes a row block of
+    a square grid (the split route's entry; `basis` the grid's)."""
     global launches
     op = "ns_vms_residual"
-    consts = _validate(op, u, v, p, fx, fy, basis, visco)
+    consts = _validate(op, u, v, p, fx, fy, basis, visco, square)
     if u.device.type == "cpu":
         return ns_vms_residual_plain(u, v, p, fx, fy, basis, visco)
     require_cuda(op, u)
-    B, n, _ = u.shape
-    ty = strip_rows(B, n, sm_count(u.device))
-    if -(-n // (WARPS * ty - 1)) > 65535:
-        raise ValueError(f"{op}: {-(-n // (WARPS * ty - 1))} blocks of "
+    B, ny, nx = u.shape
+    ty = strip_rows(B, ny, nx, sm_count(u.device))
+    if -(-ny // (WARPS * ty - 1)) > 65535:
+        raise ValueError(f"{op}: {-(-ny // (WARPS * ty - 1))} blocks of "
                          f"{WARPS * ty - 1} rows exceed the grid limit 65535")
     lib = load_library()
     outs = [torch.empty_like(u) for _ in range(3)]
@@ -285,7 +293,7 @@ def ns_vms_residual(u, v, p, fx, fy, basis: fem.BasisTables, visco: float):
     status = lib.ns_vms_residual(
         u.data_ptr(), v.data_ptr(), p.data_ptr(),
         fx.data_ptr() if has_f else None, fy.data_ptr() if has_f else None,
-        *(o.data_ptr() for o in outs), B, n, ty, int(has_f), *consts,
+        *(o.data_ptr() for o in outs), B, ny, nx, ty, int(has_f), *consts,
         torch.cuda.current_stream(u.device).cuda_stream)
     check(status, op)
     launches += 1
@@ -297,19 +305,19 @@ class _NSVMSResidual(torch.autograd.Function):
     version. Reverse mode: the VJP of the plain version, recomputed."""
 
     @staticmethod
-    def forward(u, v, p, fx, fy, basis, visco):
-        return ns_vms_residual(u, v, p, fx, fy, basis, visco)
+    def forward(u, v, p, fx, fy, basis, visco, square):
+        return ns_vms_residual(u, v, p, fx, fy, basis, visco, square)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        u, v, p, fx, fy, basis, visco = inputs
+        u, v, p, fx, fy, basis, visco, _ = inputs
         ctx.basis, ctx.visco = basis, visco
         xs = (u, v, p) if fx is None else (u, v, p, fx, fy)
         ctx.save_for_backward(*xs)
         ctx.save_for_forward(*xs)
 
     @staticmethod
-    def jvp(ctx, du, dv, dp, dfx, dfy, _basis, _visco):
+    def jvp(ctx, du, dv, dp, dfx, dfy, _basis, _visco, _square):
         return ns_vms_residual_plain_jvp(ctx.saved_tensors,
                                          (du, dv, dp, dfx, dfy), ctx.basis,
                                          ctx.visco)
@@ -326,7 +334,7 @@ class _NSVMSResidual(torch.autograd.Function):
         grads = vjp((g1, g2, g3))
         if len(grads) == 3:
             grads = grads + (None, None)
-        return grads + (None, None)
+        return grads + (None, None, None)
 
 
 def ns_vms_residual_fused(u, v, p, fx, fy, basis: fem.BasisTables,
@@ -334,4 +342,13 @@ def ns_vms_residual_fused(u, v, p, fx, fy, basis: fem.BasisTables,
     """Differentiable (R1, R2, R3), the assembled unmasked VMS residuals of
     nodal ``[B, n, n]`` (u, v, p) with optional nodal forcing (fx, fy) (None
     for zero): the kernel forward, the plain version's tangent and VJP."""
-    return _NSVMSResidual.apply(u, v, p, fx, fy, basis, visco)
+    return _NSVMSResidual.apply(u, v, p, fx, fy, basis, visco, True)
+
+
+def ns_vms_residual_rows_fused(u, v, p, fx, fy, basis: fem.BasisTables,
+                               visco: float):
+    """:func:`ns_vms_residual_fused` on a halo'd row block ``[B, rows, nx]``
+    of a square grid whose basis is `basis`: the split route's entry (the
+    rows of the result that the block's halo cuts short are the caller's
+    to drop). A CUDA tensor runs the kernel or raises."""
+    return _NSVMSResidual.apply(u, v, p, fx, fy, basis, visco, False)

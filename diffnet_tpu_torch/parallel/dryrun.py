@@ -12,8 +12,12 @@ sizes:
       Adam step through ``Trainer.fit`` over a loader on the mesh (the
       gradient all-reduced over 'data');
   (b) the VMS Navier-Stokes objective (the squared norms of the three
-      residuals) on 16^2 lid-driven cavity fields, one sample a data rank,
-      one gradient step on the fields, the objective summed over 'data';
+      residuals) on 16^2 lid-driven cavity fields split over ``('data',
+      'space')`` as the JAX dry run shards them (one sample a data rank,
+      its rows split over 'space': ``calc_residuals(mesh=)``, one halo row
+      of the fields from each neighbour), one gradient step on each rank's
+      block of the fields (through the exchange's backward), the objective
+      summed over both axes;
   (c) CG on the 32^2 Poisson problem with the rows split over 'space', every
       matvec through the spatial K1 path
       (:func:`~.spatial.poisson_stiffness_spatial_fused`), the relative
@@ -23,10 +27,10 @@ sizes:
       ``Trainer.fit``.
 
 The networks are data-parallel only: GSPMD's automatic spatial
-partitioning of convolutions and of the NS residual (the JAX dry run's
-'space' axis on (a), (b) and (d)) has no counterpart in the port yet, so
-along 'space' those workloads are replicated: each space rank of a data
-row takes the same step on the same rows.
+partitioning of convolutions (the JAX dry run's 'space' axis on (a) and
+(d)) has no counterpart in the port yet, so along 'space' those two
+workloads are replicated until the conv nets are ported: each space rank
+of a data row takes the same step on the same rows.
 
 The backend follows the device: NCCL with one card a rank where there are
 cards enough, gloo otherwise (CPU tensors, or several ranks sharing a card
@@ -104,24 +108,27 @@ def _dryrun_rank(rank: int, world: int, device: str) -> dict:
     forcing = rng.random((bs, n, n, 1)).astype(np.float32)
     loss = _one_adam_step(module, inputs, forcing, mesh, dev)
 
-    # (b) the NS VMS objective step, one cavity sample a data rank
+    # (b) the NS VMS objective step, one cavity sample a data rank, its
+    # rows split over 'space'
     nn_ = 16
     ds = NSLDCDataset(domain_sizes=(nn_, nn_), Re=100)
     m2 = NavierStokes(None, ds, domain_size=nn_, batch_size=data,
                       Re=100).to(dev)
-    fields = [local_block(rng.random((data, nn_, nn_)).astype(np.float32),
-                          mesh) * 0.1 for _ in range(3)]
+    fields = [local_block(local_block(
+        rng.random((data, nn_, nn_)).astype(np.float32), mesh), mesh, 1,
+        "space") * 0.1 for _ in range(3)]
     fields = [torch.tensor(f, device=dev, requires_grad=True)
               for f in fields]
-    ns_in = torch.tensor(np.asarray(ds[0][0], np.float32)[None],
-                         device=dev)
-    R1, R2, R3 = m2.calc_residuals(tuple(fields), ns_in, None)
-    obj = (R1**2).sum() + (R2**2).sum() + (R3**2).sum()
+    ns_in = torch.tensor(local_block(np.asarray(ds[0][0], np.float32)[None],
+                                     mesh, 1, "space"), device=dev)
+    R1, R2, R3 = m2.calc_residuals(tuple(fields), ns_in, None, mesh)
+    obj = (R1**2).sum() + (R2**2).sum() + (R3**2).sum()   # this block's
     obj.backward()
     with torch.no_grad():
         for f in fields:
             f -= 1e-3 * f.grad
-    ns_loss = float(mesh.all_reduce(obj.detach(), "data"))
+    ns_loss = float(mesh.all_reduce(mesh.all_reduce(obj.detach(), "space"),
+                                    "data"))
 
     # (c) CG with the rows split over 'space', matvecs through spatial K1
     nk = 32
@@ -161,7 +168,8 @@ def _dryrun_rank(rank: int, world: int, device: str) -> dict:
             raise RuntimeError(f"non-finite {name} {v}")
     return {"backend": mesh.backend, "world": world, "data": data,
             "space": space, "device": str(dev), "loss": loss,
-            "ns_loss": ns_loss, "cg_rel_res": rel, "ibn3d_loss": l3,
+            "ns_loss": ns_loss, "ns_block": list(R1.shape),
+            "cg_rel_res": rel, "ibn3d_loss": l3,
             "ibn3d_batch": bs3}
 
 
@@ -186,5 +194,6 @@ def dryrun_multigpu(world: int, backend: str | None = None,
           f"{r['data']}, space={r['space']}) loss={r['loss']:.6f} "
           f"ns_loss={r['ns_loss']:.6f} cg_rel_res={r['cg_rel_res']:.2e} "
           f"ibn3d_loss={r['ibn3d_loss']:.6f} (bs={r['ibn3d_batch']} @ "
-          "32^3; the networks data-parallel only) OK", flush=True)
+          "32^3; (b) split over data and space, the networks "
+          "data-parallel only) OK", flush=True)
     return r

@@ -13,14 +13,19 @@ JAX's names and their counterparts:
 * ``make_mesh`` -> :func:`make_mesh`, a :class:`Mesh` of process groups;
 * ``data_sharding`` / ``spatial_sharding`` (placing a global array) ->
   :func:`local_block` (a rank's block of a global array along one axis)
-  and :func:`gather_block` (the global array back from the blocks);
+  and :func:`gather_block` (the global array back from the blocks), both
+  by the one partition rule :func:`block_bounds`;
 * ``replicated`` -> :func:`replicate` (the first rank's values on every
   rank);
 * ``shard_batch`` -> :func:`shard_batch`;
 * ``halo_exchange_y`` / ``halo_exchange_z`` -> the same names, an
   autograd function whose backward sends the halo cotangents back and adds
   them into the neighbours' edge rows (the transpose of ``ppermute`` that
-  JAX derives by itself).
+  JAX derives by itself); :func:`halo_exchange_transpose` is that backward
+  as a function of its own;
+* a ``psum`` inside a differentiated function -> :func:`all_reduce_sum`,
+  an autograd function (:meth:`Mesh.all_reduce` is the plain collective,
+  for the Krylov inner products and the Trainer's gradient sum).
 
 The backend follows the device: NCCL carries CUDA tensors, one rank a
 card; gloo carries CPU tensors. On a gloo group CUDA tensors travel through
@@ -37,9 +42,10 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-__all__ = ["Mesh", "make_mesh", "shard_batch", "local_block", "gather_block",
-           "replicate", "halo_exchange", "halo_exchange_y",
-           "halo_exchange_z"]
+__all__ = ["Mesh", "make_mesh", "shard_batch", "block_bounds",
+           "block_lengths", "local_block", "gather_block", "replicate",
+           "all_reduce_sum", "halo_exchange", "halo_exchange_transpose",
+           "halo_exchange_y", "halo_exchange_z"]
 
 
 @dataclass(frozen=True, eq=False)
@@ -171,32 +177,82 @@ def _map(fn, tree):
     return fn(tree)
 
 
+def block_bounds(n: int, k: int) -> list[int]:
+    """The ``k + 1`` bounds of the blocks of `n` slices over `k` ranks, the
+    one partition rule of the port's split arrays: rank j holds slices
+    ``bounds[j]:bounds[j + 1]``.
+
+    Equal blocks where `k` divides `n`. Otherwise block j starts at
+    ``j (n - 1) // k`` and the last block takes the rest: for the ``2^p +
+    1`` nodes of a multigrid hierarchy over a power of two of ranks, blocks
+    of ``(n - 1) / k`` slices and one more in the last, and then every split
+    falls at row a on a level and at row 2a on the level above (the
+    transfers of :func:`~diffnet_tpu_torch.train.multigrid_preconditioner`
+    need no other rows). Raises ValueError where a block would be empty."""
+    if n % k == 0:
+        bounds = [j * n // k for j in range(k + 1)]
+    else:
+        bounds = [j * (n - 1) // k for j in range(k)] + [n]
+    if any(b1 <= b0 for b0, b1 in zip(bounds, bounds[1:])):
+        raise ValueError(f"{n} slices do not split into {k} non-empty "
+                         "blocks")
+    return bounds
+
+
+def block_lengths(n_loc: int, mesh: Mesh, mesh_axis: str = "space",
+                  device=None) -> list[int]:
+    """Every rank's block length along `mesh_axis`, from this rank's
+    `n_loc` (one small all-reduce; `device`: the backend's, a card's for
+    NCCL)."""
+    lens = torch.zeros(mesh.size(mesh_axis), dtype=torch.float64,
+                       device=device)
+    lens[mesh.index(mesh_axis)] = n_loc
+    return [int(v) for v in mesh.all_reduce(lens, mesh_axis).tolist()]
+
+
 def local_block(x, mesh: Mesh, axis: int = 0, mesh_axis: str = "data"):
     """This rank's block of a global array (numpy or torch) along `axis`:
-    the ``index(mesh_axis)``-th of ``size(mesh_axis)`` equal blocks. The
-    axis must divide evenly."""
-    n, k = x.shape[axis], mesh.size(mesh_axis)
-    if n % k:
-        raise ValueError(f"local_block: axis {axis} of length {n} does not "
-                         f"split into {k} equal blocks along '{mesh_axis}'")
-    m = n // k
-    i = mesh.index(mesh_axis) * m
+    the ``index(mesh_axis)``-th of the ``size(mesh_axis)`` blocks of
+    :func:`block_bounds` (equal blocks where the axis divides)."""
+    bounds = block_bounds(x.shape[axis], mesh.size(mesh_axis))
+    i = mesh.index(mesh_axis)
+    lo, m = bounds[i], bounds[i + 1] - bounds[i]
     if isinstance(x, torch.Tensor):
-        return x.narrow(axis, i, m)
-    return np.take(x, np.arange(i, i + m), axis=axis)
+        return x.narrow(axis, lo, m)
+    return np.take(x, np.arange(lo, lo + m), axis=axis)
 
 
 def gather_block(x: torch.Tensor, mesh: Mesh, axis: int = 0,
-                 mesh_axis: str = "space") -> torch.Tensor:
+                 mesh_axis: str = "space", n: int | None = None
+                 ) -> torch.Tensor:
     """The global tensor from the blocks of the ranks along `mesh_axis`
-    (the inverse of :func:`local_block`), on every one of them."""
+    (the inverse of :func:`local_block`), on every one of them. n: the
+    global length along `axis`, whose :func:`block_bounds` give the blocks'
+    lengths; None gathers the lengths first (one more collective)."""
     k = mesh.size(mesh_axis)
     if k == 1:
         return x
+    axis = axis % x.dim()
+    group = mesh.axis_group(mesh_axis)
+    if n is None:
+        sizes = block_lengths(x.shape[axis], mesh, mesh_axis, x.device)
+    else:
+        b = block_bounds(int(n), k)
+        sizes = [b1 - b0 for b0, b1 in zip(b, b[1:])]
+    if x.shape[axis] != sizes[mesh.index(mesh_axis)]:
+        raise ValueError(f"gather_block: this rank's block has "
+                         f"{x.shape[axis]} slices along axis {axis}, the "
+                         f"partition {sizes[mesh.index(mesh_axis)]}")
+    m = max(sizes)
     buf = mesh.to_comm(x.contiguous())
+    if buf.shape[axis] < m:   # all_gather takes blocks of one shape
+        pad = list(buf.shape)
+        pad[axis] = m - buf.shape[axis]
+        buf = torch.cat([buf, buf.new_zeros(pad)], dim=axis)
     parts = [torch.empty_like(buf) for _ in range(k)]
-    dist.all_gather(parts, buf, group=mesh.axis_group(mesh_axis))
-    return torch.cat(parts, dim=axis).to(x.device)
+    dist.all_gather(parts, buf, group=group)
+    return torch.cat([p.narrow(axis, 0, s) for p, s in zip(parts, sizes)],
+                     dim=axis).to(x.device)
 
 
 @torch.no_grad()
@@ -245,50 +301,116 @@ def shard_batch(batch: Any, mesh: Mesh, batch_size: int | None = None):
     return _map(take, batch)
 
 
+class _AllReduceSum(torch.autograd.Function):
+    """The sum over the ranks along a mesh axis, differentiable."""
+
+    @staticmethod
+    def forward(x, mesh, axis):
+        return mesh.all_reduce(x, axis)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        _, ctx.mesh, ctx.axis = inputs
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.all_reduce(g.contiguous(), ctx.axis), None, None
+
+    @staticmethod
+    def jvp(ctx, gx, _mesh, _axis):
+        return ctx.mesh.all_reduce(gx, ctx.axis)
+
+
+def all_reduce_sum(x: torch.Tensor, mesh: Mesh, axis: str = "space"
+                   ) -> torch.Tensor:
+    """The sum of `x` over the ranks along `axis`, on every one of them;
+    differentiable in both modes (the tangent is the sum of the tangents).
+
+    The backward follows one convention: **each rank backpropagates its own
+    share**. What each rank computes from the sum is one term of a total
+    summed over the ranks, so the cotangent of a rank's input is the sum of
+    every rank's cotangent of the output: the backward is the same
+    all-reduce. That is the convention of the halo exchange's backward too,
+    so a loss split over 'space' (each rank's rows' terms) differentiates
+    through both. Where every rank computes one replicated value from the
+    sum, its backward carries ``size(axis)`` times the value's gradient:
+    the Trainer averages such gradients over 'data' (``batch_reduction =
+    "global"``). Stack several tensors into one to reduce them in one
+    collective."""
+    if mesh.size(axis) == 1:
+        return x
+    return _AllReduceSum.apply(x, mesh, axis)
+
+
+def _edges(mesh: Mesh, halo: int, zero_edges: bool) -> tuple[int, int]:
+    """The slices a grown block gains before and after its own."""
+    lo = halo if zero_edges or mesh.space_neighbour(-1) is not None else 0
+    hi = halo if zero_edges or mesh.space_neighbour(1) is not None else 0
+    return lo, hi
+
+
+def _grow(x, mesh, halo, axis, zero_edges):
+    n = x.shape[axis]
+    if not 1 <= halo <= n:
+        raise ValueError(f"halo {halo} must be in [1, {n}] (the block's "
+                         "slices)")
+    prev, nxt = mesh.space_neighbour(-1), mesh.space_neighbour(1)
+    from_prev, from_next = _swap(
+        mesh, x.narrow(axis, 0, halo), x.narrow(axis, n - halo, halo),
+        prev, nxt)
+    shape = list(x.shape)
+    shape[axis] = halo
+    if from_prev is None and zero_edges:
+        from_prev = x.new_zeros(shape)
+    if from_next is None and zero_edges:
+        from_next = x.new_zeros(shape)
+    parts = [t for t in (from_prev, x, from_next) if t is not None]
+    return torch.cat(parts, dim=axis)
+
+
+def _shrink(g, mesh, halo, axis, zero_edges):
+    """The transpose of :func:`_grow`: the block's own slices of `g`, plus
+    the cotangents the neighbours hold of its edge slices."""
+    lo, hi = _edges(mesh, halo, zero_edges)
+    n = g.shape[axis] - lo - hi
+    dx = g.narrow(axis, lo, n).clone()
+    prev, nxt = mesh.space_neighbour(-1), mesh.space_neighbour(1)
+    # the halo cotangents go back to the slices' owners (a zero-filled
+    # edge depends on nothing); the neighbours' cotangents of this block's
+    # edge slices come here
+    g_prev = g.narrow(axis, 0, halo) if prev is not None else None
+    g_next = g.narrow(axis, lo + n, halo) if nxt is not None else None
+    to_first, to_last = _swap(mesh, g_prev, g_next, prev, nxt)
+    if to_first is not None:
+        dx.narrow(axis, 0, halo).add_(to_first)
+    if to_last is not None:
+        dx.narrow(axis, n - halo, halo).add_(to_last)
+    return dx
+
+
 class _HaloExchange(torch.autograd.Function):
     """Grow a block by `halo` slices of its neighbours along `axis`: the
     slices of the ranks before and after it along 'space'. At a domain edge
     the grown side is zero-filled (``zero_edges``) or left off (the block
-    then grows on one side only)."""
+    then grows on one side only). Linear: its tangent is the tangent's
+    exchange, its backward the transpose."""
 
     @staticmethod
-    def forward(ctx, x, mesh, halo, axis, zero_edges):
-        n = x.shape[axis]
-        if not 1 <= halo <= n:
-            raise ValueError(f"halo {halo} must be in [1, {n}] (the block's "
-                             "slices)")
-        prev, nxt = mesh.space_neighbour(-1), mesh.space_neighbour(1)
-        from_prev, from_next = _swap(
-            mesh, x.narrow(axis, 0, halo), x.narrow(axis, n - halo, halo),
-            prev, nxt)
-        shape = list(x.shape)
-        shape[axis] = halo
-        if from_prev is None and zero_edges:
-            from_prev = x.new_zeros(shape)
-        if from_next is None and zero_edges:
-            from_next = x.new_zeros(shape)
-        ctx.mesh, ctx.halo, ctx.axis, ctx.n = mesh, halo, axis, n
-        ctx.prev, ctx.nxt = prev, nxt
-        ctx.lo = 0 if from_prev is None else halo
-        parts = [t for t in (from_prev, x, from_next) if t is not None]
-        return torch.cat(parts, dim=axis)
+    def forward(x, mesh, halo, axis, zero_edges):
+        return _grow(x, mesh, halo, axis, zero_edges)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        _, ctx.mesh, ctx.halo, ctx.axis, ctx.zero_edges = inputs
 
     @staticmethod
     def backward(ctx, g):
-        halo, axis, n, lo = ctx.halo, ctx.axis, ctx.n, ctx.lo
-        dx = g.narrow(axis, lo, n).clone()
-        # the halo cotangents go back to the slices' owners (a zero-filled
-        # edge depends on nothing); the neighbours' cotangents of this
-        # block's edge slices come here
-        g_prev = g.narrow(axis, 0, halo) if ctx.prev is not None else None
-        g_next = g.narrow(axis, lo + n, halo) if ctx.nxt is not None else None
-        to_first, to_last = _swap(ctx.mesh, g_prev, g_next, ctx.prev,
-                                  ctx.nxt)
-        if to_first is not None:
-            dx.narrow(axis, 0, halo).add_(to_first)
-        if to_last is not None:
-            dx.narrow(axis, n - halo, halo).add_(to_last)
-        return dx, None, None, None, None
+        return (_shrink(g, ctx.mesh, ctx.halo, ctx.axis, ctx.zero_edges),
+                None, None, None, None)
+
+    @staticmethod
+    def jvp(ctx, gx, *_):
+        return _grow(gx, ctx.mesh, ctx.halo, ctx.axis, ctx.zero_edges)
 
 
 def halo_exchange(x: torch.Tensor, mesh: Mesh, halo: int, axis: int,
@@ -296,11 +418,24 @@ def halo_exchange(x: torch.Tensor, mesh: Mesh, halo: int, axis: int,
     """`x` (this rank's block along `axis`) grown by `halo` slices of each
     neighbour along 'space'. With `zero_edges` the domain edges are
     zero-filled, so every block grows by ``2 * halo``; without, a block at
-    a domain edge grows on its inner side only. Differentiable."""
+    a domain edge grows on its inner side only. Differentiable in both
+    modes (``torch.func.jvp`` too)."""
     axis = axis % x.dim()
     if mesh.space == 1 and not zero_edges:
         return x
     return _HaloExchange.apply(x, mesh, halo, axis, zero_edges)
+
+
+def halo_exchange_transpose(g: torch.Tensor, mesh: Mesh, halo: int,
+                            axis: int, zero_edges: bool = True
+                            ) -> torch.Tensor:
+    """The adjoint of :func:`halo_exchange`: a grown block's values `g` ->
+    this rank's block, its own slices plus what the neighbours hold of its
+    edge slices in their grown blocks (one exchange). Not differentiated."""
+    axis = axis % g.dim()
+    if mesh.space == 1 and not zero_edges:
+        return g
+    return _shrink(g, mesh, halo, axis, zero_edges)
 
 
 def halo_exchange_y(x: torch.Tensor, mesh: Mesh, halo: int = 1

@@ -67,9 +67,30 @@ class PDEModule(nn.Module):
         data-parallel training needs (``Trainer.fit`` over a loader on a
         data mesh): ``"mean"`` (the mean of equal row blocks' losses is the
         batch's, the default: a mean of per-sample or batch-mean terms),
-        ``"sum"`` (their sum is) or None (neither, e.g. a norm over the
-        whole batch, which does not split over ranks)."""
+        ``"sum"`` (their sum is), ``"global"`` (neither, e.g. a root of a
+        sum over the whole batch: the module gives the sums the loss is
+        made of (:meth:`training_parts`) and the loss of them
+        (:meth:`loss_from_parts`), and the Trainer sums the parts over
+        'data' first) or None (no data-parallel training)."""
         return "mean"
+
+    def loss_parts(self, u, inputs_tensor, forcing_tensor) -> list:
+        """The sums over the batch that a ``"global"`` loss is made of."""
+        raise NotImplementedError
+
+    def loss_from_parts(self, parts) -> torch.Tensor:
+        """The ``"global"`` loss of its parts (summed over the batch)."""
+        raise NotImplementedError
+
+    def training_parts(self, batch) -> torch.Tensor:
+        """The stacked :meth:`loss_parts` of ``forward(batch)``: for a
+        ``"global"`` loss, ``training_loss(batch)`` is
+        ``loss_from_parts(training_parts(batch))``. With ``remat`` under
+        ``torch.utils.checkpoint``."""
+        return self._remat(self._training_parts, batch)
+
+    def _training_parts(self, batch) -> torch.Tensor:
+        return torch.stack(self.loss_parts(*self(batch)))
 
     def forward(self, batch):
         """``u = network(inputs)``; returns ``(u, inputs, forcing)``."""

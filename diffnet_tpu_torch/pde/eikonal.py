@@ -70,10 +70,12 @@ class _EikonalMixin:
             [(tau * gp["N"] * gp[q], q) for q in grads]
             + [((1.0 + tau) * (grad2 - 1.0), "N")])
 
-    # norms over the whole batch: the loss does not split over ranks
-    batch_reduction = None
+    # a root of a sum over the whole batch: the loss reduces its parts
+    batch_reduction = "global"
 
-    def loss(self, u, cloud, forcing_tensor):
+    def loss_parts(self, u, cloud, forcing_tensor) -> list:
+        """The squared norm of the domain residual, of u on the cloud and
+        of the normals' misalignment (sums over the batch)."""
         nsd = self.nsd
         u = _squeeze_field(u)
         normals = cloud[..., nsd:2 * nsd]
@@ -84,9 +86,15 @@ class _EikonalMixin:
                 (torch.sum(grad_pts * normals, -1) - 1.0) ** 2)
         else:
             normals_loss = torch.sum((grad_pts - normals) ** 2)
-        return (torch.sqrt(torch.sum(R1**2) + 1e-12)
-                + self.sdf_weight * torch.sum(u_pts**2)
-                + self.normals_weight * normals_loss)
+        return [torch.sum(R1**2), torch.sum(u_pts**2), normals_loss]
+
+    def loss_from_parts(self, parts) -> torch.Tensor:
+        return (torch.sqrt(parts[0] + 1e-12) + self.sdf_weight * parts[1]
+                + self.normals_weight * parts[2])
+
+    def loss(self, u, cloud, forcing_tensor):
+        return self.loss_from_parts(self.loss_parts(u, cloud,
+                                                    forcing_tensor))
 
 
 class Eikonal2D(_EikonalMixin, FEM2DModule):
@@ -155,7 +163,9 @@ class EikonalFDM2D(Eikonal2D):
                              "(the FDM stencil scale assumes them)")
         self.fdm = make_fdm(2, self.domain_sizeX)
 
-    def loss(self, u, cloud, forcing_tensor):
+    def loss_parts(self, u, cloud, forcing_tensor) -> list:
+        """The sum of R1^2 over the batch's nodes and their count, and the
+        cloud terms' sums."""
         u = _squeeze_field(u)
         normals = cloud[..., 2:4]
         ux = self.fdm.dx(u, mode="full")
@@ -165,5 +175,13 @@ class EikonalFDM2D(Eikonal2D):
         normals_loss = (
             torch.sum((grad_pts[..., 0] - normals[..., 0]) ** 2)
             + torch.sum((grad_pts[..., 1] - normals[..., 1]) ** 2))
-        return (torch.mean(R1**2) + self.sdf_weight * torch.sum(u_pts**2)
-                + self.normals_weight * normals_loss)
+        return [torch.sum(R1**2), R1.new_tensor(float(R1.numel())),
+                torch.sum(u_pts**2), normals_loss]
+
+    def loss_from_parts(self, parts) -> torch.Tensor:
+        return (parts[0] / parts[1] + self.sdf_weight * parts[2]
+                + self.normals_weight * parts[3])
+
+    def loss(self, u, cloud, forcing_tensor):
+        return self.loss_from_parts(self.loss_parts(u, cloud,
+                                                    forcing_tensor))

@@ -90,16 +90,20 @@ class ElasticFSDT(FEM2DModule):
 
     @property
     def batch_reduction(self) -> str | None:
-        """The squared norm sums over the batch; the root of a sum over the
-        batch does not split over ranks."""
-        return "sum" if self.loss_norm == "squared" else None
+        """The squared norm sums over the batch; the Frobenius loss, a root
+        of a sum over the batch, reduces its parts (``"global"``)."""
+        return "sum" if self.loss_norm == "squared" else "global"
+
+    def loss_parts(self, pred, inputs_tensor, forcing_tensor) -> list:
+        """The three residuals' squared norms."""
+        R1, R2, R3 = self.calc_residuals(pred, inputs_tensor, forcing_tensor)
+        return [torch.sum(R1**2), torch.sum(R2**2), torch.sum(R3**2)]
+
+    def loss_from_parts(self, parts) -> torch.Tensor:
+        if self.loss_norm == "squared":
+            return parts[0] + parts[1] + parts[2]
+        return sum(torch.sqrt(q + 1e-12) for q in parts)
 
     def loss(self, pred, inputs_tensor, forcing_tensor):
-        R1, R2, R3 = self.calc_residuals(pred, inputs_tensor, forcing_tensor)
-        if self.loss_norm == "squared":
-            return torch.sum(R1**2) + torch.sum(R2**2) + torch.sum(R3**2)
-
-        def norm(R):
-            return torch.sqrt(torch.sum(R**2) + 1e-12)
-
-        return norm(R1) + norm(R2) + norm(R3)
+        return self.loss_from_parts(self.loss_parts(pred, inputs_tensor,
+                                                    forcing_tensor))

@@ -17,6 +17,19 @@ protocol of the Trainer (``num_objectives``, ``objective_loss``,
 
 Fields are ``[B, ny, nx]``; ``inputs[..., (x, y, bc1, bc2, bc3, ...)]``
 carries the Dirichlet masks of u (bc1), v (bc2) and p (bc3).
+
+Over a process mesh (``calc_residuals`` / ``mixed_residual`` with
+``mesh=``; the JAX package runs these under GSPMD with the fields sharded
+``P('data', 'space', None)``, tests/test_parallel.py) the fields and inputs
+are this rank's row blocks of the grid. Every Gauss-point quantity of the
+deg-1 residual is element-local, so each rank substitutes its rows'
+Dirichlet data, takes one halo node row of (u, v, p) from each neighbour
+(an edge rank its inner one only), assembles the residuals on the halo'd
+block with the whole grid's basis (K6 with ``fused_kernels=True``) and
+keeps its own rows; the mean-control gauge's mean of p is the block's sum
+all-reduced over 'space' (:func:`~diffnet_tpu_torch.parallel.all_reduce_sum`)
+over the grid's node count. The gradients reach the fields through the
+exchange's backward and the all-reduce's.
 """
 
 from __future__ import annotations
@@ -26,7 +39,8 @@ import torch
 
 from ..core import fem
 from ..ops.ns_residual import (calc_tau, ns_vms_residual_fused,
-                               vms_residuals)
+                               ns_vms_residual_rows_fused, vms_residuals)
+from ..parallel.mesh import all_reduce_sum, block_bounds, halo_exchange
 from .base import FEM2DModule
 from .poisson import _buffer, _squeeze_field
 
@@ -84,26 +98,41 @@ class StokesNSBase(FEM2DModule):
         self.exact_solution = kwargs.get("exact_solution", None)
 
     # -- helpers ---------------------------------------------------------
-    def _apply_field_bcs(self, pred, inputs):
+    def _apply_field_bcs(self, pred, inputs, rows=None):
+        """`rows`: ``(first, count)`` of a row block's grid rows (the
+        Dirichlet data's rows it takes); None for the whole grid."""
         u, v, p = (_squeeze_field(f) for f in pred)
         bc1 = inputs[..., 2]
         bc2 = inputs[..., 3]
         bc3 = inputs[..., 4]
-        u = torch.where(bc1 > 0.5, self.u_bc.to(u.dtype), u)
-        v = torch.where(bc2 > 0.5, self.v_bc.to(v.dtype), v)
-        p = torch.where(bc3 > 0.5, self.p_bc.to(p.dtype), p)
+
+        def data(d, dtype):
+            return (d if rows is None else d.narrow(0, *rows)).to(dtype)
+
+        u = torch.where(bc1 > 0.5, data(self.u_bc, u.dtype), u)
+        v = torch.where(bc2 > 0.5, data(self.v_bc, v.dtype), v)
+        p = torch.where(bc3 > 0.5, data(self.p_bc, p.dtype), p)
         return u, v, p, bc1, bc2, bc3
 
     def apply_bcs(self, pred, inputs_tensor):
         u, v, p, *_ = self._apply_field_bcs(pred, inputs_tensor)
         return u, v, p
 
-    def calc_residuals(self, pred, inputs_tensor, forcing_tensor):
-        """The assembled (R1, R2, R3), Dirichlet rows zeroed."""
+    def calc_residuals(self, pred, inputs_tensor, forcing_tensor,
+                       mesh=None):
+        """The assembled (R1, R2, R3), Dirichlet rows zeroed. mesh: the
+        fields and inputs are this rank's row blocks along its 'space'
+        axis, and so are the residuals (see the module docstring)."""
         visco = self.viscosity
+        rows = None
+        if mesh is not None and mesh.space > 1:
+            rows = self._block_rows(inputs_tensor, mesh)
         u_pred, v_pred, p_pred, bc1, bc2, bc3 = self._apply_field_bcs(
-            pred, inputs_tensor)
-        if self.fused_kernels:
+            pred, inputs_tensor, rows)
+        if rows is not None:
+            R1, R2, R3 = self._split_residuals(u_pred, v_pred, p_pred,
+                                               rows[0], mesh)
+        elif self.fused_kernels:
             R1, R2, R3 = ns_vms_residual_fused(
                 u_pred.contiguous(), v_pred.contiguous(),
                 p_pred.contiguous(), None, None, self.basis, visco)
@@ -114,10 +143,48 @@ class StokesNSBase(FEM2DModule):
         R3 = torch.where(bc3 > 0.5, torch.zeros_like(R3), R3)
         return R1, R2, R3
 
-    def _residuals(self, u_pred, v_pred, p_pred, visco):
+    def _block_rows(self, inputs_tensor, mesh) -> tuple[int, int]:
+        """(first grid row, rows) of this rank's block
+        (:func:`~diffnet_tpu_torch.parallel.block_bounds`)."""
+        ny = self.node_shape[0]
+        bounds = block_bounds(ny, mesh.space)
+        j = mesh.space_index
+        a, n = bounds[j], bounds[j + 1] - bounds[j]
+        if inputs_tensor.shape[-3] != n:
+            raise ValueError(f"calc_residuals over a mesh: the inputs hold "
+                             f"{inputs_tensor.shape[-3]} rows, this rank's "
+                             f"block of {ny} {n}")
+        return a, n
+
+    def _split_residuals(self, u, v, p, first_row, mesh):
+        """The unmasked residuals' rows of this rank's block (grid rows
+        from `first_row`) of Dirichlet-substituted fields: one halo row of
+        (u, v, p) from each neighbour, the residuals of the halo'd block,
+        its own rows."""
+        n = u.shape[-2]
+        first = 1 if mesh.space_neighbour(-1) is not None else 0
+        grown = halo_exchange(torch.stack([u, v, p]), mesh, 1, -2,
+                              zero_edges=False)
+        uh, vh, ph = (t.contiguous() for t in grown.unbind(0))
+        if self.fused_kernels:
+            R = ns_vms_residual_rows_fused(uh, vh, ph, None, None,
+                                           self.basis, self.viscosity)
+        else:
+            R = self._residuals(uh, vh, ph, self.viscosity,
+                                elem_rows=(first_row - first,
+                                           uh.shape[-2] - 1))
+        return tuple(t.narrow(-2, first, n) for t in R)
+
+    def _residuals(self, u_pred, v_pred, p_pred, visco, elem_rows=None):
+        """The unmasked residuals of whole fields, or of a halo'd row block
+        whose element rows are ``elem_rows = (first, count)`` of the
+        grid's."""
         dt = u_pred.dtype
+        n_shape = tuple(u_pred.shape[-2:])
         if self.fx_gp is not None:
             f1, f2 = self.fx_gp.to(dt), self.fy_gp.to(dt)
+            if elem_rows is not None:
+                f1, f2 = f1.narrow(-3, *elem_rows), f2.narrow(-3, *elem_rows)
         else:
             f1 = f2 = torch.zeros((1, 1, 1, self.ngp_total), dtype=dt,
                                   device=u_pred.device)
@@ -129,36 +196,40 @@ class StokesNSBase(FEM2DModule):
                           for i, q in enumerate(quants)} for k in range(3))
 
         if self.eq_type == "stokes":
-            R1 = self.assemble_multi([
-                (visco * ugp["dx"], "dx"), (visco * ugp["dy"], "dy"),
-                (-pgp["N"], "dx"), (-f1, "N")])
-            R2 = self.assemble_multi([
-                (visco * vgp["dx"], "dx"), (visco * vgp["dy"], "dy"),
-                (-pgp["N"], "dy"), (-f2, "N")])
-            R3 = self.assemble_multi([
-                (ugp["dx"] + vgp["dy"], "N"),
-                (self.pspg_param * pgp["dx"], "dx"),
-                (self.pspg_param * pgp["dy"], "dy")])
+            def asm(terms):
+                return fem.galerkin_project_multi(terms, self.basis, n_shape)
+
+            R1 = asm([(visco * ugp["dx"], "dx"), (visco * ugp["dy"], "dy"),
+                      (-pgp["N"], "dx"), (-f1, "N")])
+            R2 = asm([(visco * vgp["dx"], "dx"), (visco * vgp["dy"], "dy"),
+                      (-pgp["N"], "dy"), (-f2, "N")])
+            R3 = asm([(ugp["dx"] + vgp["dy"], "N"),
+                      (self.pspg_param * pgp["dx"], "dx"),
+                      (self.pspg_param * pgp["dy"], "dy")])
             return R1, R2, R3
         # Galerkin + VMS terms (cross terms, Reynolds stress, PSPG,
         # grad-div): the algebra of K6's plain version
         return vms_residuals(ugp, vgp, pgp, f1, f2, self.basis, visco,
-                             self.node_shape)
+                             n_shape)
 
-    def residual_for_field(self, fields, inputs_tensor, forcing_tensor):
+    def residual_for_field(self, fields, inputs_tensor, forcing_tensor,
+                           mesh=None):
         """The assembled mixed residual ``{'u','v','p'} -> {'u','v','p'}``
         for the matrix-free Krylov path (``train/linear.py``). Stokes only:
         its PSPG system is affine in (u, v, p); the NS residual is not (use
-        ``train.linear.ns_newton_solve``)."""
+        ``train.linear.ns_newton_solve``). mesh: as for
+        :meth:`mixed_residual`."""
         if self.eq_type != "stokes":
             raise ValueError(
                 "residual_for_field is the affine linear-solver hook; the "
                 f"eq_type={self.eq_type!r} residual is nonlinear in the "
                 "fields - use train.linear.ns_newton_solve (Newton-Krylov "
                 "over mixed_residual) or the training path")
-        return self.mixed_residual(fields, inputs_tensor, forcing_tensor)
+        return self.mixed_residual(fields, inputs_tensor, forcing_tensor,
+                                   mesh)
 
-    def mixed_residual(self, fields, inputs_tensor, forcing_tensor):
+    def mixed_residual(self, fields, inputs_tensor, forcing_tensor,
+                       mesh=None):
         """Gauge-controlled mixed residual ``{'u','v','p'} ->
         {'u','v','p'}`` for the solver paths.
 
@@ -168,21 +239,29 @@ class StokesNSBase(FEM2DModule):
         block's diagonal, which anchors the constant pressure mode at O(1)
         strength; the solvers restore the pinned gauge afterwards by a
         constant shift. ``'dirichlet'``: the bc3 rows stay strong Dirichlet
-        and no mean control is added."""
+        and no mean control is added. mesh: the fields, inputs and
+        residuals are this rank's row blocks (see the module docstring);
+        the mean is over the whole grid."""
         if self.pressure_gauge == "dirichlet":
             R1, R2, R3 = self.calc_residuals(
                 (fields["u"], fields["v"], fields["p"]),
-                inputs_tensor, forcing_tensor)
+                inputs_tensor, forcing_tensor, mesh)
             return {"u": R1, "v": R2, "p": R3}
         inputs_nopin = inputs_tensor.clone()
         inputs_nopin[..., 4] = 0.0
         R1, R2, R3 = self.calc_residuals(
             (fields["u"], fields["v"], fields["p"]),
-            inputs_nopin, forcing_tensor)
+            inputs_nopin, forcing_tensor, mesh)
         p_raw = _squeeze_field(fields["p"])
         s = (self.pspg_param * 8.0 / 3.0
              + (self.hx * self.hy) * (4.0 / 9.0) / self.viscosity)
-        R3 = R3 + s * torch.mean(p_raw, dim=(-2, -1), keepdim=True)
+        if mesh is not None and mesh.space > 1:
+            total = all_reduce_sum(torch.sum(p_raw, dim=(-2, -1),
+                                             keepdim=True), mesh, "space")
+            mean = total / float(np.prod(self.node_shape))
+        else:
+            mean = torch.mean(p_raw, dim=(-2, -1), keepdim=True)
+        R3 = R3 + s * mean
         return {"u": R1, "v": R2, "p": R3}
 
     # -- the round-robin objective protocol: one objective a field residual
@@ -212,21 +291,25 @@ class StokesNSBase(FEM2DModule):
 
     @property
     def batch_reduction(self) -> str | None:
-        """The squared norm sums over the batch; the root of a sum over the
-        batch does not split over ranks."""
-        return "sum" if self.loss_norm == "squared" else None
+        """The squared norm sums over the batch; the Frobenius loss, a root
+        of a sum over the batch, reduces its parts (``"global"``)."""
+        return "sum" if self.loss_norm == "squared" else "global"
 
-    def loss(self, pred, inputs_tensor, forcing_tensor):
+    def loss_parts(self, pred, inputs_tensor, forcing_tensor) -> list:
+        """The three residuals' squared norms (momentum ones scaled)."""
         R1, R2, R3 = self.calc_residuals(pred, inputs_tensor, forcing_tensor)
         s = self.momentum_scale
+        return [torch.sum((s * R1) ** 2), torch.sum((s * R2) ** 2),
+                torch.sum(R3**2)]
+
+    def loss_from_parts(self, parts) -> torch.Tensor:
         if self.loss_norm == "squared":
-            return (torch.sum((s * R1) ** 2) + torch.sum((s * R2) ** 2)
-                    + torch.sum(R3**2))
+            return parts[0] + parts[1] + parts[2]
+        return sum(torch.sqrt(q + 1e-12) for q in parts)
 
-        def norm(R):
-            return torch.sqrt(torch.sum(R**2) + 1e-12)
-
-        return norm(s * R1) + norm(s * R2) + norm(R3)
+    def loss(self, pred, inputs_tensor, forcing_tensor):
+        return self.loss_from_parts(self.loss_parts(pred, inputs_tensor,
+                                                    forcing_tensor))
 
 
 class StokesMMS(StokesNSBase):

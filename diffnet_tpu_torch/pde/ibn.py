@@ -120,23 +120,38 @@ class IBNPoisson2D(FEM2DModule):
             u = u[..., 0] if u.ndim == w.ndim + 1 else u
             return torch.mean((u - w) ** 2)
         u, inputs = self._from_cloud(cloud, sink)
-        kl = 0.0
         if isinstance(u, tuple):
-            u, mu, logvar = u
-            kl = -0.5 * torch.mean(torch.sum(
-                1.0 + logvar - mu**2 - torch.exp(logvar), dim=-1))
-        return (torch.mean(self.loss(u, inputs, forcing))
-                + self.vae_kl_weight * kl)
+            return self.loss_from_parts(self._vae_parts(u, inputs, forcing))
+        return torch.mean(self.loss(u, inputs, forcing))
+
+    def _vae_parts(self, u, inputs, forcing) -> list:
+        """With a VAE head: the loss of the field (for resmin the sum of
+        R^2 over the batch) and the sum and count of the KL terms, whose
+        mean the loss takes."""
+        u, mu, logvar = u
+        kl_terms = torch.sum(1.0 + logvar - mu**2 - torch.exp(logvar),
+                             dim=-1)
+        return [torch.sum(self.loss(u, inputs, forcing)), torch.sum(kl_terms),
+                kl_terms.new_tensor(float(kl_terms.numel()))]
+
+    def _training_parts(self, batch) -> torch.Tensor:
+        cloud, forcing, sink = batch
+        u, inputs = self._from_cloud(cloud, sink)
+        return torch.stack(self._vae_parts(u, inputs, forcing))
+
+    def loss_from_parts(self, parts) -> torch.Tensor:
+        return parts[0] + self.vae_kl_weight * (-0.5 * parts[1] / parts[2])
 
     @property
     def batch_reduction(self) -> str | None:
-        """resmin sums R^2 over the batch (None with a VAE, whose KL term is
-        a batch mean); the energy and the mask regression take means."""
+        """resmin sums R^2 over the batch (``"global"`` with a VAE, whose KL
+        term is a batch mean: the sums of both are reduced, then the mean
+        taken); the energy and the mask regression take means."""
         from ..models.networks import VAE
 
         if self.ibn_loss_type != "resmin":
             return "mean"
-        return None if isinstance(self.network, VAE) else "sum"
+        return "global" if isinstance(self.network, VAE) else "sum"
 
     def _nu_and_dirichlet(self, inputs_tensor):
         """The diffusivity and the constrained node set: with ``neumann``,

@@ -12,12 +12,13 @@ linear solves call), kept exactly:
 - the ``(x, info)`` return: ``info`` is None for cg and bicgstab, and for
   gmres a 0-dim tensor, -1 when x holds a NaN, else 0.
 
-With ``mesh=`` (cg and bicgstab) the vectors are this rank's blocks of
-fields split along a process mesh's 'space' axis
-(:mod:`diffnet_tpu_torch.parallel`): every inner product and norm is
-all-reduced over 'space', so each rank takes the unsplit solve's steps on
-its own rows, and ``A`` and ``M`` map blocks to blocks (their halo
-exchanges are theirs).
+With ``mesh=`` the vectors are this rank's blocks of fields split along
+a process mesh's 'space' axis (:mod:`diffnet_tpu_torch.parallel`): every
+inner product and norm is all-reduced over 'space', so each rank takes the
+unsplit solve's steps on its own rows, and ``A`` and ``M`` map blocks to
+blocks (their halo exchanges are theirs). GMRES all-reduces each Arnoldi
+step's projections (one vector) and norms, and every rank solves the
+small Hessenberg least-squares problem from those same scalars.
 
 The iteration reads back no scalar when ``tol == atol == 0``: each step
 then computes its update for every iteration up to ``maxiter`` and keeps
@@ -47,6 +48,14 @@ def _dot(mesh) -> Callable:
     if mesh is None or mesh.space == 1:
         return _vdot
     return lambda x, y: mesh.all_reduce(_vdot(x, y), "space")
+
+
+def _norm(mesh) -> Callable:
+    """The 2-norm of a field: of a whole one, or of blocks along the mesh's
+    'space' axis (the sum of squares all-reduced over it)."""
+    if mesh is None or mesh.space == 1:
+        return torch.linalg.vector_norm
+    return lambda x: mesh.all_reduce(torch.sum(x * x), "space").sqrt()
 
 
 def _identity(x):
@@ -167,8 +176,9 @@ def bicgstab(A: Callable, b: torch.Tensor, x0: torch.Tensor | None = None,
     return x, None
 
 
-def _safe_normalize(x: torch.Tensor, thresh=None):
-    norm = torch.linalg.vector_norm(x)
+def _safe_normalize(x: torch.Tensor, thresh=None,
+                    norm: Callable = torch.linalg.vector_norm):
+    norm = norm(x)
     if thresh is None:
         thresh = torch.finfo(x.dtype).eps
     use = norm > thresh
@@ -184,13 +194,17 @@ def _lstsq_pos(a: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return torch.cholesky_solve((a.T @ y)[:, None], L)[:, 0]
 
 
-def _gmres_batched(A, M, b, x, unit_residual, residual_norm, restart):
+def _gmres_batched(A, M, b, x, unit_residual, residual_norm, restart,
+                   mesh=None):
     """One restart: ``restart`` Arnoldi steps (classical Gram-Schmidt, one
     pass, as JAX's two-pass routine exits after one), then the projected
     least-squares problem. Returns the new x and its normalised
-    preconditioned residual."""
+    preconditioned residual. `mesh`: the vectors are blocks along its
+    'space' axis; the projections and norms are all-reduced over it."""
     n = b.numel()
     dtype, dev = b.dtype, b.device
+    norm = _norm(mesh)
+    split = mesh is not None and mesh.space > 1
     V = torch.zeros((restart + 1, n), dtype=dtype, device=dev)
     V[0] = unit_residual.reshape(-1)
     H = torch.eye(restart, restart + 1, dtype=dtype, device=dev)
@@ -198,10 +212,13 @@ def _gmres_batched(A, M, b, x, unit_residual, residual_norm, restart):
     broke = torch.zeros((), dtype=torch.bool, device=dev)
     for k in range(restart):
         v = M(A(V[k].reshape(b.shape))).reshape(-1)
-        _, v_norm_0 = _safe_normalize(v)
+        _, v_norm_0 = _safe_normalize(v, norm=norm)
         h = V @ v
+        if split:
+            h = mesh.all_reduce(h, "space")
         v = v - V.T @ h
-        unit_v, v_norm_1 = _safe_normalize(v, thresh=eps * v_norm_0)
+        unit_v, v_norm_1 = _safe_normalize(v, thresh=eps * v_norm_0,
+                                           norm=norm)
         h[k + 1] = v_norm_1
         # a breakdown before step k stops the loop: later rows stay as
         # they were (H an identity row, V zero)
@@ -212,19 +229,26 @@ def _gmres_batched(A, M, b, x, unit_residual, residual_norm, restart):
     beta[0] = residual_norm
     y = _lstsq_pos(H.T, beta)
     x = x + (V[:-1].T @ y).reshape(b.shape)
-    unit_residual, residual_norm = _safe_normalize(M(b - A(x)))
+    unit_residual, residual_norm = _safe_normalize(M(b - A(x)), norm=norm)
     return x, unit_residual, residual_norm
 
 
 @torch.no_grad()
 def gmres(A: Callable, b: torch.Tensor, x0: torch.Tensor | None = None, *,
           tol: float = 1e-5, atol: float = 0.0, restart: int = 20,
-          maxiter: int | None = None, M: Callable | None = None):
+          maxiter: int | None = None, M: Callable | None = None,
+          mesh=None):
     """Restarted GMRES, JAX's ``solve_method='batched'`` (the one the JAX
-    package uses); ``maxiter`` counts restart cycles."""
+    package uses); ``maxiter`` counts restart cycles. `mesh`: the vectors
+    are blocks along its 'space' axis."""
     x0, maxiter, Mf = _setup(b, x0, maxiter, M)
-    restart = min(int(restart), b.numel())
-    atol_ = torch.clamp(tol * torch.linalg.vector_norm(b), min=atol)
+    norm = _norm(mesh)
+    numel = b.numel()
+    if mesh is not None and mesh.space > 1:
+        numel = int(mesh.all_reduce(torch.tensor(
+            float(numel), device=b.device), "space"))
+    restart = min(int(restart), numel)
+    atol_ = torch.clamp(tol * norm(b), min=atol)
     k0 = torch.zeros((), dtype=torch.int64, device=b.device)
 
     def cond(s):
@@ -233,11 +257,12 @@ def gmres(A: Callable, b: torch.Tensor, x0: torch.Tensor | None = None, *,
 
     def body(s):
         x, k, unit, rnorm = s
-        x, unit, rnorm = _gmres_batched(A, Mf, b, x, unit, rnorm, restart)
+        x, unit, rnorm = _gmres_batched(A, Mf, b, x, unit, rnorm, restart,
+                                        mesh)
         return x, k + 1, unit, rnorm
 
-    unit0, rnorm0 = _safe_normalize(Mf(b - A(x0)))
+    unit0, rnorm0 = _safe_normalize(Mf(b - A(x0)), norm=norm)
     x, *_ = _while(cond, body, (x0, k0, unit0, rnorm0), maxiter,
                    tol != 0 or atol != 0)
-    info = torch.where(torch.isnan(torch.linalg.vector_norm(x)), -1, 0)
+    info = torch.where(torch.isnan(norm(x)), -1, 0)
     return x, info

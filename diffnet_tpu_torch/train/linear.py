@@ -27,6 +27,7 @@ are moved there, fields are made there.
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Callable, Mapping
 
 import numpy as np
@@ -36,8 +37,11 @@ from torch import nn
 from ..utils.device import resolve_device
 from . import krylov
 from .continuation import prolong_field
-from .stencil import check_kernel, extract_verified, stencil_diag, \
-    stencil_matvec
+from ..parallel.mesh import (block_bounds, gather_block,
+                             halo_exchange, halo_exchange_transpose,
+                             local_block)
+from .stencil import (SplitStencil, check_kernel, extract_verified,
+                      stencil_diag, stencil_matvec)
 
 __all__ = ["solve_linear", "module_linear_solve", "multigrid_preconditioner",
            "newton_solve", "ns_newton_solve", "gauss_newton_solve",
@@ -97,13 +101,18 @@ def solve_linear(residual_fn: Callable, shape, method: str = "cg",
         ``stencil_width=2*deg+1`` for deg-d elements).
     stencil_kernel: with ``assemble='stencil'``, ``'cuda'`` applies the
         stencil through the K4 kernel (width 3, 2D).
-    mesh: a process mesh whose 'space' axis splits the field (the JAX
-        package's spatially sharded fields): `shape` is then this rank's
-        block, ``residual_fn`` maps blocks to blocks (e.g. through
+    mesh: a process mesh whose 'space' axis splits the field's rows (the
+        JAX package's spatially sharded fields): `shape` is then this
+        rank's block (a mixed system's fields are blocks alike, stacked),
+        ``residual_fn`` maps blocks to blocks (e.g. through
         :func:`~diffnet_tpu_torch.parallel.poisson_stiffness_spatial_fused`)
         and every rank calls ``solve_linear`` at once; the inner products
-        and norms run over the whole field (cg and bicgstab; no stencil
-        assembly). Returns this rank's block of the solution.
+        and norms run over the whole field, for every method. With
+        ``assemble='stencil'`` each rank extracts its rows of the stencil
+        and iterates with the split apply
+        (:class:`~.stencil.SplitStencil`, through K4 with
+        ``stencil_kernel='cuda'``). Returns this rank's block of the
+        solution.
 
     Returns ``(u, info)`` as the Krylov solver does. Raises ValueError if
     the residual is not affine (one extra residual evaluation at a random
@@ -111,9 +120,6 @@ def solve_linear(residual_fn: Callable, shape, method: str = "cg",
     """
     check_kernel(stencil_kernel)
     device = resolve_device(device, "solve_linear")
-    if mesh is not None and (method == "gmres" or assemble is not None):
-        raise ValueError("a solve over a mesh takes method 'cg' or "
-                         "'bicgstab' and no assemble")
     if isinstance(shape, Mapping):
         shapes = {tuple(a.shape) for a in shape.values()}
         if len(shapes) != 1:
@@ -147,11 +153,7 @@ def solve_linear(residual_fn: Callable, shape, method: str = "cg",
     A2 = A(2.0 * probe)
     A1 = A(probe)
 
-    def norm(x):
-        if mesh is None:
-            return _norm(x)
-        return mesh.all_reduce(torch.sum(x * x), "space").sqrt()
-
+    norm = krylov._norm(mesh)
     lin = float(norm(A2 - 2.0 * A1) / (norm(A1) + 1e-30))
     if lin > 1e-3:
         raise ValueError(
@@ -161,16 +163,20 @@ def solve_linear(residual_fn: Callable, shape, method: str = "cg",
 
     if assemble == "stencil":
         C, defect = extract_verified(A, shape, width=stencil_width,
-                                     probe=probe, want=A1, device=device)
+                                     probe=probe, want=A1, device=device,
+                                     mesh=mesh)
         if defect > 1e-4:
             raise ValueError(
                 f"operator is not a width-{stencil_width} stencil "
                 f"(relative defect {defect:.2e}); pass stencil_width="
                 "2*deg+1 or drop assemble='stencil'")
-
-        def A(u, C=C):
-            return stencil_matvec(C, u, width=stencil_width,
-                                  kernel=stencil_kernel)
+        if mesh is not None and mesh.space > 1:
+            A = SplitStencil(C, mesh, stencil_width, len(shape),
+                             stencil_kernel)
+        else:
+            def A(u, C=C):
+                return stencil_matvec(C, u, width=stencil_width,
+                                      kernel=stencil_kernel)
     elif assemble is not None:
         raise ValueError(f"unknown assemble mode {assemble!r}")
     elif stencil_kernel is not None:
@@ -334,7 +340,7 @@ def multigrid_preconditioner(module_factory, n_fine, n_coarse: int = 9,
                              cheb_alpha: float = 4.0,
                              fine_matvec: Callable | None = None,
                              stencil_kernel: str | None = None,
-                             device="cuda"):
+                             device="cuda", mesh=None):
     """Geometric-multigrid V-cycle preconditioner ``M ~ A^-1`` for
     :func:`solve_linear` on node-aligned grid hierarchies (n = 2^k + 1).
 
@@ -364,6 +370,27 @@ def multigrid_preconditioner(module_factory, n_fine, n_coarse: int = 9,
         stencil (not the finest when `fine_matvec` is given, not the
         coarsest, which runs the dense pseudo-inverse) through K4.
 
+    mesh: a process mesh whose 'space' axis splits the rows (2D; planes in
+        3D): ``M`` then maps this rank's block of the fine level
+        (:func:`~diffnet_tpu_torch.parallel.local_block`) to its block of
+        ``M v``, every rank calling at once, and `fine_matvec` maps blocks
+        to blocks (e.g. through
+        :func:`~diffnet_tpu_torch.parallel.poisson_stiffness_spatial_fused`).
+        The setup (stencils, diagonals, the power iterations, the coarse
+        pseudo-inverse) runs on the whole hierarchy on every rank, from the
+        factory's whole-field modules: the same numbers as without a mesh.
+        The V-cycle runs split on every level whose blocks
+        (:func:`~diffnet_tpu_torch.parallel.block_bounds`) hold at least 2
+        rows and fall at row a where the level above's fall at row 2a: its
+        stencil through :class:`~.stencil.SplitStencil` (K4 with
+        `stencil_kernel`), its smoother and inverse diagonal on the block,
+        the prolongation with one coarse halo row and the restriction, its
+        adjoint, with the exchange's transpose. Below, the level is
+        gathered onto every rank (``gather_block``), the rest of the cycle
+        runs whole there, and each rank keeps its rows on the way up. The
+        same linear map as without a mesh, to rounding. Every split level
+        but a `fine_matvec` one must be assembled (``assemble='stencil'``).
+
     The prolongation is ``train.continuation.prolong_field``, the
     restriction its exact adjoint, the coarsest level a dense
     pseudo-inverse (``rcond=1e-5``, numpy on the host) built by probing,
@@ -377,6 +404,7 @@ def multigrid_preconditioner(module_factory, n_fine, n_coarse: int = 9,
                          "'stencil', 'stencil_coarse', or None)")
     check_kernel(stencil_kernel)
     device = resolve_device(device, "multigrid_preconditioner")
+    split_mesh = mesh is not None and mesh.space > 1
     if stencil_kernel is not None and assemble is None:
         raise ValueError("stencil_kernel requires an assembling mode "
                          "('stencil' or 'stencil_coarse')")
@@ -462,8 +490,9 @@ def multigrid_preconditioner(module_factory, n_fine, n_coarse: int = 9,
             v = v / (_norm(v) + 1e-30)
         lam = float(torch.vdot(v.reshape(-1), DinvA(v).reshape(-1))
                     / (torch.vdot(v.reshape(-1), v.reshape(-1)) + 1e-30))
-        if li == 0 and fine_matvec is not None:
-            A = fine_matvec   # after all setup probing
+        if li == 0 and fine_matvec is not None and not split_mesh:
+            A = fine_matvec   # after all setup probing (a block map over
+            #                   a mesh: the split cycle takes it)
         ops.append(A)
         invdiags.append(invdiag)
         omegas.append(0.8 / max(lam, 1e-30))
@@ -524,20 +553,131 @@ def multigrid_preconditioner(module_factory, n_fine, n_coarse: int = 9,
             rho_prev = rho
         return u
 
+    restrict = [lambda r, R=R: R(r) for R in restricts]
+    prolong = [lambda e_c, fs=shapes[li]: prolong_field(e_c, fs)
+               for li in range(len(ns) - 1)]
+    split_levels = 0
+    if split_mesh:
+        cyc = _SplitCycle(mesh, shapes, nsd, fine_matvec,
+                          dict(kernel_swaps), invdiags, stencil_kernel,
+                          device)
+        split_levels = cyc.levels
+        if not split_levels:
+            raise ValueError(f"multigrid over a mesh: the fine level "
+                             f"{shapes[0]} does not split into blocks of at "
+                             f"least 2 rows over {mesh.space} ranks")
+        for li in range(cyc.levels):
+            ops[li], invdiags[li] = cyc.ops[li], cyc.invdiags[li]
+            if li + 1 < cyc.levels:
+                restrict[li] = partial(cyc.restrict, li=li)
+                prolong[li] = partial(cyc.prolong, li=li)
+            else:   # the next level runs whole on every rank
+                restrict[li] = (lambda r, R=restricts[li], n=shapes[li][0]:
+                                R(gather_block(r, mesh, 0, "space", n=n)))
+                prolong[li] = partial(cyc.prolong_gather, li=li)
+
     def vcycle(level, b):
         if level == len(ns) - 1:
             return (A0_pinv @ b.reshape(-1)).reshape(b.shape)
         u = smooth(level, torch.zeros_like(b), b, n_smooth)
         r = b - ops[level](u)
-        e_c = vcycle(level + 1, restricts[level](r))
-        u = u + prolong_field(e_c, shapes[level])
+        e_c = vcycle(level + 1, restrict[level](r))
+        u = u + prolong[level](e_c)
         return smooth(level, u, b, n_smooth)
 
     @torch.no_grad()
     def M(v):
         return vcycle(0, v)
 
-    return M, {"levels": ns, "omegas": omegas, "smoother": smoother}
+    return M, {"levels": ns, "omegas": omegas, "smoother": smoother,
+               "split_levels": split_levels}
+
+
+class _SplitCycle:
+    """The split levels of a multigrid hierarchy over a mesh's 'space' axis
+    (see :func:`multigrid_preconditioner`): levels ``0 .. levels - 1`` run
+    on row blocks, the rest gathered. Built from the whole-field setup:
+    each split level's stencil C and inverse diagonal are cut to this
+    rank's block."""
+
+    def __init__(self, mesh, shapes, nsd, fine_matvec, C_by_level,
+                 invdiags, stencil_kernel, device):
+        self.mesh, self.shapes, self.nsd = mesh, shapes, nsd
+        k = mesh.space
+        # split while every block holds >= 2 rows and the level's splits
+        # fall at half the level above's (the coarsest is always whole)
+        bounds = []
+        for li, shape in enumerate(shapes[:-1]):
+            try:
+                b = block_bounds(shape[0], k)
+            except ValueError:
+                break
+            if min(b1 - b0 for b0, b1 in zip(b, b[1:])) < 2:
+                break
+            if li and b[1:-1] != [x // 2 for x in bounds[-1][1:-1]] \
+                    or li and any(x % 2 for x in bounds[-1][1:-1]):
+                break
+            bounds.append(b)
+        self.levels = len(bounds)
+        self.bounds = bounds
+        self.ops, self.invdiags, self._restrict_local = [], [], []
+        j = mesh.space_index
+        self.first = 1 if mesh.space_neighbour(-1) is not None else 0
+        self.last = 1 if mesh.space_neighbour(1) is not None else 0
+        for li in range(self.levels):
+            if li == 0 and fine_matvec is not None:
+                self.ops.append(fine_matvec)
+            elif li in C_by_level:
+                Cl = local_block(C_by_level[li], mesh, 1, "space")
+                self.ops.append(SplitStencil(Cl, mesh, 3, nsd,
+                                             stencil_kernel))
+            else:
+                raise ValueError(
+                    f"multigrid over a mesh: level {li} ({shapes[li]}) has "
+                    "no assembled stencil to split; pass assemble='stencil' "
+                    "(and fine_matvec for a matrix-free fine level)")
+            self.invdiags.append(local_block(invdiags[li], mesh, 0, "space"))
+            if li + 1 < self.levels:
+                # the coarse rows a prolongation reads: this block's and the
+                # next block's first (none after the last block)
+                nc = bounds[li + 1][j + 1] - bounds[li + 1][j] + self.last
+                cshape = (nc,) + tuple(shapes[li + 1][1:])
+                fshape = (2 * nc - 1,) + tuple(shapes[li][1:])
+                self._restrict_local.append(
+                    _restriction(cshape, fshape, device))
+            else:
+                self._restrict_local.append(None)
+
+    def _fine_rows(self, li):
+        j = self.mesh.space_index
+        return self.bounds[li][j + 1] - self.bounds[li][j]
+
+    def prolong(self, e_c, li):
+        """Level li + 1's block -> level li's block: the coarse block grown
+        by the next block's first row, prolongated, cut to this block."""
+        ext = halo_exchange(e_c, self.mesh, 1, 0, zero_edges=False)
+        ext = ext.narrow(0, self.first, ext.shape[0] - self.first)
+        fine = prolong_field(ext, (2 * ext.shape[0] - 1,)
+                             + tuple(self.shapes[li][1:]))
+        return fine.narrow(0, 0, self._fine_rows(li))
+
+    def restrict(self, r, li):
+        """The adjoint of :meth:`prolong`: level li's block -> level li +
+        1's block."""
+        pad = list(r.shape)
+        pad[0] = self.last
+        rf = torch.cat([r, r.new_zeros(pad)]) if self.last else r
+        c = self._restrict_local[li](rf)
+        if self.first:
+            pad = list(c.shape)
+            pad[0] = 1
+            c = torch.cat([c.new_zeros(pad), c])
+        return halo_exchange_transpose(c, self.mesh, 1, 0, zero_edges=False)
+
+    def prolong_gather(self, e_c, li):
+        """The last split level's block from the whole next level."""
+        return local_block(prolong_field(e_c, self.shapes[li]), self.mesh, 0,
+                           "space")
 
 
 class _FieldDataset:

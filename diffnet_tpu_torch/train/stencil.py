@@ -14,6 +14,14 @@ every coefficient lands untangled in some probe's output, and taps outside
 the domain extract as 0. An iterative solve then applies C (one pass of
 ``width**nsd`` multiply-adds, or the K4 kernel) instead of re-running the
 element assembly every iteration.
+
+Over a process mesh (``mesh=``; :mod:`diffnet_tpu_torch.parallel`) a field
+is split into row blocks (planes in 3D) along the mesh's 'space' axis, and
+so is C, as the JAX package shards it (``P(None, 'space', None)``): the
+apply exchanges one halo row of u with the neighbours and runs on the
+halo'd block (through K4 with ``kernel="cuda"``, as K1-split runs K1),
+keeping its own rows; the extraction's probes are the blocks of the global
+colouring probes, so each rank keeps its rows of C.
 """
 
 from __future__ import annotations
@@ -24,10 +32,12 @@ import numpy as np
 import torch
 
 from ..ops.stencil_apply import stencil_apply, stencil_apply_plain
+from ..parallel.mesh import block_lengths, halo_exchange
 from ..utils.device import resolve_device
+from .krylov import _norm
 
 __all__ = ["extract_stencil", "stencil_matvec", "stencil_diag",
-           "extract_verified", "assemble_stencil"]
+           "extract_verified", "assemble_stencil", "SplitStencil"]
 
 def _offsets(width: int, nsd: int):
     h = (width - 1) // 2
@@ -45,9 +55,17 @@ def check_kernel(kernel: str | None) -> None:
                          "are not ported)")
 
 
+def _split_origin(mesh, n_loc: int, device) -> tuple[int, int]:
+    """(the first global row of this rank's block, the global row count)
+    from the blocks' lengths along 'space'."""
+    lens = block_lengths(n_loc, mesh, "space", device)
+    return sum(lens[:mesh.space_index]), sum(lens)
+
+
 @torch.no_grad()
 def extract_stencil(A: Callable, shape, width: int = 3,
-                    nsd: int | None = None, device="cuda") -> torch.Tensor:
+                    nsd: int | None = None, device="cuda",
+                    mesh=None) -> torch.Tensor:
     """The full stencil coefficient field of a linear operator.
 
     A: linear map on float32 fields of ``shape`` on `device` (the card by
@@ -56,19 +74,32 @@ def extract_stencil(A: Callable, shape, width: int = 3,
         operators; the stencil acts on the trailing ``nsd`` axes). It is
         called once per probe, ``width**nsd`` times, with one field each.
     width: stencil width per axis (3 for deg-1 elements, 2*deg+1 for deg).
+    mesh: a process mesh whose 'space' axis splits the first spatial axis:
+        `shape` is this rank's block, `A` maps blocks to blocks (every rank
+        calls at once), and the probes are the blocks of the global ones.
 
     Returns ``C`` ``[width**nsd, *shape]`` on `device`, ``C[m]`` the
-    coefficient of offset ``_offsets(width, nsd)[m]``.
+    coefficient of offset ``_offsets(width, nsd)[m]`` (this rank's rows
+    over a mesh).
     """
     device = resolve_device(device, "extract_stencil")
     shape = tuple(int(s) for s in shape)
     if nsd is None:
         nsd = len(shape)
     spatial = shape[-nsd:]
+    # the global index of each block's first row along the split axis
+    origin = [0] * nsd
+    if mesh is not None and mesh.space > 1:
+        origin[0] = _split_origin(mesh, spatial[0], device)[0]
+
+    def lattice(idx):
+        return tuple(slice((o - a) % width, None, width)
+                     for o, a in zip(idx, origin))
+
     outs = []
     for idx in np.ndindex(*((width,) * nsd)):
         e = np.zeros(spatial, np.float32)
-        e[tuple(slice(o, None, width) for o in idx)] = 1.0
+        e[lattice(idx)] = 1.0
         probe = torch.from_numpy(np.broadcast_to(e, shape).copy()).to(device)
         outs.append(A(probe).detach().cpu().numpy())
     outs = np.stack(outs)
@@ -83,7 +114,7 @@ def extract_stencil(A: Callable, shape, width: int = 3,
             c = 0
             for rc, kc in zip(r_idx, k):
                 c = c * width + (rc + kc) % width
-            sl = lead + tuple(slice(rc, None, width) for rc in r_idx)
+            sl = lead + lattice(r_idx)
             C[(m,) + sl] = outs[(c,) + sl]
     return torch.from_numpy(C).to(device)
 
@@ -98,7 +129,8 @@ def stencil_matvec(C: torch.Tensor, u: torch.Tensor, width: int = 3,
     (:mod:`diffnet_tpu_torch.ops.stencil_apply`; on CPU tensors its plain
     version). Width 3 on 2 or 3 spatial axes; leading axes are collapsed into
     the kernel's batch axis, and a C shared by the batch is read with a
-    batch stride of 0."""
+    batch stride of 0. Over a mesh, :class:`SplitStencil` applies C's and
+    u's row blocks."""
     if nsd is None:
         nsd = u.ndim
     if kernel is None:
@@ -113,6 +145,48 @@ def stencil_matvec(C: torch.Tensor, u: torch.Tensor, width: int = 3,
     ub = u.reshape((-1,) + spatial)
     Cb = C.reshape((width ** nsd, -1) + spatial)
     return stencil_apply(Cb, ub, nsd).reshape(u.shape)
+
+
+class SplitStencil:
+    """The apply of an extracted stencil split over a mesh's 'space' axis:
+    C ``[width**nsd, *lead, n_loc, ...]`` is this rank's block along the
+    first spatial axis. A call takes u's block, exchanges ``(width - 1) /
+    2`` halo rows with the neighbours (an edge rank takes its inner halo
+    only: the stencil's zero pad is the domain edge), applies the stencil
+    to the halo'd block (K4 with ``kernel="cuda"``) and keeps its own rows.
+    C's halo rows only feed the halo rows' outputs, which are dropped, so
+    C is padded with zero rows once, here, and not exchanged.
+    Differentiable in u."""
+
+    def __init__(self, C: torch.Tensor, mesh, width: int = 3,
+                 nsd: int | None = None, kernel: str | None = None):
+        check_kernel(kernel)
+        if nsd is None:
+            nsd = C.ndim - 1
+        self.mesh, self.width, self.nsd, self.kernel = mesh, width, nsd, kernel
+        self.halo = (width - 1) // 2
+        axis = C.ndim - nsd
+        self.n = C.shape[axis]
+        self.first = self.halo if mesh.space_neighbour(-1) is not None else 0
+        last = self.halo if mesh.space_neighbour(1) is not None else 0
+        pad = list(C.shape)
+        parts = []
+        for rows in (self.first, 0, last):
+            pad[axis] = rows
+            parts.append(C.new_zeros(pad) if rows else None)
+        parts[1] = C
+        self.C = torch.cat([p for p in parts if p is not None],
+                           dim=axis).contiguous()
+
+    def __call__(self, u: torch.Tensor) -> torch.Tensor:
+        axis = u.ndim - self.nsd
+        if u.shape[axis] != self.n:
+            raise ValueError(f"SplitStencil: u has {u.shape[axis]} rows, "
+                             f"C's block {self.n}")
+        ub = halo_exchange(u, self.mesh, self.halo, axis, zero_edges=False)
+        out = stencil_matvec(self.C, ub.contiguous(), width=self.width,
+                             nsd=self.nsd, kernel=self.kernel)
+        return out.narrow(axis, self.first, self.n)
 
 
 def stencil_diag(C: torch.Tensor, width: int = 3,
@@ -130,44 +204,61 @@ def stencil_diag(C: torch.Tensor, width: int = 3,
 
 def extract_verified(A: Callable, shape, width: int = 3,
                      nsd: int | None = None, probe=None, want=None,
-                     device="cuda"):
+                     device="cuda", mesh=None):
     """:func:`extract_stencil` plus a one-probe defect check.
 
     probe/want: an already evaluated field and its image ``A(probe)``
     (skips one operator application); made here when omitted, from
     ``np.random.default_rng(0).standard_normal`` (the JAX package draws it
-    from ``jax.random.key(0)``: other numbers, the same role).
+    from ``jax.random.key(0)``: other numbers, the same role; over a mesh
+    this rank's block of the global draw).
 
     Returns ``(C, defect)``, ``defect`` the relative L2 mismatch of the
     stencil matvec against ``A`` on the probe: above ~1e-4 the operator is
-    wider than ``width`` or not a stencil.
+    wider than ``width`` or not a stencil. mesh: as for
+    :func:`extract_stencil` (the defect's norms run over the whole field).
     """
     device = resolve_device(device, "extract_verified")
     shape = tuple(int(s) for s in shape)
     if nsd is None:
         nsd = len(shape)
-    C = extract_stencil(A, shape, width=width, nsd=nsd, device=device)
+    split = mesh is not None and mesh.space > 1
+    C = extract_stencil(A, shape, width=width, nsd=nsd, device=device,
+                        mesh=mesh)
     if probe is None:
-        probe = torch.from_numpy(np.random.default_rng(0).standard_normal(
-            shape).astype(np.float32)).to(device)
+        full = list(shape)
+        axis = len(shape) - nsd
+        if split:
+            start, full[axis] = _split_origin(mesh, shape[axis], device)
+        draw = np.random.default_rng(0).standard_normal(full).astype(
+            np.float32)
+        if split:
+            draw = np.take(draw, np.arange(start, start + shape[axis]),
+                           axis=axis)
+        probe = torch.from_numpy(np.ascontiguousarray(draw)).to(device)
         want = None
     if want is None:
         want = A(probe)
-    got = stencil_matvec(C, probe, width=width, nsd=nsd)
-    defect = float(torch.linalg.norm(got - want)
-                   / (torch.linalg.norm(want) + 1e-30))
-    return C, defect
+    if split:
+        got = SplitStencil(C, mesh, width, nsd)(probe)
+    else:
+        got = stencil_matvec(C, probe, width=width, nsd=nsd)
+    norm = _norm(mesh)
+    return C, float(norm(got - want) / (norm(want) + 1e-30))
 
 
 def assemble_stencil(residual_fn: Callable, shape, width: int = 3,
                      nsd: int | None = None, verify: bool = True,
-                     rtol: float = 1e-4, device="cuda"):
+                     rtol: float = 1e-4, device="cuda", mesh=None):
     """Assemble an affine residual ``R(u) = A u - b`` into stencil form.
 
     Returns ``(matvec, b, C)`` with ``matvec(u) == A u`` through
     :func:`stencil_matvec` and ``b = -R(0)``. verify: raise ValueError when
     the stencil's defect on one random field exceeds ``rtol`` (an operator
-    wider than ``width``, or not a stencil)."""
+    wider than ``width``, or not a stencil). mesh: `shape` is this rank's
+    block along the mesh's 'space' axis and `residual_fn` maps blocks to
+    blocks; `b` and `C` are this rank's rows and `matvec` a
+    :class:`SplitStencil`."""
     device = resolve_device(device, "assemble_stencil")
     shape = tuple(int(s) for s in shape)
     if nsd is None:
@@ -178,13 +269,15 @@ def assemble_stencil(residual_fn: Callable, shape, width: int = 3,
         return residual_fn(u) + b
 
     C, defect = extract_verified(A, shape, width=width, nsd=nsd,
-                                 device=device)
+                                 device=device, mesh=mesh)
     if verify and defect > rtol:
         raise ValueError(
             f"operator is not a width-{width} stencil on the trailing "
             f"{nsd} axes (relative defect {defect:.2e}); for deg-d "
             "elements pass width=2*deg+1, and for nonlocal operators "
             "use the matrix-free path")
+    if mesh is not None and mesh.space > 1:
+        return SplitStencil(C, mesh, width, nsd), b, C
 
     def matvec(u):
         return stencil_matvec(C, u, width=width, nsd=nsd)

@@ -43,8 +43,17 @@ optimizer steps on ``module.training_loss``:
     first rank's parameters and, after each backward, all-reduces the
     gradients and the loss over the mesh's 'data' axis as
     ``module.batch_reduction`` says (a sum for a loss that sums over the
-    batch, a mean for one that averages): every rank takes the step the
-    global batch gives, LBFGS's line search and curvature pairs included,
+    batch, a mean for one that averages). For a loss that does not split
+    over the batch (a root of a sum over it: ``batch_reduction =
+    "global"``) the Trainer sums the module's ``training_parts`` over
+    'data' with the differentiable all-reduce and takes
+    ``module.loss_from_parts`` of the sums, so every rank computes the
+    global batch's loss; it then averages the gradients only (each rank's
+    backward carries the all-reduce's ``size('data')`` share, see
+    ``parallel.all_reduce_sum``) and keeps the loss as it is. Validation
+    over a data mesh computes its losses the same way. Every rank takes
+    the step the global batch gives,
+    LBFGS's line search and curvature pairs included,
     and ``nan_guard``, the switch and the callbacks see the same losses on
     every rank. Only the mesh's first rank writes logs and checkpoints
     (give every rank the same ``run_dir``).
@@ -62,7 +71,7 @@ import numpy as np
 import torch
 
 from ..data.loader import NumpyLoader
-from ..parallel.mesh import replicate
+from ..parallel.mesh import all_reduce_sum, replicate
 from ..utils.device import resolve_device
 from .lbfgs import LBFGS
 
@@ -283,11 +292,25 @@ def _data_mesh(loader, module):
     if mesh is None or mesh.data == 1:
         return None, None
     reduction = getattr(module, "batch_reduction", "mean")
-    if reduction not in ("mean", "sum"):
+    if reduction not in ("mean", "sum", "global"):
         raise ValueError(
             f"{type(module).__name__}'s loss does not split over the batch "
             f"(batch_reduction={reduction!r}); it cannot train data-parallel")
     return mesh, reduction
+
+
+def _loss_fn(module, mesh, reduction):
+    """The loss of a batch that a step over `mesh` (None: this process's
+    batch) minimises: ``module.training_loss``, or for ``"global"`` the
+    loss of the module's parts summed over 'data', the global batch's on
+    every rank."""
+    if reduction != "global":
+        return module.training_loss
+
+    def loss_fn(batch):
+        parts = all_reduce_sum(module.training_parts(batch), mesh, "data")
+        return module.loss_from_parts(parts.unbind(0))
+    return loss_fn
 
 
 class _Objective(NamedTuple):
@@ -381,7 +404,8 @@ class Trainer:
     def _all_reduce(self, loss: torch.Tensor, params: list) -> torch.Tensor:
         """With a data mesh: replace this rank's gradients of `params` and
         its loss by the global batch's, in one all-reduce over 'data' (a sum
-        or a mean, as the module's ``batch_reduction``); returns the global
+        or a mean, as the module's ``batch_reduction``; ``"global"``: the
+        mean of the gradients, the loss already global); returns the global
         loss, detached. A parameter that this rank's rows left without a
         gradient gets a zero one, so that every rank reduces the same
         layout. Without a mesh, `loss` as it is."""
@@ -393,14 +417,17 @@ class Trainer:
                 p.grad = torch.zeros_like(p)
             grads.append(p.grad)
         dtype = grads[0].dtype if grads else loss.dtype
+        own_loss = self._reduction == "global"
         flat = torch.cat([g.reshape(-1) for g in grads]
-                         + [loss.detach().reshape(1).to(dtype)])
-        flat = self._mesh.all_reduce(flat, "data", self._reduction)
+                         + ([] if own_loss else
+                            [loss.detach().reshape(1).to(dtype)]))
+        flat = self._mesh.all_reduce(
+            flat, "data", "mean" if own_loss else self._reduction)
         i = 0
         for g in grads:
             g.copy_(flat[i:i + g.numel()].view_as(g))
             i += g.numel()
-        return flat[-1].to(loss.dtype)
+        return loss.detach() if own_loss else flat[-1].to(loss.dtype)
 
     def _step_fn(self, loss_fn, opt, sched, params=None):
         """One optimizer step of ``loss_fn(batch)``. With `params` (a
@@ -468,8 +495,8 @@ class Trainer:
         spec = self.optimizer_spec
         if not self.round_robin:
             self._objectives = [self._objective(
-                spec, module.training_loss, list(module.parameters()), lr,
-                spe, scoped=False)]
+                spec, _loss_fn(module, self._mesh, self._reduction),
+                list(module.parameters()), lr, spe, scoped=False)]
             return
         n_obj = module.num_objectives
         if isinstance(spec, (list, tuple)):
@@ -570,6 +597,11 @@ class Trainer:
         if params is not None:
             module.network.load_state_dict(params)
         self._mesh, self._reduction = _data_mesh(dataloader, module)
+        if self._reduction == "global" and self.round_robin:
+            raise ValueError(
+                "round_robin over a data mesh needs objectives that split "
+                f"over the batch; {type(module).__name__}'s do not "
+                "(batch_reduction='global')")
         lr = self.learning_rate or getattr(module, "learning_rate", 3e-4)
         spe = len(dataloader)
         self._rr_counter = 0
@@ -631,13 +663,13 @@ class Trainer:
                     if v is not None:
                         metrics[f"loss_obj{i}"] = float(v)
                 if val_dataloader is not None:
-                    with torch.no_grad():
-                        vlosses = [module.training_loss(
-                            tuple(t.to(self.device) for t in b))
-                            for b in val_dataloader]
-                    vloss = torch.stack(vlosses).mean()
                     vmesh, vred = _data_mesh(val_dataloader, module)
-                    if vmesh is not None:
+                    vfn = _loss_fn(module, vmesh, vred)
+                    with torch.no_grad():
+                        vlosses = [vfn(tuple(t.to(self.device) for t in b))
+                                   for b in val_dataloader]
+                    vloss = torch.stack(vlosses).mean()
+                    if vmesh is not None and vred != "global":
                         vloss = vmesh.all_reduce(vloss, "data", vred)
                     metrics["val_loss"] = float(vloss)
                 if self.logger and self._writes \

@@ -187,7 +187,7 @@ def k6_at(lib, u, v, p, fx, fy, tb, ty):
     launched(lib.ns_vms_residual(
         u.data_ptr(), v.data_ptr(), p.data_ptr(),
         fx.data_ptr() if has_f else None, fy.data_ptr() if has_f else None,
-        *(o.data_ptr() for o in outs), u.shape[0], u.shape[1], ty,
+        *(o.data_ptr() for o in outs), *u.shape, ty,
         int(has_f), *k6.ns_consts(tb.basis, VISCO), stream()))
     return outs
 
@@ -460,7 +460,7 @@ def time_k6(lib, old, dev, emit) -> None:
         fns["earlier_again"] = fns["earlier"]
         t = cs.cuda_ms(fns)
         emit({"time": "K6", "shape": [B, n, n], "ms": t,
-              "strip": k6.strip_rows(B, n, _build.sm_count(dev)),
+              "strip": k6.strip_rows(B, n, n, _build.sm_count(dev)),
               "bound_ms": cs.bound("ns_vms_residual", (u, v, p) * 2,
                                    (B, n, n))["bound_ms"]})
 

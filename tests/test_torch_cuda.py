@@ -501,6 +501,28 @@ def test_ns_kernel_matches_plain(dev, B, n, aniso, with_f):
             a, b, rtol=0, atol=2e-5 * max(1.0, float(b.abs().max())))
 
 
+K6_BLOCK_SHAPES = [(1, 33, 129, False), (1, 35, 129, False),
+                   (8, 66, 256, False), (2, 9, 32, True), (1, 2, 65, False)]
+
+
+@pytest.mark.parametrize("B,ny,nx,with_f", K6_BLOCK_SHAPES)
+def test_ns_kernel_row_blocks_match_plain(dev, B, ny, nx, with_f):
+    """The split route's entry: halo'd row blocks (ny != nx) of an nx^2
+    grid, with its spacing; the global entry keeps refusing them."""
+    tb = _basis(nx, nx, dev)
+    u, v, p, fx, fy = _fields((B, ny, nx), dev, n=5, seed=ny)
+    if not with_f:
+        fx = fy = None
+    before = k6.launches
+    R = k6.ns_vms_residual(u, v, p, fx, fy, tb, 0.01, square=False)
+    assert k6.launches == before + 1
+    for a, b in zip(R, k6.ns_vms_residual_plain(u, v, p, fx, fy, tb, 0.01)):
+        torch.testing.assert_close(
+            a, b, rtol=0, atol=2e-5 * max(1.0, float(b.abs().max())))
+    with pytest.raises(ValueError):
+        k6.ns_vms_residual(u, v, p, fx, fy, tb, 0.01)
+
+
 @pytest.mark.parametrize("ty", [1, 2, 3, 5, 7, 31])
 @pytest.mark.parametrize("with_f", [False, True])
 def test_ns_kernel_every_strip(dev, ty, with_f):
@@ -518,7 +540,7 @@ def test_ns_kernel_every_strip(dev, ty, with_f):
     assert lib.ns_vms_residual(
         u.data_ptr(), v.data_ptr(), p.data_ptr(),
         fx.data_ptr() if with_f else None, fy.data_ptr() if with_f else None,
-        *(o.data_ptr() for o in outs), B, n, ty, int(with_f),
+        *(o.data_ptr() for o in outs), B, n, n, ty, int(with_f),
         *k6.ns_consts(tb.basis, 0.01),
         torch.cuda.current_stream().cuda_stream) == 0
     for a, b in zip(outs, k6.ns_vms_residual_plain(u, v, p, fx, fy, tb,

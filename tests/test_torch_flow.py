@@ -318,11 +318,11 @@ def test_strip_rows_fill_the_card():
     """K6's strip: the longest that still gives each SM its warps; one
     element row a lane on a grid as small as 129^2."""
     sms = 132
-    assert tnr.strip_rows(8, 512, sms) == 7
-    assert tnr.strip_rows(8, 256, sms) == 5
-    assert tnr.strip_rows(1, 129, sms) == tnr.STRIPS[-1] == 1
+    assert tnr.strip_rows(8, 512, 512, sms) == 7
+    assert tnr.strip_rows(8, 256, 256, sms) == 5
+    assert tnr.strip_rows(1, 129, 129, sms) == tnr.STRIPS[-1] == 1
     for B, n in ((1, 65), (2, 257), (4, 1000)):
-        ty = tnr.strip_rows(B, n, sms)
+        ty = tnr.strip_rows(B, n, n, sms)
         cols = B * -(-n // tnr.COLS)
         assert all(cols * -(-n // (tnr.WARPS * t - 1)) * tnr.WARPS
                    < tnr.MIN_WARPS_PER_SM * sms

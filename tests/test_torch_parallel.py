@@ -12,7 +12,9 @@ terms as one process in another order (four partial sums, then an
 all-reduce): losses at rtol 1e-5 and parameters after one Adam step at
 atol 1e-6 (an Adam step moves each parameter by ~lr = 1e-3 times
 g / |g|, which rounding moves by ~1e-7 of it); the global gradient (one SGD
-step at lr 1) at 1e-5 of its largest entry; the field after a 10-iteration
+step at lr 1) at 1e-5 of its largest entry; the all-reduced gradient of
+the Adam step entry by entry at 1e-6 of its L2 norm (3.8e-6 apart at most
+here, at 1e-8 of the norm it fails); the field after a 10-iteration
 LBFGS epoch at 1e-4 of its largest entry (its line searches amplify the
 rounding). Against the JAX package the same tolerances hold, its gradients
 summed by XLA.
@@ -38,6 +40,7 @@ from tests import torch_parallel_ranks as ranks
 
 WORLD = 4
 N_IBN, B_IBN = 32, 8
+GRAD_RTOL = 1e-6   # the all-reduced gradient, of its L2 norm
 N_RES, B_RES = 17, 8
 
 
@@ -170,12 +173,13 @@ def _numpy_state(d):
 @pytest.fixture(scope="module")
 def adam_refs(run):
     """One Adam step on the global batch: the port in one process, and the
-    JAX package (value_and_grad and optax.adam) from the same weights."""
+    JAX package (value_and_grad and optax.adam) from the same weights;
+    each ``(state, loss)``, and the step's gradient."""
     p, _ = run
     net = UNet(3, 1, base_filters=4)
     net.load_state_dict(p["unet_state"])
-    single = ranks.fit_once(ranks.ibn_module(net, N_IBN, B_IBN),
-                            p["ibn_inputs"], p["ibn_forcing"],
+    m = ranks.ibn_module(net, N_IBN, B_IBN)
+    single = ranks.fit_once(m, p["ibn_inputs"], p["ibn_forcing"],
                             optimizer="adam", learning_rate=1e-3)
     jm = JIBNPoisson2D(JUNet(out_channels=1, base_filters=4),
                        source_from="inputs", domain_size=N_IBN,
@@ -188,14 +192,17 @@ def adam_refs(run):
     upd, _ = opt.update(grads, opt.init(params), params)
     new = optax.apply_updates(params, upd)
     jstate = params_from_jax(jax.tree.map(np.asarray, new))
-    return single, (_numpy_state(jstate), float(loss))
+    jgrad = params_from_jax(jax.tree.map(np.asarray, grads["params"]))
+    return ((single, (_numpy_state(jstate), float(loss))),
+            {"single_process": ranks.grads_of(m),
+             "jax": _numpy_state(jgrad)})
 
 
 @pytest.mark.parametrize("ref", ["single_process", "jax"])
 def test_data_parallel_adam_step_of_ibn2d(run, adam_refs, ref):
     """A mean-reduced loss: 2 rows a rank, every rank ends on the global
     batch's step (every rank but the first started from other weights)."""
-    single, jax_ref = adam_refs
+    (single, jax_ref), _ = adam_refs
     state, loss = single if ref == "single_process" else jax_ref
     _, out = run
     for s in range(WORLD):
@@ -204,6 +211,23 @@ def test_data_parallel_adam_step_of_ibn2d(run, adam_refs, ref):
         for k, v in state.items():
             np.testing.assert_allclose(got_state[k], v, rtol=0, atol=1e-6,
                                        err_msg=k)
+
+
+@pytest.mark.parametrize("ref", ["single_process", "jax"])
+def test_data_parallel_adam_gradient_of_ibn2d(run, adam_refs, ref):
+    """The all-reduced gradient of that Adam step, entry by entry, within
+    GRAD_RTOL of the global gradient's norm (the step itself moves each
+    entry by ~lr whatever its gradient's size, so the gradient is what
+    holds the all-reduce entry by entry)."""
+    _, grads = adam_refs
+    want = grads[ref]
+    norm = np.sqrt(sum(float((g.astype(np.float64) ** 2).sum())
+                       for g in want.values()))
+    _, out = run
+    for s in range(WORLD):
+        for k, g in want.items():
+            np.testing.assert_allclose(out[s]["adam_grad"][k], g, rtol=0,
+                                       atol=GRAD_RTOL * norm, err_msg=k)
 
 
 @pytest.fixture(scope="module")
@@ -259,11 +283,37 @@ def test_data_parallel_lbfgs_epoch_matches_one_process(run, resmin_refs):
             "field"])
 
 
+def _dryrun_ns_objective():
+    """The dry run's workload (b) in one process: its draws, in its order
+    (after workload (a)'s), the whole 16^2 fields of both samples."""
+    import torch
+
+    from diffnet_tpu_torch.data import NSLDCDataset
+    from diffnet_tpu_torch.pde import NavierStokes
+
+    rng = np.random.default_rng(0)
+    rng.random((4, 32, 32, 3))
+    rng.random((4, 32, 32, 1))
+    n = 16
+    ds = NSLDCDataset(domain_sizes=(n, n), Re=100)
+    m = NavierStokes(None, ds, domain_size=n, batch_size=2, Re=100)
+    fields = [torch.tensor(rng.random((2, n, n)).astype(np.float32) * 0.1)
+              for _ in range(3)]
+    R = m.calc_residuals(tuple(fields), torch.tensor(
+        np.asarray(ds[0][0], np.float32)[None]), None)
+    return float(sum((r.double() ** 2).sum() for r in R))
+
+
 def test_dryrun_multigpu_on_the_cpu():
     """The dry run's four workloads over its own spawn of 4 gloo ranks: a
-    2 x 2 mesh, finite losses, the sharded CG below JAX's 1e-2."""
+    2 x 2 mesh, finite losses, the sharded CG below JAX's 1e-2, and
+    workload (b) split over data and space (8-row blocks of one sample a
+    rank) with the objective of one process on the whole fields."""
     r = dryrun_multigpu(WORLD, device="cpu", timeout=120.0, threads=1)
     assert (r["data"], r["space"], r["backend"]) == (2, 2, "gloo")
     assert r["cg_rel_res"] < 1e-2
     assert all(np.isfinite(r[k]) for k in ("loss", "ns_loss", "ibn3d_loss"))
     assert r["ibn3d_batch"] == 16
+    assert r["ns_block"] == [1, 8, 16]
+    np.testing.assert_allclose(r["ns_loss"], _dryrun_ns_objective(),
+                               rtol=1e-5)

@@ -82,6 +82,13 @@ def fit_once(module, inputs, forcing, mesh=None, **trainer_kw):
             tr.step_losses[0])
 
 
+def grads_of(module) -> dict:
+    """The gradients a fit's last step left on the module's network: after
+    a one-step fit, that step's (over a mesh, all-reduced)."""
+    return {k: v.grad.numpy().copy()
+            for k, v in module.network.named_parameters()}
+
+
 def parallel_rank(rank: int, world: int, p: dict) -> dict:
     out = {}
     mesh = make_mesh(data=1, space=world)
@@ -109,9 +116,10 @@ def parallel_rank(rank: int, world: int, p: dict) -> dict:
     net.load_state_dict(p["unet_state"] if rank == 0 else
                         {k: torch.randn_like(v)
                          for k, v in net.state_dict().items()})
-    out["adam"] = fit_once(ibn_module(net, n, bs), p["ibn_inputs"],
-                           p["ibn_forcing"], dmesh, optimizer="adam",
-                           learning_rate=1e-3)
+    m = ibn_module(net, n, bs)
+    out["adam"] = fit_once(m, p["ibn_inputs"], p["ibn_forcing"], dmesh,
+                           optimizer="adam", learning_rate=1e-3)
+    out["adam_grad"] = grads_of(m)
     # a DirectField resmin fit (a loss summed over the batch): one SGD step
     # at lr 1 (the global gradient) and one 10-iteration LBFGS epoch
     n, bs = p["res_inputs"].shape[1], p["res_inputs"].shape[0]
