@@ -161,6 +161,12 @@ class Down(nn.Module):
         self.dropout = dropout
 
     def forward(self, x, train: bool = False):
+        if min(x.shape[2:]) < 2:
+            # flax pads (1, 1): an axis of one node gives an empty map
+            # (an 8-node side reaches the fifth Down of a U-Net at 16)
+            return x.new_zeros(x.shape[:1] + (self.Conv_0.out_channels,)
+                               + tuple(max(0, (s - 2) // 2 + 1)
+                                       for s in x.shape[2:]))
         x = self.Conv_0(x)
         if self.normalize:
             x = _norm(x)
@@ -181,7 +187,14 @@ class Up(nn.Module):
         self.dropout = dropout
 
     def forward(self, x, skip, train: bool = False):
-        x = F.relu(_norm(self.ConvTranspose_0(x)))
+        if x.numel() == 0:
+            # flax's transposed conv of an empty map: zeros, one node on
+            # an axis of none
+            x = x.new_zeros(x.shape[:1] + (self.ConvTranspose_0.out_channels,)
+                            + tuple(2 * s or 1 for s in x.shape[2:]))
+        else:
+            x = self.ConvTranspose_0(x)
+        x = F.relu(_norm(x))
         if self.dropout:
             x = F.dropout(x, self.dropout, training=train)
         return torch.cat([x, skip], dim=1)

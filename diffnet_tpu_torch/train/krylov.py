@@ -27,6 +27,15 @@ held, which is what JAX's ``while_loop`` returns. Otherwise the loop reads
 one scalar per iteration (per restart cycle for gmres) to stop. Operators
 ``A`` and ``M`` map a tensor of ``b``'s shape to one of the same shape.
 The solves do not differentiate (they run under ``torch.no_grad``).
+
+On CUDA tensors without a mesh, ``gmres`` runs each Arnoldi step's
+``M(A(v))`` as one CUDA graph replay (:class:`CudaGraphed`: the first step
+runs it eagerly and captures it, the later ones replay), since the host
+work of the flow path's Jacobian action and multigrid preconditioner
+dwarfs their device work. ``A`` and ``M`` must then read nothing back to
+the host (a read raises at the capture) and keep no Python state that a
+replay should update: a replay runs the captured kernels, not the Python
+code.
 """
 
 from __future__ import annotations
@@ -35,7 +44,81 @@ from typing import Callable
 
 import torch
 
-__all__ = ["cg", "bicgstab", "gmres"]
+__all__ = ["cg", "bicgstab", "gmres", "CudaGraphed"]
+
+
+def _launch_counters() -> list:
+    """``(module, name)`` of every kernel launch count of the op modules
+    (``launches``; ``launches_3d`` beside it in ``stencil_apply``)."""
+    from ..ops import (ns_residual, poisson_energy, poisson_loss_grad,
+                       poisson_residual, poisson_residual_3d, stencil_apply)
+    return [(m, name) for m in (poisson_residual, poisson_loss_grad,
+                                poisson_energy, stencil_apply,
+                                poisson_residual_3d, ns_residual)
+            for name in vars(m) if name.startswith("launches")]
+
+
+class CudaGraphed:
+    """``fn`` (a tensor to a tensor of fixed shapes, no host reads, every
+    kernel on the current stream) as a CUDA graph for inputs of the first
+    call's shape and type (another raises): the first call runs it
+    eagerly on a side stream (the warm-up capture needs), which also
+    captures it; every later call copies its input into the graph's and
+    replays. A kernel the graph holds adds to its op's launch count at
+    each replay, as its wrapper does at an eager call (the capture
+    itself launches nothing, so it counts nothing). Returns a fresh
+    tensor. CPU tensors, and a call while another graph is being captured,
+    run ``fn`` as it is.
+
+    Python code in ``fn`` runs at the first call only: a replay repeats its
+    kernels, not its side effects (a counter in ``fn`` counts the capture
+    alone). A host read in ``fn`` (``.item()``, ``float()``, a branch on a
+    tensor's value) raises RuntimeError at the capture."""
+
+    def __init__(self, fn: Callable):
+        self.fn = fn
+        self.graph = None
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        if not x.is_cuda or torch.cuda.is_current_stream_capturing():
+            # inside another capture fn's kernels join that graph
+            return self.fn(x)
+        if self.graph is not None:
+            if (x.shape, x.dtype, x.device) != (self.x.shape, self.x.dtype,
+                                                self.x.device):
+                raise ValueError(f"CudaGraphed: captured for "
+                                 f"{tuple(self.x.shape)} {self.x.dtype}, "
+                                 f"called with {tuple(x.shape)} {x.dtype}")
+            self.x.copy_(x)
+            self.graph.replay()
+            for (mod, name), n in self.counts:
+                setattr(mod, name, getattr(mod, name) + n)
+            return self.y.clone()
+        counters = _launch_counters()
+        side = torch.cuda.Stream(x.device)
+        side.wait_stream(torch.cuda.current_stream(x.device))
+        with torch.cuda.stream(side):
+            out = self.fn(x)
+            self.x = x.clone()
+        torch.cuda.current_stream(x.device).wait_stream(side)
+        before = [getattr(m, name) for m, name in counters]
+        self.graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(self.graph):
+                self.y = self.fn(self.x)
+        except RuntimeError as e:
+            self.graph = None
+            raise RuntimeError(
+                "CudaGraphed: the operator could not be captured as a CUDA "
+                "graph; it must launch kernels only, on the current stream, "
+                "and read nothing back to the host (no .item(), float() or "
+                f"branch on a tensor's value): {e}") from e
+        self.counts = []
+        for (m, name), b in zip(counters, before):
+            if getattr(m, name) != b:
+                self.counts.append(((m, name), getattr(m, name) - b))
+                setattr(m, name, b)
+        return out
 
 
 def _vdot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -195,12 +278,13 @@ def _lstsq_pos(a: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 
 def _gmres_batched(A, M, b, x, unit_residual, residual_norm, restart,
-                   mesh=None):
+                   mesh=None, MA=None):
     """One restart: ``restart`` Arnoldi steps (classical Gram-Schmidt, one
     pass, as JAX's two-pass routine exits after one), then the projected
     least-squares problem. Returns the new x and its normalised
     preconditioned residual. `mesh`: the vectors are blocks along its
-    'space' axis; the projections and norms are all-reduced over it."""
+    'space' axis; the projections and norms are all-reduced over it. `MA`:
+    ``M(A(.))`` for the Arnoldi steps (a :class:`CudaGraphed`)."""
     n = b.numel()
     dtype, dev = b.dtype, b.device
     norm = _norm(mesh)
@@ -210,8 +294,11 @@ def _gmres_batched(A, M, b, x, unit_residual, residual_norm, restart,
     H = torch.eye(restart, restart + 1, dtype=dtype, device=dev)
     eps = torch.finfo(dtype).eps
     broke = torch.zeros((), dtype=torch.bool, device=dev)
+    if MA is None:
+        def MA(u):
+            return M(A(u))
     for k in range(restart):
-        v = M(A(V[k].reshape(b.shape))).reshape(-1)
+        v = MA(V[k].reshape(b.shape)).reshape(-1)
         _, v_norm_0 = _safe_normalize(v, norm=norm)
         h = V @ v
         if split:
@@ -240,7 +327,9 @@ def gmres(A: Callable, b: torch.Tensor, x0: torch.Tensor | None = None, *,
           mesh=None):
     """Restarted GMRES, JAX's ``solve_method='batched'`` (the one the JAX
     package uses); ``maxiter`` counts restart cycles. `mesh`: the vectors
-    are blocks along its 'space' axis."""
+    are blocks along its 'space' axis. On CUDA tensors without a mesh each
+    Arnoldi step's ``M(A(v))`` is one CUDA graph replay (see the module
+    docstring for what A and M must then keep to)."""
     x0, maxiter, Mf = _setup(b, x0, maxiter, M)
     norm = _norm(mesh)
     numel = b.numel()
@@ -250,6 +339,8 @@ def gmres(A: Callable, b: torch.Tensor, x0: torch.Tensor | None = None, *,
     restart = min(int(restart), numel)
     atol_ = torch.clamp(tol * norm(b), min=atol)
     k0 = torch.zeros((), dtype=torch.int64, device=b.device)
+    MA = (CudaGraphed(lambda u: Mf(A(u)))
+          if b.is_cuda and mesh is None else None)
 
     def cond(s):
         _, k, _, rnorm = s
@@ -258,7 +349,7 @@ def gmres(A: Callable, b: torch.Tensor, x0: torch.Tensor | None = None, *,
     def body(s):
         x, k, unit, rnorm = s
         x, unit, rnorm = _gmres_batched(A, Mf, b, x, unit, rnorm, restart,
-                                        mesh)
+                                        mesh, MA)
         return x, k + 1, unit, rnorm
 
     unit0, rnorm0 = _safe_normalize(Mf(b - A(x0)), norm=norm)

@@ -114,6 +114,13 @@ def solve_linear(residual_fn: Callable, shape, method: str = "cg",
         ``stencil_kernel='cuda'``). Returns this rank's block of the
         solution.
 
+    gmres on a card without a mesh replays each Arnoldi step's
+    ``M(A(v))`` as one CUDA graph (:func:`krylov.gmres`), and so does the
+    multigrid V-cycle (:func:`multigrid_preconditioner`): the residual and
+    M must then read nothing back to the host (a read raises RuntimeError
+    at the capture) and keep no Python state that each call should update
+    (a replay repeats the captured kernels, not the Python code).
+
     Returns ``(u, info)`` as the Krylov solver does. Raises ValueError if
     the residual is not affine (one extra residual evaluation at a random
     field, to float tolerance).
@@ -300,12 +307,25 @@ def _full_weight_halve(a, nsd):
     return a[sl].astype(np.float32)
 
 
-def _restriction(coarse_shape, fine_shape, device) -> Callable:
-    """The exact adjoint of ``prolong_field(., fine_shape)``: its VJP at
-    zero (the prolongation is linear, so one VJP serves every call)."""
-    _, vjp = torch.func.vjp(lambda c: prolong_field(c, fine_shape),
-                            torch.zeros(coarse_shape, device=device))
-    return lambda r: vjp(r)[0]
+def _restriction(coarse_shape, fine_shape) -> Callable:
+    """The exact adjoint of ``prolong_field(., fine_shape)``: the backward
+    op of its interpolation, the one its VJP runs, called directly (so it
+    runs on the current stream, which a CUDA graph can capture, and not
+    in the autograd engine's thread)."""
+    coarse_shape = tuple(int(s) for s in coarse_shape)
+    fine_shape = tuple(int(s) for s in fine_shape)
+    nsd = len(fine_shape)
+    op = (torch.ops.aten.upsample_bilinear2d_backward if nsd == 2
+          else torch.ops.aten.upsample_trilinear3d_backward)
+    scales = (None,) * nsd
+
+    def R(r):
+        lead = r.shape[:-nsd]
+        g = r.reshape((-1, 1) + fine_shape)
+        out = op(g, list(fine_shape), [g.shape[0], 1, *coarse_shape], True,
+                 *scales)
+        return out.reshape(lead + coarse_shape)
+    return R
 
 
 def _restricted_inputs(fine_inputs, fine_forcing, ns, nsd) -> dict:
@@ -394,7 +414,12 @@ def multigrid_preconditioner(module_factory, n_fine, n_coarse: int = 9,
     The prolongation is ``train.continuation.prolong_field``, the
     restriction its exact adjoint, the coarsest level a dense
     pseudo-inverse (``rcond=1e-5``, numpy on the host) built by probing,
-    applied as a matmul. Returns ``(M, info)``.
+    applied as a matmul. On a card without a mesh ``M`` is one CUDA graph
+    of the whole V-cycle (``krylov.CudaGraphed``: the first call runs and
+    captures it, later ones replay it), one launch from the host for its
+    hundreds of small kernels: a `fine_matvec` must then read nothing back
+    to the host (a read raises RuntimeError at the capture). Returns
+    ``(M, info)``.
     """
     if smoother not in ("chebyshev", "jacobi"):
         raise ValueError(f"unknown smoother {smoother!r} "
@@ -446,7 +471,7 @@ def multigrid_preconditioner(module_factory, n_fine, n_coarse: int = 9,
             fine_shape = shapes[li - 1]
 
             def A(u, A_prev=ops[-1], fs=fine_shape,
-                  R=_restriction(shape, fine_shape, device)):
+                  R=_restriction(shape, fine_shape)):
                 return R(A_prev(prolong_field(u, fs)))
         else:
             m = module_factory(n).to(device)
@@ -523,7 +548,7 @@ def multigrid_preconditioner(module_factory, n_fine, n_coarse: int = 9,
                 return stencil_matvec(C, u, kernel=stencil_kernel)
             ops[li] = op
 
-    restricts = [_restriction(shapes[li + 1], shapes[li], device)
+    restricts = [_restriction(shapes[li + 1], shapes[li])
                  for li in range(len(ns) - 1)]
 
     def smooth(level, u, b, k):
@@ -589,6 +614,8 @@ def multigrid_preconditioner(module_factory, n_fine, n_coarse: int = 9,
     def M(v):
         return vcycle(0, v)
 
+    if not split_mesh and torch.device(device).type == "cuda":
+        M = krylov.CudaGraphed(M)
     return M, {"levels": ns, "omegas": omegas, "smoother": smoother,
                "split_levels": split_levels}
 
@@ -644,7 +671,7 @@ class _SplitCycle:
                 cshape = (nc,) + tuple(shapes[li + 1][1:])
                 fshape = (2 * nc - 1,) + tuple(shapes[li][1:])
                 self._restrict_local.append(
-                    _restriction(cshape, fshape, device))
+                    _restriction(cshape, fshape))
             else:
                 self._restrict_local.append(None)
 
@@ -872,7 +899,12 @@ def newton_solve(residual_fn, x0, M=None, newton_iters=20, tol=1e-6,
     each step globalised by a backtracking line search on |F| (8 halvings,
     sufficient decrease 1e-4). ``lm0 > 0`` adds Levenberg damping
     ``(J + lam I) dx = -F``, lam x0.3 after a full step and x10 (at least
-    lm0) after a failed search, stopping above 1e4.
+    lm0) after a failed search, stopping above 1e4. On a card each
+    direction's Arnoldi steps replay ``M(J v)`` as one CUDA graph
+    (:func:`krylov.gmres`): the residual and M must read nothing back to
+    the host (a read raises RuntimeError at the capture), and the Python
+    code in them runs at each direction's capture, not at each step (a
+    counter of residual calls inside them counts captures).
 
     Returns ``(x, info)``: ``info['residual_history']`` (|F| per outer
     iteration, ending at the returned iterate) and ``info['newton_iters']``
@@ -947,6 +979,9 @@ def ns_newton_solve(module, inputs_tensor=None, newton_iters=20, tol=1e-6,
     ``momentum_reaction="auto"`` shifts the momentum multigrid by
     ``sigma = max |u_bc|, |v_bc| / h`` (needed near Re 1000, with
     ``lm0=1e-3``); a number sets sigma; 0 keeps the viscous multigrid.
+    On a card each GMRES step's preconditioned Jacobian action is one CUDA
+    graph replay (:func:`newton_solve`): the host launches its ~10^3
+    kernels once a Newton direction, not once a step.
     Returns ``((u, v, p)`` numpy nodal fields with Dirichlet data and the
     pressure gauge restored, ``info)`` as :func:`newton_solve`.
     """

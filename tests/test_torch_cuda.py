@@ -32,7 +32,10 @@ field gradient, and a float64 Gauss-Newton step's losses at 1e-12 of the
 first and its field at 1e-6 of its largest value; slice M's topology
 optimisation through K1 against the CPU route, its first compliance at
 1e-5 and its second at 1e-4 relative, and its immersed energies through
-K3 and K1 at 1e-5 of the plain loss and of the largest field gradient.
+K3 and K1 at 1e-5 of the plain loss and of the largest field gradient;
+the CUDA-graph replays of the V-cycle (at the fields' tolerance) and of
+GMRES on the NS Jacobian (at its tol, 1e-4 of max |dx|) against their
+eager runs, each with the eager run's kernel counts.
 """
 
 import numpy as np
@@ -934,3 +937,113 @@ def test_spatial_kernels_over_four_ranks_match_the_unsharded(dev, shapes,
             assert res["launches"][0 if len(shape) == 3 else 1] > 0
             for err, scale in res["errs"]:
                 assert err <= 2e-6 * max(1.0, scale), (shape, err, scale)
+
+
+@pytest.mark.parametrize("nsd", [2, 3], ids=["2d-k1", "3d-k4"])
+def test_graphed_vcycle_equals_the_eager_one(dev, nsd):
+    """On a card the V-cycle is a CUDA graph: its first call runs eagerly
+    and captures it, later calls replay it. A replay on a vector gives the
+    eager call's output on it, and counts the kernels' launches as the
+    eager call does: K1 on the 2D fine level (``fine_matvec``), K4-3D's
+    own count on the assembled 3D levels (``stencil_kernel='cuda'``)."""
+    from diffnet_tpu_torch.examples.poisson_mms_2d import (linear_op,
+                                                           mms_module)
+
+    if nsd == 2:
+        n, mod, name = 65, k1, "launches"
+        kw = {"fine_matvec": linear_op(mms_module(n, 1, "resmin", True),
+                                       dev)}
+
+        def factory(m):
+            return mms_module(m, 1, "resmin", init=False)
+    else:
+        n, mod, name = 17, k4, "launches_3d"
+        kw = {"nsd": 3, "stencil_kernel": "cuda"}
+
+        def factory(m):
+            ds = CuboidManufactured(m)
+            ds.n_samples = 1
+            return Poisson3D(DirectField((m,) * 3), ds, domain_size=m,
+                             batch_size=1, loss_type="resmin")
+
+    M, _ = multigrid_preconditioner(factory, n, n_coarse=5, device=dev,
+                                    **kw)
+    vs = _fields((n,) * nsd, dev, n=3, seed=5)
+    k0 = getattr(mod, name)
+    want = M(vs[0])             # eager, and captured
+    eager = getattr(mod, name) - k0
+    assert eager > 0 and M.graph is not None
+    for v in (vs[1], vs[0], vs[2]):
+        k0 = getattr(mod, name)
+        M(v)
+        assert getattr(mod, name) - k0 == eager
+    _field_close(M(vs[0]), want)
+
+
+def test_gmres_graph_equals_eager_on_the_ns_jacobian(dev, monkeypatch):
+    """krylov.gmres on the card, as newton_solve runs it: one Newton
+    direction of the 33^2 cavity through K6, its preconditioned Jacobian
+    action replayed as a CUDA graph, against the eager GMRES (CudaGraphed
+    swapped for a pass-through) within its tolerance 1e-4, with K6's
+    launches counted alike (to one restart cycle: a rounding-level
+    difference in a norm may end GMRES a cycle apart)."""
+    from diffnet_tpu_torch.train import krylov, stokes_block_preconditioner
+    from diffnet_tpu_torch.train.linear import _Stacked
+
+    n = 33
+    ds = NSLDCDataset(domain_sizes=(n, n), Re=100.0)
+    ds.n_samples = 1
+    u_bc, v_bc, p_bc = ldc_bcs((n, n))
+    m = NavierStokes(None, ds, domain_size=n, batch_size=1, Re=100.0,
+                     u_bc=u_bc, v_bc=v_bc, p_bc=p_bc,
+                     fused_kernels=True).to(dev)
+    inputs = torch.from_numpy(ds[0][0])[None].to(dev)
+    st = _Stacked(("u", "v", "p"))
+
+    def F(f):
+        R = m.mixed_residual({k: a[None] for k, a in f.items()}, inputs,
+                             None)
+        return {k: a[0] for k, a in R.items()}
+
+    F, M = st.wrap(F), st.wrap(stokes_block_preconditioner(m, device=dev))
+    x = torch.zeros((3, n, n), device=dev)
+    Fx = F(x)
+
+    def Jv(v):
+        return torch.func.jvp(F, (x,), (v,))[1]
+
+    out = []
+    for graphed in (False, True):
+        with monkeypatch.context() as mp:
+            if not graphed:
+                mp.setattr(krylov, "CudaGraphed", lambda fn: fn)
+            k0 = k6.launches
+            dx, _ = krylov.gmres(Jv, -Fx, M=M, tol=1e-4, maxiter=40,
+                                 restart=10)
+            out.append((dx, k6.launches - k0))
+    (de, ke), (dg, kg) = out
+    assert kg > 0 and abs(kg - ke) <= 11
+    # within GMRES's own tolerance: the restriction adds with atomics, so
+    # neither run is bit-reproducible
+    assert float((dg - de).abs().max()) <= 1e-4 * float(de.abs().max())
+
+
+def test_a_host_read_in_a_graphed_operator_raises(dev):
+    """A GMRES operator that reads a value back to the host cannot be
+    replayed as a CUDA graph: gmres raises at the capture, naming the rule,
+    rather than replaying a branch the host took once; the card runs on
+    after it."""
+    from diffnet_tpu_torch.train import gmres
+
+    g = torch.Generator().manual_seed(3)
+    A = (torch.randn(16, 16, generator=g) + 8 * torch.eye(16)).to(dev)
+    b = torch.randn(16, generator=g).to(dev)
+
+    def reads_back(v):
+        return A @ v if float(v.norm()) > 0 else v
+
+    with pytest.raises(RuntimeError, match="read nothing back to the host"):
+        gmres(reads_back, b, restart=4, maxiter=5)
+    x, _ = gmres(lambda v: A @ v, b, restart=4, maxiter=5)
+    want = torch.linalg.solve(A, b)
+    assert float((x - want).abs().max()) <= 1e-4 * float(want.abs().max())
