@@ -217,14 +217,9 @@ exits non-zero (it also does so, printing no result, without CUDA):
         x 32 resmin as 8 rows a rank, 10 Adam steps through
         ``Trainer.fit``: K2 once a step on each rank, the losses within
         1e-5 of one process's on the batch of 32, the gradient
-        all-reduce's ms. N4 slice I's 3D IBN (UNet3D(16) from
-        ``seeded_params``, 32^3) at 8 rows a rank, 5 Adam steps: the
-        losses within 1e-4 of one process's on the batch of 32, the
-        all-reduced gradient of step 1 entry by entry within 1e-5 of its
-        L2 norm of one process's, the parameters after step 1
-        (N4_PARAM_*), steps/s and peak memory a rank. Then
-        ``dryrun_multigpu(4)`` (its workload (b) split over data and
-        space).
+        all-reduce's ms. Then ``dryrun_multigpu(4)`` (its workloads (a),
+        (b) and (d) split over data and space). (Slice I's UNet3D(16)
+        over ranks is Q2's, over data x space.)
      O. the split solvers, the split NS residual and the root-norm losses
         over 4 ranks, as slice N's group runs (``slice_o_rank``), each
         against one process on the same card: O1 slice D's 513^2
@@ -243,6 +238,20 @@ exits non-zero (it also does so, printing no result, without CUDA):
         losses within 1e-5 and step 1's all-reduced gradient within 1e-5
         of its largest entry. Beside each: the split call's ms and its
         exchange or all-reduce share (host clock).
+     Q. the U-Nets and the IBN energy split over 'space' (``UNet(mesh=)``,
+        ``IBNPoisson2D(mesh=)``, the loader's ``space_axis``), 4 ranks as
+        slice N's group runs (``slice_q_rank``), each path from
+        ``seeded_params`` against one process on the same card, TF32 off:
+        Q1 IBNPoisson2D(source_from="inputs") with the JAX CLI's
+        UNet(base_filters=16) on a 256^2 image ensemble, data 1 x space 4,
+        batch 4, 5 Adam steps (every level on row blocks); Q2 slice I's
+        UNet3D(16) IBNPoisson3D at 32^3, data 2 x space 2, 8 a data rank,
+        5 Adam steps (the fifth Down gathered). Each: the losses within
+        1e-4 of one process's, step 1's gradient entry by entry within
+        1e-5 of its L2 norm, the parameters after step 1 (Q_PARAM_*), a
+        warm step's ms split and in one process, the share of the split
+        step in the halo exchanges and the norms' and energy's
+        all-reduces, and the peak memory a rank.
      P. the entry points: the port's example CLIs
         (``diffnet_tpu_torch.examples``) in-process through ``main(argv)``,
         their stdout kept, each entry one line with its figures, seconds
@@ -269,7 +278,9 @@ exits non-zero (it also does so, printing no result, without CUDA):
         best) the trained ones; P6 every other CLI and physics once, at
         tests/test_examples_smoke.py's argv (ns_fps and
         eikonal_parametric at examples/run_all.sh's): each finishes and
-        writes its artifacts, its seconds recorded.
+        writes its artifacts, its seconds recorded (helmholtz, allen-cahn
+        and the 2D eikonal at their training argvs only, and no 17^2
+        ldc_validation: slices L and P4 run those solvers).
   16. resident steps: steps/s of the 512^2 x 32 training steps with the
      batch on the card (fused and unfused) and of G3's NS step; 10 steps
      of each fused 512^2 x 32 loss (K2's, K3's) under ``torch.profiler``:
@@ -303,7 +314,8 @@ import time
 import numpy as np
 import torch
 import torch.distributed as dist
-from torch.optim.optimizer import register_optimizer_step_pre_hook
+from torch.optim.optimizer import (register_optimizer_step_post_hook,
+                                   register_optimizer_step_pre_hook)
 
 from diffnet_tpu_torch.core import fem
 from diffnet_tpu_torch.core.geometry import (occupancy_from_cloud,
@@ -327,7 +339,7 @@ from diffnet_tpu_torch.interop import (flax_shapes, params_from_jax,
                                        seeded_params)
 from diffnet_tpu_torch.models import (AE, DGCNN2D, DirectField,
                                       GoodNetwork, ImmDiffLargeNormals,
-                                      UNet3D, knn_indices)
+                                      UNet, UNet3D, knn_indices)
 from diffnet_tpu_torch.ops import _build
 from diffnet_tpu_torch.ops import ns_residual as k6
 from diffnet_tpu_torch.ops import poisson_energy as k3
@@ -343,6 +355,7 @@ from diffnet_tpu_torch.parallel import (all_reduce_sum, gather_block,
                                         poisson_stiffness_spatial_fused,
                                         poisson_stiffness_spatial_fused_3d,
                                         rank_device, run_ranks)
+from diffnet_tpu_torch.parallel import mesh as mesh_mod
 from diffnet_tpu_torch.parallel.dryrun import dryrun_multigpu
 from diffnet_tpu_torch.pde import (AdvDiff2D, AllenCahnIceMelt,
                                    BurgersSpaceTime, Eikonal2D, Eikonal3D,
@@ -561,7 +574,14 @@ FLOPS = {"poisson_stiffness_action": (49, 0),      # (a element, a node)
          "ns_vms_residual": (532, 9)}
 
 
+_START = time.perf_counter()   # the phases' lines carry seconds since it
+
+
 def emit(obj: dict) -> None:
+    """One JSON line; a phase's also carries ``t_s``, the script's seconds
+    so far (where the time limit goes)."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - _START}
     print(json.dumps(obj), flush=True)
 
 
@@ -3215,25 +3235,6 @@ N_CG_ATOL = 2e-5
 N_CG_RELRES_RTOL = 1e-4
 N3_LOSS_RTOL = 1e-5   # N3's losses against one process: the K2 batch sum
 #                       in another order (4 partial sums; on the CPU 9.5e-8)
-N4_STEPS = 5
-N4_LOSS_RTOL = 1e-4   # N4's losses against one process: the batch of 32
-#                       against 4 of 8 changes the convolutions' sums, and
-#                       Adam carries it on (on the CPU 1.5e-7)
-# Parameters after the first Adam step (lr 1e-3, each moves lr g/(|g|+eps),
-# less than lr): within N4_PARAM_ATOL but for at most N4_PARAM_FRACTION of
-# them. Where a gradient entry sits at rounding level (~1e-8, sums of O(1)
-# terms that cancel) next to Adam's eps (1e-8), its rounding changes the
-# step by up to ~lr, so no bound on the largest difference below 2 lr
-# holds: on the CPU 4 of 4.2M entries moved more than 1e-6 (at most
-# 1.3e-5), on the card 5 and 6 (at most 1.7e-5 and 6.6e-4 in two runs). A
-# gradient wrong beyond rounding would move a whole tensor's entries.
-N4_PARAM_ATOL = 1e-6
-N4_PARAM_FRACTION = 1e-4
-# The all-reduced gradient of step 1 itself, entry by entry, within
-# N4_GRAD_RTOL of its L2 norm of one process's on the global batch: the
-# batch of 32 against 4 of 8 changes the convolutions' sums (on the CPU the
-# 2D UNet's data-parallel gradient is within 1e-7 of its norm).
-N4_GRAD_RTOL = 1e-5
 N_RANK_TIMEOUT = 600.0
 
 
@@ -3280,55 +3281,6 @@ def _host_ms(fn, reps=20, warmup=3) -> float:
 def _sync():
     if torch.cuda.is_available():
         torch.cuda.synchronize()
-
-
-class _StepParams(IBNPoisson3D):
-    """IBNPoisson3D that keeps a copy of its network's parameters as its
-    second training step begins (the Trainer evaluates training_loss once
-    an Adam step): the parameters after the first step."""
-
-    def __init__(self, *args, **kwargs):
-        super().__init__(*args, **kwargs)
-        self.steps = 0
-        self.after_first: dict | None = None
-
-    def training_loss(self, batch):
-        self.steps += 1
-        if self.steps == 2:
-            self.after_first = {k: v.detach().cpu().numpy().copy()
-                                for k, v in self.network.state_dict().items()}
-        return super().training_loss(batch)
-
-
-def _n4_fit(dev, mesh=None) -> dict:
-    """Slice I's configuration (UNet3D(I_FILTERS) from seeded_params, 32^3,
-    Adam I_LR), N4_STEPS steps of a global batch of I_BATCH x N_WORLD
-    through Trainer.fit: one process on the whole batch, or this rank's
-    I_BATCH rows of it over `mesh`."""
-    bs = I_BATCH * N_WORLD
-    ds = TopoDataset3D([synthesize_topology_3d(n=I_GRID, seed=s)
-                        for s in range(N4_STEPS * bs)], domain_size=I_GRID)
-    net = UNet3D(3, 1, base_filters=I_FILTERS)
-    net.load_state_dict(params_from_jax(seeded_params(flax_shapes(net),
-                                                      I_INIT_SEED)))
-    m = _StepParams(net, domain_size=I_GRID, batch_size=bs,
-                    learning_rate=I_LR)
-    loader = NumpyLoader(ds, batch_size=bs, shuffle=True, device=dev,
-                         mesh=mesh)
-    tr = Trainer(max_epochs=1, optimizer="adam", learning_rate=I_LR,
-                 device=dev)
-    if dev.type == "cuda":
-        torch.cuda.reset_peak_memory_stats(dev)
-    t0 = time.perf_counter()
-    grads = first_step_grads(m, lambda: tr.fit(m, loader))
-    _sync()
-    dt = time.perf_counter() - t0
-    return {"losses": tr.step_losses, "after_first": m.after_first,
-            "grad_first": grads,
-            "fit_s": dt, "steps_per_s": N4_STEPS / dt,
-            "max_memory_allocated_bytes": (
-                torch.cuda.max_memory_allocated(dev)
-                if dev.type == "cuda" else None)}
 
 
 def _n3_fit(dev, mesh=None) -> dict:
@@ -3380,14 +3332,13 @@ def _err(got, want) -> dict:
             "scale": float(want.abs().max())}
 
 
-N_SIZES = ("N_GRID", "N_BATCH", "N_K1_SHAPES", "N_K5_SHAPE", "N_CG_ITERS",
-           "N4_STEPS", "I_FILTERS")
+N_SIZES = ("N_GRID", "N_BATCH", "N_K1_SHAPES", "N_K5_SHAPE", "N_CG_ITERS")
 
 
 def slice_n_rank(rank: int, world: int, device: str, sizes: dict) -> dict:
     """Slice N on one rank of the group: N1 and N2 (the spatial K1 and K5
-    path, launches counted), their references and times, N3 and N4 (the
-    data-parallel fits). `sizes`: the parent's N_SIZES (a rank imports
+    path, launches counted), their references and times, N3 (the
+    data-parallel fit). `sizes`: the parent's N_SIZES (a rank imports
     this script afresh, so a rehearsal's smaller sizes reach it so)."""
     globals().update(sizes)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3481,18 +3432,12 @@ def slice_n_rank(rank: int, world: int, device: str, sizes: dict) -> dict:
                 "block_bound_by": b["bound_by"]}
     out["times"] = times
 
-    # N3 and N4: the data-parallel fits
+    # N3: the data-parallel fit
     reset_counts()
     out["n3"] = _n3_fit(dev, dmesh)
     flat = torch.zeros(N_GRID * N_GRID + 1, device=dev)
     out["n3"]["allreduce_ms"] = _host_ms(
         lambda: dmesh.all_reduce(flat, "data"))
-    out["n4"] = _n4_fit(dev, dmesh)
-    if rank:
-        for key in ("after_first", "grad_first"):
-            after = out["n4"].pop(key)
-            out["n4"][key + "_sum"] = float(sum(
-                np.abs(v).sum(dtype=np.float64) for v in after.values()))
     out["path_launches"] = {k: out["spatial_launches"][k]
                             + out["n3"]["launches"][k]
                             for k in KERNELS}
@@ -3524,7 +3469,6 @@ def slice_n(dev, smi: str) -> dict:
     world = N_WORLD
     backend = "nccl" if torch.cuda.device_count() >= world else "gloo"
     ref3 = _n3_fit(dev)
-    ref4 = _n4_fit(dev)
     unsharded_ms = {}
     for shape in N_K1_SHAPES + (N_K5_SHAPE,):
         name = "x".join(map(str, shape))
@@ -3603,58 +3547,6 @@ def slice_n(dev, smi: str) -> dict:
             fail("slice N3: the ranks logged different losses")
     if not rel3 <= N3_LOSS_RTOL:
         fail(f"slice N3: losses {rel3} off the one-process run's")
-
-    n4 = [r["n4"] for r in ranks]
-    rel4 = max(abs(a - b) / abs(b) for a, b in zip(n4[0]["losses"],
-                                                   ref4["losses"]))
-    diffs = [np.abs(n4[0]["after_first"][k] - v)
-             for k, v in ref4["after_first"].items()]
-    dp = max(float(d.max()) for d in diffs)
-    off = sum(int((d > N4_PARAM_ATOL).sum()) for d in diffs) / sum(
-        d.size for d in diffs)
-    sums = [float(sum(np.abs(v).sum(dtype=np.float64)
-                      for v in n4[0]["after_first"].values()))] + [
-        r["after_first_sum"] for r in n4[1:]]
-    g_ref = ref4["grad_first"]
-    g_norm = math.sqrt(sum(float((g.astype(np.float64) ** 2).sum())
-                           for g in g_ref.values()))
-    g_err = max(float(np.abs(n4[0]["grad_first"][k] - g).max())
-                for k, g in g_ref.items())
-    g_sums = [float(sum(np.abs(v).sum(dtype=np.float64)
-                        for v in n4[0]["grad_first"].values()))] + [
-        r["grad_first_sum"] for r in n4[1:]]
-    emit({"phase": "slice_N4", **head, "grid": [I_GRID] * 3,
-          "base_filters": I_FILTERS, "batch_a_rank": I_BATCH,
-          "steps": N4_STEPS, "losses": n4[0]["losses"],
-          "losses_one_process": ref4["losses"], "max_rel_diff": rel4,
-          "rtol": N4_LOSS_RTOL, "params_after_first_max_abs_diff": dp,
-          "params_after_first_share_off": off,
-          "params_atol": N4_PARAM_ATOL,
-          "params_fraction": N4_PARAM_FRACTION,
-          "grad_first_max_abs_diff": g_err, "grad_first_norm": g_norm,
-          "grad_first_rel_to_norm": g_err / g_norm,
-          "grad_rtol": N4_GRAD_RTOL,
-          "steps_per_s_by_rank": [r["steps_per_s"] for r in n4],
-          "steps_per_s_one_process": ref4["steps_per_s"],
-          "max_memory_allocated_bytes_by_rank": [
-              r["max_memory_allocated_bytes"] for r in n4],
-          "max_memory_allocated_bytes_one_process":
-              ref4["max_memory_allocated_bytes"]})
-    if not all(math.isfinite(v) for v in n4[0]["losses"]) \
-            or len(n4[0]["losses"]) != N4_STEPS:
-        fail(f"slice N4: losses {n4[0]['losses']}")
-    if len(set(sums)) != 1:
-        fail(f"slice N4: the ranks' parameters after step 1 differ: {sums}")
-    if len(set(g_sums)) != 1:
-        fail(f"slice N4: the ranks' gradients of step 1 differ: {g_sums}")
-    if not g_err <= N4_GRAD_RTOL * g_norm:
-        fail(f"slice N4: the all-reduced gradient of step 1 is {g_err} off "
-             f"one process's (norm {g_norm})")
-    if not off <= N4_PARAM_FRACTION:
-        fail(f"slice N4: a share {off} of the parameters after step 1 more "
-             f"than {N4_PARAM_ATOL} off one process's (at most {dp})")
-    if not rel4 <= N4_LOSS_RTOL:
-        fail(f"slice N4: losses {rel4} off the one-process run's")
 
     t_dry = time.perf_counter()
     dry = dryrun_multigpu(world, device=dev.type, threads=2)
@@ -4027,6 +3919,317 @@ def slice_o(dev, smi: str) -> dict:
     return {k: sum(r["path_launches"][k] for r in ranks) for k in KERNELS}
 
 
+# -- slice Q: the U-Nets and the IBN energy split over 'space' --------------
+# Two paths over Q_WORLD ranks (as slices N and O: gloo with the ranks
+# sharing the card where there are fewer cards than ranks, the halo rows
+# and all-reduces through host memory; on one card NCCL is not measured),
+# each held to one process on the same card, TF32 off, both networks from
+# interop.seeded_params. Q1: IBNPoisson2D(source_from="inputs") with the
+# JAX CLI's UNet(base_filters=16) (examples/poisson_ibn_parametric.py:54;
+# three input channels) on a 256^2 image ensemble (SyntheticPointClouds'
+# ellipses rasterised by the winding number, ImageIMBackObject's channels
+# and unit forcing), data 1 x space 4, batch Q1_BATCH: every level on row
+# blocks (the deepest 8 rows, 2 a rank). Q2: slice I's UNet3D(I_FILTERS)
+# IBNPoisson3D at 32^3 laid out as the JAX dry run lays out four devices,
+# data 2 x space 2, I_BATCH a data rank: the fifth Down's 2 planes
+# gathered. Q_STEPS Adam steps each through Trainer.fit.
+Q_WORLD = 4
+Q_STEPS = 5
+Q1_GRID, Q1_BATCH, Q1_FILTERS, Q1_LR, Q1_INIT_SEED = 256, 4, 16, 3e-4, 0
+Q_LAYOUT = {"Q1": (1, 4), "Q2": (2, 2)}   # (data, space)
+Q_LOSS_RTOL = 1e-4    # the losses against one process: the split sums
+#                       (norms, energy) and the convolutions' blocks round
+#                       otherwise, and Adam carries it on
+# Parameters after the first Adam step (lr ~1e-3, each moves lr g/(|g|+eps),
+# less than lr): within Q_PARAM_ATOL but for at most Q_PARAM_FRACTION of
+# them. Where a gradient entry sits at rounding level (~1e-8, sums of O(1)
+# terms that cancel) next to Adam's eps (1e-8), its rounding changes the
+# step by up to ~lr, so no bound on the largest difference below 2 lr
+# holds (slice I's UNet3D(16) data-parallel: on the CPU 4 of 4.2M entries
+# moved more than 1e-6, on the card 5 and 6, at most 6.6e-4). A gradient
+# wrong beyond rounding would move a whole tensor's entries.
+Q_PARAM_ATOL = 1e-6
+Q_PARAM_FRACTION = 1e-4
+# Step 1's all-reduced gradient, entry by entry, within Q_GRAD_RTOL of its
+# L2 norm of one process's on the global batch.
+Q_GRAD_RTOL = 1e-5
+Q_SIZES = ("Q_STEPS", "Q1_GRID", "Q1_BATCH", "Q1_FILTERS", "I_FILTERS",
+           "I_BATCH", "I_GRID")
+
+
+class _Arrays:
+    """``(inputs[i], forcing[i])`` items of two arrays."""
+
+    def __init__(self, inputs, forcing):
+        self.inputs, self.forcing = inputs, forcing
+
+    def __len__(self):
+        return len(self.inputs)
+
+    def __getitem__(self, i):
+        return self.inputs[i], self.forcing[i]
+
+
+def _q_data() -> dict:
+    """Each path's Q_STEPS global batches, ``(inputs, forcing)`` float32:
+    Q1's image ensemble and Q2's topologies (slice I's)."""
+    n = Q1_GRID
+    clouds = SyntheticPointClouds(n_samples=Q_STEPS * Q1_BATCH,
+                                  domain_size=n)
+    c = torch.from_numpy(np.stack([clouds[i][0]
+                                   for i in range(len(clouds))]))
+    chi = occupancy_from_cloud(c[..., 0:2], c[..., 2:4], c[..., 4],
+                               (n, n)).numpy()
+    walls = np.broadcast_to(clouds.bc2, chi.shape)
+    q1 = (np.stack([1.0 - chi, chi, walls], -1).astype(np.float32),
+          np.ones(chi.shape + (1,), np.float32))
+    bs = Q_LAYOUT["Q2"][0] * I_BATCH
+    topo = TopoDataset3D([synthesize_topology_3d(n=I_GRID, seed=s)
+                          for s in range(Q_STEPS * bs)], domain_size=I_GRID)
+    items = [topo[i] for i in range(len(topo))]
+    q2 = (np.stack([a for a, _ in items]), np.stack([f for _, f in items]))
+    return {"Q1": q1, "Q2": q2}
+
+
+def _q_module(q: str, mesh=None):
+    """Q1's or Q2's IBN module, its network from seeded_params, built on
+    `mesh` (None: one process); and its global batch and learning rate."""
+    if q == "Q1":
+        net = UNet(3, 1, base_filters=Q1_FILTERS, mesh=mesh)
+        seed, bs, lr = Q1_INIT_SEED, Q1_BATCH, Q1_LR
+    else:
+        net = UNet3D(3, 1, base_filters=I_FILTERS, mesh=mesh)
+        seed, bs, lr = I_INIT_SEED, Q_LAYOUT["Q2"][0] * I_BATCH, I_LR
+    net.load_state_dict(params_from_jax(seeded_params(flax_shapes(net),
+                                                      seed)))
+    if q == "Q1":
+        m = IBNPoisson2D(net, source_from="inputs", domain_size=Q1_GRID,
+                         batch_size=bs, learning_rate=lr, mesh=mesh)
+    else:
+        m = IBNPoisson3D(net, domain_size=I_GRID, batch_size=bs,
+                         learning_rate=lr, mesh=mesh)
+    return m, bs, lr
+
+
+def _q_fit(q: str, data, dev, mesh=None, record: bool = True) -> dict:
+    """Q_STEPS Adam steps of `q` through Trainer.fit over its shuffled
+    batches: one process on the global batch, or this rank's block over
+    `mesh` (its rows along 'data', its axis 1 along 'space'). Its losses,
+    seconds, ms a step (the median of steps 2 on, each timed from the end
+    of the one before: the loader's batch, the step, its all-reduces and
+    Adam) and the peak memory the fit allocated above what was allocated
+    as it began; with `record`, step 1's gradients (the all-reduced ones
+    over a mesh) and the parameters after it."""
+    m, bs, lr = _q_module(q, mesh)
+    loader = NumpyLoader(_Arrays(*data), batch_size=bs, shuffle=True,
+                         device=dev, mesh=mesh,
+                         space_axis=None if mesh is None else 1)
+    tr = Trainer(max_epochs=1, optimizer="adam", learning_rate=lr,
+                 device=dev)
+    after, ends = {}, []
+
+    def post(opt, args, kwargs):
+        if record and not after:
+            after.update({k: v.detach().cpu().numpy().copy()
+                          for k, v in m.network.state_dict().items()})
+        _sync()
+        ends.append(time.perf_counter())
+
+    start = 0
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+        start = torch.cuda.memory_allocated(dev)
+    handle = register_optimizer_step_post_hook(post)
+    t0 = time.perf_counter()
+    try:
+        if record:
+            grads = first_step_grads(m, lambda: tr.fit(m, loader))
+        else:
+            tr.fit(m, loader)
+            grads = {}
+        _sync()
+    finally:
+        handle.remove()
+    dt = time.perf_counter() - t0
+    return {"losses": tr.step_losses, "after_first": after,
+            "grad_first": grads, "fit_s": dt,
+            "step_ms": float(statistics.median(np.diff(ends))) * 1e3,
+            "peak_memory_bytes": (
+                torch.cuda.max_memory_allocated(dev) - start
+                if dev.type == "cuda" else None)}
+
+
+@contextlib.contextmanager
+def _exchange_clock():
+    """Seconds spent in the split net's collectives while it is open: the
+    halo exchanges (``mesh._swap``, forward and backward), the gathers of
+    the deep levels (``mesh._gather``) and the differentiable all-reduces
+    (``_AllReduceSum``: the norms' two sums and the energy's), and apart
+    from them the Trainer's all-reduce of the gradients
+    (``Trainer._all_reduce``), each timed from a synchronised card, so
+    that the work queued before it is not counted in it."""
+    spent = {"halo": 0.0, "gather": 0.0, "allreduce": 0.0, "grads": 0.0}
+    swap, gather = mesh_mod._swap, mesh_mod._gather
+    grads = Trainer._all_reduce
+    fwd, bwd = mesh_mod._AllReduceSum.forward, mesh_mod._AllReduceSum.backward
+
+    def clocked(fn, key):
+        def run(*args, **kwargs):
+            _sync()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            _sync()
+            spent[key] += time.perf_counter() - t0
+            return out
+        return run
+
+    mesh_mod._swap = clocked(swap, "halo")
+    mesh_mod._gather = clocked(gather, "gather")
+    mesh_mod._AllReduceSum.forward = staticmethod(clocked(fwd, "allreduce"))
+    mesh_mod._AllReduceSum.backward = staticmethod(clocked(bwd, "allreduce"))
+    Trainer._all_reduce = clocked(grads, "grads")
+    try:
+        yield spent
+    finally:
+        mesh_mod._swap, mesh_mod._gather = swap, gather
+        Trainer._all_reduce = grads
+        mesh_mod._AllReduceSum.forward = staticmethod(fwd)
+        mesh_mod._AllReduceSum.backward = staticmethod(bwd)
+
+
+def slice_q_rank(rank: int, world: int, device: str, sizes: dict,
+                 data: dict) -> dict:
+    """Slice Q on one rank: Q1 on a 1 x 4 mesh and Q2 on a 2 x 2 mesh of
+    the group, launches counted; then a fit of each with its collectives
+    clocked. `sizes`: the parent's Q_SIZES."""
+    globals().update(sizes)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = rank_device(dist.get_backend(), device)
+    meshes = {q: make_mesh(data=d, space=k) for q, (d, k) in Q_LAYOUT.items()}
+    out = {"rank": rank, "device": str(dev)}
+    reset_counts()
+    for q in Q_LAYOUT:
+        out[q] = _q_fit(q, data[q], dev, meshes[q])
+    _sync()
+    out["path_launches"] = counts()
+    for q in Q_LAYOUT:
+        with _exchange_clock() as spent:
+            clocked = _q_fit(q, data[q], dev, meshes[q], False)
+        out[q].update(
+            clocked_step_ms=clocked["fit_s"] * 1e3 / Q_STEPS,
+            **{f"{k}_ms_a_step": v * 1e3 / Q_STEPS
+               for k, v in spent.items()})
+        if rank:
+            for key in ("after_first", "grad_first"):
+                got = out[q].pop(key)
+                out[q][key + "_sum"] = float(sum(
+                    np.abs(v).sum(dtype=np.float64) for v in got.values()))
+    return out
+
+
+def _q_check(q: str, ref: dict, ranks: list, head: dict, smi: str) -> None:
+    """Q1's or Q2's line and checks: the split fit against one process's."""
+    got = [r[q] for r in ranks]
+    g0 = got[0]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(g0["losses"],
+                                                  ref["losses"]))
+    diffs = [np.abs(g0["after_first"][k] - v)
+             for k, v in ref["after_first"].items()]
+    dp = max(float(d.max()) for d in diffs)
+    off = sum(int((d > Q_PARAM_ATOL).sum()) for d in diffs) / sum(
+        d.size for d in diffs)
+    g_ref = ref["grad_first"]
+    g_norm = math.sqrt(sum(float((g.astype(np.float64) ** 2).sum())
+                           for g in g_ref.values()))
+    g_err = max(float(np.abs(g0["grad_first"][k] - g).max())
+                for k, g in g_ref.items())
+    sums = {key: [float(sum(np.abs(v).sum(dtype=np.float64)
+                            for v in g0[key].values()))]
+            + [r[key + "_sum"] for r in got[1:]]
+            for key in ("after_first", "grad_first")}
+    split_ms = g0["step_ms"]
+    comm_ms = sum(g0[f"{k}_ms_a_step"] for k in ("halo", "gather",
+                                                   "allreduce"))
+    data, space = Q_LAYOUT[q]
+    emit({"phase": f"slice_{q}", "nvidia_smi": smi, **head,
+          "mesh": {"data": data, "space": space},
+          "grid": [Q1_GRID] * 2 if q == "Q1" else [I_GRID] * 3,
+          "base_filters": Q1_FILTERS if q == "Q1" else I_FILTERS,
+          "batch": Q1_BATCH if q == "Q1" else data * I_BATCH,
+          "steps": Q_STEPS, "losses": g0["losses"],
+          "losses_one_process": ref["losses"], "max_rel_diff": rel,
+          "rtol": Q_LOSS_RTOL, "params_after_first_max_abs_diff": dp,
+          "params_after_first_share_off": off,
+          "params_atol": Q_PARAM_ATOL, "params_fraction": Q_PARAM_FRACTION,
+          "grad_first_max_abs_diff": g_err, "grad_first_norm": g_norm,
+          "grad_first_rel_to_norm": g_err / g_norm,
+          "grad_rtol": Q_GRAD_RTOL,
+          # ms a step from step 2 on (the loader and Adam included),
+          # split (every rank at once on the shared card) and in one
+          # process
+          "step_ms_split": split_ms,
+          "step_ms_split_by_rank": [r["step_ms"] for r in got],
+          "step_ms_one_process": ref["step_ms"],
+          # a fit with its collectives clocked (each from a synchronised
+          # card): ms a step in the halo exchanges, the deep levels'
+          # gathers and the norms' and energy's all-reduces, and their
+          # share of that fit's step; beside them the gradients'
+          # all-reduce
+          "clocked_step_ms": g0["clocked_step_ms"],
+          **{f"{k}_ms_a_step": g0[f"{k}_ms_a_step"]
+             for k in ("halo", "gather", "allreduce", "grads")},
+          "exchange_share": comm_ms / g0["clocked_step_ms"],
+          "grads_share": g0["grads_ms_a_step"] / g0["clocked_step_ms"],
+          # the peak a fit allocated above what was allocated as it began
+          "peak_memory_bytes_by_rank": [r["peak_memory_bytes"] for r in got],
+          "peak_memory_bytes_one_process": ref["peak_memory_bytes"],
+          "nccl": "not measured: one card, its ranks over gloo"
+          if head["backend"] == "gloo" else "measured"})
+    if len(g0["losses"]) != Q_STEPS or \
+            not all(math.isfinite(v) for v in g0["losses"]):
+        fail(f"slice {q}: losses {g0['losses']}")
+    if any(r["losses"] != g0["losses"] for r in got):
+        fail(f"slice {q}: the ranks logged different losses")
+    for key, v in sums.items():
+        if len(set(v)) != 1:
+            fail(f"slice {q}: the ranks' {key} differ: {v}")
+    if not rel <= Q_LOSS_RTOL:
+        fail(f"slice {q}: losses {rel} off the one-process run's")
+    if not g_err <= Q_GRAD_RTOL * g_norm:
+        fail(f"slice {q}: the all-reduced gradient of step 1 is {g_err} "
+             f"off one process's (norm {g_norm})")
+    if not off <= Q_PARAM_FRACTION:
+        fail(f"slice {q}: a share {off} of the parameters after step 1 "
+             f"more than {Q_PARAM_ATOL} off one process's (at most {dp})")
+
+
+def slice_q(dev, smi: str) -> dict:
+    """Slice Q: the data, the one-process references on the card, then one
+    group of Q_WORLD ranks (slice_q_rank). Returns the ranks' launches on
+    the path, summed (no kernel of the table lies on it: the convolutions
+    are cuDNN's, the energy plain)."""
+    t0 = time.perf_counter()
+    world = Q_WORLD
+    backend = "nccl" if torch.cuda.device_count() >= world else "gloo"
+    data = _q_data()
+    refs = {}
+    for q in Q_LAYOUT:
+        refs[q] = _q_fit(q, data[q], dev)
+    torch.cuda.empty_cache()
+    t_ranks = time.perf_counter()
+    ranks = run_ranks(slice_q_rank, world,
+                      (dev.type, {k: globals()[k] for k in Q_SIZES}, data),
+                      backend=backend, timeout=N_RANK_TIMEOUT, threads=2)
+    head = {"backend": backend, "world": world,
+            "device_count": torch.cuda.device_count(),
+            "ranks_s": time.perf_counter() - t_ranks}
+    for q in Q_LAYOUT:
+        _q_check(q, refs[q], ranks, head, smi)
+    emit({"phase": "slice_Q_done", "seconds": time.perf_counter() - t0})
+    return {k: sum(r["path_launches"][k] for r in ranks) for k in KERNELS}
+
+
 # Slice P, the entry points: the port's example CLIs
 # (diffnet_tpu_torch.examples) called in-process through main(argv) on the
 # card, so that the launch counters count them. P1-P5 at their documented
@@ -4063,8 +4266,6 @@ P6 = (   # (module, argv, run directory, artifacts)
      ("midline_cuts.csv",)),
     ("eikonal_reconstruction", ["--domain-size", 16, "--max-epochs", 2],
      "eikonal2d", ("sdf.png",)),
-    ("eikonal_reconstruction", ["--domain-size", 16, "--solver", "gn"],
-     "eikonal2d", ("sdf.png",)),
     ("eikonal_reconstruction", ["--nsd", 3, "--domain-size", 9,
                                 "--max-epochs", 2], "eikonal3d",
      ("surface.obj",)),
@@ -4079,10 +4280,6 @@ P6 = (   # (module, argv, run directory, artifacts)
      ("fields.png",)),
     ("eikonal_airfoil", ["--domain-size", 16, "--max-epochs", 2],
      "eikonal-airfoil-teardrop", ("sdf.png",)),
-    ("more_physics", ["helmholtz", "--domain-size", 17, "--solver",
-                      "direct"], "helmholtz", ()),
-    ("more_physics", ["allen-cahn", "--domain-size", 17, "--solver",
-                      "direct"], "allen-cahn", ()),
     *(("more_physics", [ph, "--domain-size", 16, "--max-epochs", 2], ph, ())
       for ph in ("helmholtz", "advdiff", "allen-cahn", "burgers", "fsdt",
                  "topopt")),
@@ -4096,8 +4293,6 @@ P6 = (   # (module, argv, run directory, artifacts)
                             1, "--domain-size", 32, "--n-points", 48,
                             "--max-epochs", 20], "eik-param-immdiff",
      ("heldout.png", "errors.txt")),
-    ("ldc_validation", ["--re", 1000, "--solver", "newton",
-                        "--domain-size", 17], None, ()),
 )
 
 
@@ -4329,14 +4524,12 @@ def slice_p(dev, smi: str) -> dict:
         # P6: every other CLI and physics once
         rows = []
         for name, argv, run, files in P6:
-            argv = list(argv) + (["--out-dir", tmp] if run else
-                                 ["--out", os.path.join(tmp, "p6.png")])
+            argv = list(argv) + ["--out-dir", tmp]
             r, line = _p_cli(name, argv)
             missing = [f for f in files
                        if not os.path.exists(os.path.join(r["run_dir"], f))]
             rows.append({"cli": name, **line, "missing": missing})
-            if missing or (run and not r["run_dir"].startswith(
-                    os.path.join(tmp, run))):
+            if missing or not r["run_dir"].startswith(os.path.join(tmp, run)):
                 fail(f"slice P6: {name} {argv}: missing {missing}")
         emit({"phase": "slice_P6", "nvidia_smi": smi, "runs": rows,
               "seconds": sum(row["seconds"] for row in rows)})
@@ -4579,6 +4772,9 @@ def main() -> int:
     # the split solvers, the split NS residual and the root-norm losses
     # over the ranks: counted as slice N's
     paths["multi_gpu_solvers"] = lo = slice_o(dev, smi)
+    # the U-Nets and the IBN energy split over 'space': counted as slice
+    # N's (no kernel of the table on it: cuDNN convolutions, plain energy)
+    paths["multi_gpu_nets"] = lq = slice_q(dev, smi)
     reset_counts()           # the entry points: the example CLIs
     lp = slice_p(dev, smi)
     paths["entry_points"] = counts()
@@ -4588,7 +4784,7 @@ def main() -> int:
           "slice_E2": le2, "slice_G1": lg1, "slice_G2": lg2,
           "slice_G3": lg3, "slice_H": lh, "slice_I": li, "slice_J": lj,
           "slice_K": lk, "slice_L": ll, "slice_M": lm, "slice_N": ln,
-          "slice_O": lo, "slice_P": lp})
+          "slice_O": lo, "slice_Q": lq, "slice_P": lp})
     for path, names in (("training_2d", ("poisson_stiffness_action",
                                          "poisson_resmin_loss_grad",
                                          "poisson_energy")),

@@ -14,7 +14,12 @@ from the seed, takes the same global batch indices and assembles only its
 own rows of each batch (its block along the mesh's 'data' axis), so the
 ranks' rows together are the JAX loader's global batch. ``batch_size``
 stays the global batch size, which 'data' must divide; the Trainer reads
-``loader.mesh`` to all-reduce the gradients.
+``loader.mesh`` to all-reduce the gradients. With ``space_axis`` each
+array of a batch is also cut to this rank's block along that axis over
+the mesh's 'space' axis (:func:`~diffnet_tpu_torch.parallel.local_block`;
+axis 1, the rows or depth planes of NHWC / NDHWC fields, is JAX's
+``P("data", "space", ...)``); without it every 'space' rank of a data row
+gets the same rows whole.
 """
 
 from __future__ import annotations
@@ -25,6 +30,8 @@ from typing import Iterator
 
 import numpy as np
 import torch
+
+from ..parallel.mesh import local_block, spatial_mesh
 
 __all__ = ["NumpyLoader", "InMemoryDataset"]
 
@@ -65,17 +72,23 @@ class NumpyLoader:
     (reshuffle every epoch); drop_last (drop the trailing partial batch);
     seed (shuffle seed); device (where the batches go, default the CPU);
     prefetch (batches assembled ahead on a background thread, 0 for none);
-    mesh (a process mesh: yield this rank's rows of each batch)."""
+    mesh (a process mesh: yield this rank's rows of each batch);
+    space_axis (with `mesh`: also this rank's block of every array along
+    this axis over 'space')."""
 
     def __init__(self, dataset, batch_size: int = 1, shuffle: bool = False,
                  drop_last: bool = True, seed: int = 42,
                  device: str | torch.device | None = None,
-                 prefetch: int = 0, mesh=None):
+                 prefetch: int = 0, mesh=None, space_axis: int | None = None):
         if mesh is not None and batch_size % mesh.data:
             raise ValueError(f"batch_size {batch_size} does not split into "
                              f"{mesh.data} equal blocks along 'data'")
+        if space_axis is not None and mesh is None:
+            raise ValueError("space_axis splits over a mesh's 'space' axis: "
+                             "pass mesh= too")
         self.dataset = dataset
         self.mesh = mesh
+        self.space_axis = space_axis
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.drop_last = drop_last
@@ -167,5 +180,8 @@ class NumpyLoader:
                 samples = [self.dataset[int(i)] for i in idx]
                 arrays = tuple(np.stack([s[k] for s in samples])
                                for k in range(len(samples[0])))
+            if self.space_axis is not None and spatial_mesh(self.mesh):
+                arrays = tuple(local_block(a, self.mesh, self.space_axis,
+                                           "space") for a in arrays)
             yield tuple(torch.from_numpy(np.ascontiguousarray(a))
                         .to(self.device) for a in arrays)

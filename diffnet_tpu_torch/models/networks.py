@@ -18,6 +18,40 @@ As in the JAX package:
   * dropout only when ``forward(..., train=True)``: ``nn.Module.training``
     (which ``Trainer.fit`` sets) does not switch it on.
 
+``UNet``, ``UNet3D`` and ``MultiOutUNet`` also run split over the 'space'
+axis of a process mesh (``mesh=``), as GSPMD partitions the JAX nets'
+convolutions where the dry run shards their rows (``P("data", "space",
+...)``): the input's rows (2D) or depth planes (3D), NHWC axis 1, are this
+rank's equal block of :func:`~diffnet_tpu_torch.parallel.block_bounds`,
+and so are the output's. Each conv along the split axis takes its
+neighbours' edge rows through
+:func:`~diffnet_tpu_torch.parallel.halo_exchange` (zeros at the domain's
+edges, where the unsplit conv pads) and convolves without padding along
+that axis:
+
+  * ``Down``'s stride-2 4-tap conv, pad (1, 1): output rows [a, b) read
+    input rows [2a - 1, 2b], one halo row each side;
+  * ``Up``'s transposed conv (k 4, s 2, p 1): output rows [2a, 2b) read
+    input rows [a - 1, b], one halo row each side;
+  * the head conv after the nearest x2 resize, pad (2, 1): resized rows
+    [2a - 2, 2b + 1), one unresized halo row each side;
+
+the other axes keep their padding, and the resize is local. Instance
+norms take their mean and variance over the whole map by two sums
+all-reduced over 'space' (:func:`~diffnet_tpu_torch.parallel.all_reduce_sum`).
+Where a ``Down``'s input rows stop splitting into equal blocks of an even
+count (``n % (2 space)``), it and the deeper levels run on the whole map,
+gathered (:func:`~diffnet_tpu_torch.parallel.gather_block`) on every
+rank, and the first ``Up`` whose output rows split again hands each rank
+its block (the rule of ``train/linear.py``'s split V-cycle). Each rank
+backpropagates its share of the output's cotangent (the convention of
+``all_reduce_sum``): the gradients of the split net summed over 'space'
+are the unsplit net's times ``space`` for a loss every rank computes in
+full (``Trainer`` averages them). With no mesh, or one 'space' rank, the
+nets run the code they run without one. Dropout draws its own mask on
+each rank (``train=True``; the Trainer and the dry run call with
+``train=False``).
+
 Submodules carry the flax names (``Conv_0``, ``ConvTranspose_1``,
 ``Down_2``, ``_GatedResBlock_1/GroupNorm_0``, ...), so
 :func:`diffnet_tpu_torch.interop.params_from_jax` maps a flax parameter
@@ -34,6 +68,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.mesh import (all_reduce_sum, gather_block, halo_exchange,
+                             local_block, spatial_mesh)
+
 __all__ = ["Down", "Up", "UNet", "UNet3D", "MultiOutUNet", "AE", "VAE",
            "GoodNetwork", "UNetRes", "ImplicitConv", "ResNetED",
            "LocalConv2d"]
@@ -43,6 +80,9 @@ _TRUNC_STD = 0.87962566103423978   # std of a unit normal cut at +-2
 _CONV = {1: nn.Conv1d, 2: nn.Conv2d, 3: nn.Conv3d}
 _CONV_T = {1: nn.ConvTranspose1d, 2: nn.ConvTranspose2d,
            3: nn.ConvTranspose3d}
+_CONV_F = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
+_CONV_T_F = {1: F.conv_transpose1d, 2: F.conv_transpose2d,
+             3: F.conv_transpose3d}
 
 
 def _lecun_(weight: torch.Tensor, fan_in: int, g: torch.Generator) -> None:
@@ -115,13 +155,24 @@ def _group_norm(groups, channels) -> nn.GroupNorm:
     return nn.GroupNorm(groups, channels, eps=_EPS)
 
 
-def _norm(x):
+def _norm(x, mesh=None):
     """Instance norm over the spatial axes of channels-first `x`. Written
     out, since ``F.instance_norm`` refuses a 1-node map (a U-Net's deepest
-    stage at 32^2 or 32^3) where flax gives zeros."""
-    var, mean = torch.var_mean(x, dim=tuple(range(2, x.ndim)), correction=0,
-                               keepdim=True)
-    return (x - mean) * torch.rsqrt(var + _EPS)
+    stage at 32^2 or 32^3) where flax gives zeros.
+
+    With `mesh`, x is this rank's equal block of rows (axis 2) of a map
+    split over its 'space' axis: the mean, then the variance as the mean
+    of the squared deviations (as ``torch.var_mean``), each from a sum
+    all-reduced over 'space'."""
+    dims = tuple(range(2, x.ndim))
+    if mesh is None:
+        var, mean = torch.var_mean(x, dim=dims, correction=0, keepdim=True)
+        return (x - mean) * torch.rsqrt(var + _EPS)
+    count = mesh.space * math.prod(x.shape[2:])
+    mean = all_reduce_sum(x.sum(dims, keepdim=True), mesh) / count
+    dev = x - mean
+    var = all_reduce_sum((dev * dev).sum(dims, keepdim=True), mesh) / count
+    return dev * torch.rsqrt(var + _EPS)
 
 
 def _nhwc_in(x):
@@ -160,16 +211,27 @@ class Down(nn.Module):
         self.normalize = normalize
         self.dropout = dropout
 
-    def forward(self, x, train: bool = False):
-        if min(x.shape[2:]) < 2:
+    def forward(self, x, train: bool = False, mesh=None):
+        """mesh: x is this rank's block of rows (axis 2) of a map split
+        over the mesh's 'space' axis, equal blocks of an even count; the
+        result is this rank's block of the unsplit output."""
+        rows = x.shape[2] * (mesh.space if mesh is not None else 1)
+        if min((rows,) + tuple(x.shape[3:])) < 2:
             # flax pads (1, 1): an axis of one node gives an empty map
             # (an 8-node side reaches the fifth Down of a U-Net at 16)
             return x.new_zeros(x.shape[:1] + (self.Conv_0.out_channels,)
                                + tuple(max(0, (s - 2) // 2 + 1)
                                        for s in x.shape[2:]))
-        x = self.Conv_0(x)
+        if mesh is None:
+            x = self.Conv_0(x)
+        else:
+            # output rows [a, b) read input rows [2a - 1, 2b]
+            nd = x.ndim - 2
+            x = _CONV_F[nd](halo_exchange(x, mesh, 1, 2),
+                            self.Conv_0.weight, None, stride=2,
+                            padding=(0,) + (1,) * (nd - 1))
         if self.normalize:
-            x = _norm(x)
+            x = _norm(x, mesh)
         x = F.leaky_relu(x, 0.2)
         if self.dropout:
             x = F.dropout(x, self.dropout, training=train)
@@ -186,18 +248,33 @@ class Up(nn.Module):
                                        ndim=ndim)
         self.dropout = dropout
 
-    def forward(self, x, skip, train: bool = False):
+    def forward(self, x, skip, train: bool = False, mesh=None):
+        return torch.cat([self.upsample(x, train, mesh), skip], dim=1)
+
+    def upsample(self, x, train: bool = False, mesh=None):
+        """The stage before the skip is concatenated. mesh: x is this
+        rank's equal block of rows (axis 2) of a map split over the mesh's
+        'space' axis; so is the result."""
         if x.numel() == 0:
             # flax's transposed conv of an empty map: zeros, one node on
-            # an axis of none
+            # an axis of none (a block is never empty: so is the map)
             x = x.new_zeros(x.shape[:1] + (self.ConvTranspose_0.out_channels,)
                             + tuple(2 * s or 1 for s in x.shape[2:]))
-        else:
+        elif mesh is None:
             x = self.ConvTranspose_0(x)
-        x = F.relu(_norm(x))
+        else:
+            # output rows [2a, 2b) read input rows [a - 1, b]: the halo'd
+            # block's transposed conv, padded as the unsplit one, less two
+            # rows each side (a padding of 3 would drop them, but torch
+            # 2.13's CPU conv_transpose3d backward corrupts memory with it)
+            nd, m = x.ndim - 2, x.shape[2]
+            x = _CONV_T_F[nd](halo_exchange(x, mesh, 1, 2),
+                              self.ConvTranspose_0.weight, None, stride=2,
+                              padding=1).narrow(2, 2, 2 * m)
+        x = F.relu(_norm(x, mesh))
         if self.dropout:
             x = F.dropout(x, self.dropout, training=train)
-        return torch.cat([x, skip], dim=1)
+        return x
 
 
 def _encoder(net, in_channels, f, g, ndim):
@@ -237,15 +314,69 @@ def _decode(skips, ups, head, ndim, final_sigmoid, train):
     return torch.sigmoid(out) if final_sigmoid else out
 
 
+def _encode_split(net, x, train, mesh):
+    """:func:`_encode` of x, this rank's equal block of rows (axis 2) over
+    the mesh's 'space' axis: the skips, and how many of them (the first
+    ones) are row blocks. A Down runs on row blocks while its input's rows
+    split into equal blocks of an even count; from the first that does
+    not, the input is gathered and the deeper levels run whole on every
+    rank."""
+    k = mesh.space
+    skips, n_split = [], 0
+    for i in range(5):
+        split = n_split == i
+        if split and x.shape[2] % 2:
+            x = gather_block(x, mesh, 2, "space", k * x.shape[2])
+            split = False
+        x = getattr(net, f"Down_{i}")(x, train, mesh if split else None)
+        skips.append(x)
+        n_split += split
+    return skips, n_split
+
+
+def _decode_split(skips, n_split, ups, head, ndim, final_sigmoid, train,
+                  mesh):
+    """:func:`_decode` of :func:`_encode_split`'s skips, the first
+    `n_split` of them row blocks: an Up runs on row blocks where its input
+    is one, and the first whose skip is one hands each rank its block of
+    its whole output. The result is this rank's rows."""
+    u, split = skips[4], n_split == 5
+    for j, (up, skip) in enumerate(zip(ups, skips[3::-1])):
+        h = up.upsample(u, train, mesh if split else None)
+        if not split and 3 - j < n_split:
+            h = local_block(h, mesh, 2, "space")
+            split = True
+        u = torch.cat([h, skip], dim=1)
+    if split:
+        out = _head_split(u, head, ndim, mesh)
+    else:
+        out = F.interpolate(u, scale_factor=2, mode="nearest")
+        out = local_block(head(F.pad(out, (2, 1) * ndim)), mesh, 2, "space")
+    return torch.sigmoid(out) if final_sigmoid else out
+
+
+def _head_split(u, head, ndim, mesh):
+    """:func:`_decode`'s nearest x2 resize and head conv (pad (2, 1)) of u,
+    this rank's block [a, b) of rows (axis 2): the output's rows [2a, 2b),
+    which read resized rows [2a - 2, 2b + 1), those of the resized halo'd
+    block but its last."""
+    out = F.interpolate(halo_exchange(u, mesh, 1, 2), scale_factor=2,
+                        mode="nearest")
+    return head(F.pad(out.narrow(2, 0, out.shape[2] - 1),
+                      (2, 1) * (ndim - 1)))
+
+
 class UNet(_Named):
     """Pix2pix-style 5-down / 4-up U-Net with a sigmoid head.
     ``[B, H, W, in_channels] -> [B, H, W, out_channels]``; H and W must be
-    divisible by 32."""
+    divisible by 32. mesh: a process mesh whose 'space' axis splits the
+    rows (axis 1) of input and output into equal blocks, one a rank (see
+    the module's docstring); None, or one 'space' rank, runs whole."""
 
     ndim = 2
 
     def __init__(self, in_channels=1, out_channels=1, base_filters=32,
-                 final_sigmoid=True, seed=0):
+                 final_sigmoid=True, seed=0, mesh=None):
         super().__init__()
         g = _generator(seed)
         _encoder(self, in_channels, base_filters, g, self.ndim)
@@ -253,40 +384,56 @@ class UNet(_Named):
         self._decoder = _decoder(self, out_channels, base_filters, g,
                                  self.ndim)
         self.final_sigmoid = final_sigmoid
+        self.mesh = mesh
 
     def forward(self, x, train: bool = False):
-        skips = _encode(self, _nhwc_in(x), train)
         ups, head = self._decoder
+        mesh = spatial_mesh(self.mesh)
+        if mesh is not None:
+            skips, n_split = _encode_split(self, _nhwc_in(x), train, mesh)
+            return _nhwc_out(_decode_split(skips, n_split, ups, head,
+                                           self.ndim, self.final_sigmoid,
+                                           train, mesh))
+        skips = _encode(self, _nhwc_in(x), train)
         return _nhwc_out(_decode(skips, ups, head, self.ndim,
                                  self.final_sigmoid, train))
 
 
 class UNet3D(UNet):
     """The U-Net in 3D: ``[B, D, H, W, in_channels] -> [B, D, H, W,
-    out_channels]``; every side divisible by 32."""
+    out_channels]``; every side divisible by 32. mesh: splits the depth
+    planes (axis 1) as :class:`UNet` its rows."""
 
     ndim = 3
 
     def __init__(self, in_channels=1, out_channels=1, base_filters=16,
-                 final_sigmoid=True, seed=0):
+                 final_sigmoid=True, seed=0, mesh=None):
         super().__init__(in_channels, out_channels, base_filters,
-                         final_sigmoid, seed)
+                         final_sigmoid, seed, mesh)
 
 
 class MultiOutUNet(_Named):
     """The U-Net's encoder shared by `num_outputs` independent decoders
-    (e.g. u, v, p): returns a tuple of ``[B, H, W, out_channels]``."""
+    (e.g. u, v, p): returns a tuple of ``[B, H, W, out_channels]``. mesh:
+    as :class:`UNet`'s."""
 
     def __init__(self, in_channels=1, num_outputs=3, out_channels=1,
-                 base_filters=32, final_sigmoid=False, seed=0):
+                 base_filters=32, final_sigmoid=False, seed=0, mesh=None):
         super().__init__()
         g = _generator(seed)
         _encoder(self, in_channels, base_filters, g, 2)
         self._heads = [_decoder(self, out_channels, base_filters, g, 2)
                        for _ in range(num_outputs)]
         self.final_sigmoid = final_sigmoid
+        self.mesh = mesh
 
     def forward(self, x, train: bool = False):
+        mesh = spatial_mesh(self.mesh)
+        if mesh is not None:
+            skips, n_split = _encode_split(self, _nhwc_in(x), train, mesh)
+            return tuple(_nhwc_out(_decode_split(
+                skips, n_split, ups, head, 2, self.final_sigmoid, train,
+                mesh)) for ups, head in self._heads)
         skips = _encode(self, _nhwc_in(x), train)
         return tuple(_nhwc_out(_decode(skips, ups, head, 2,
                                        self.final_sigmoid, train))

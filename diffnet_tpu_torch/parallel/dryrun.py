@@ -9,8 +9,11 @@ from ``numpy.random.default_rng(0)``. The workloads, at the JAX dry run's
 sizes:
 
   (a) IBNPoisson2D with a UNet(base_filters=4) on 32^2, batch 2 x data, one
-      Adam step through ``Trainer.fit`` over a loader on the mesh (the
-      gradient all-reduced over 'data');
+      Adam step through ``Trainer.fit`` over a loader on the mesh, the
+      inputs' rows split over 'space' as the JAX dry run shards them
+      (``P("data", "space", None, None)``: the network on halo'd row
+      blocks, its instance norms all-reduced, the energy summed over the
+      blocks; the gradient averaged over 'space', then 'data');
   (b) the VMS Navier-Stokes objective (the squared norms of the three
       residuals) on 16^2 lid-driven cavity fields split over ``('data',
       'space')`` as the JAX dry run shards them (one sample a data rank,
@@ -24,13 +27,8 @@ sizes:
       residual below 1e-2 as the JAX dry run asserts;
   (d) IBNPoisson3D with a UNet3D(base_filters=2) on 32^3, 8 samples a data
       rank (the reference's per-GPU batch), one Adam step through
-      ``Trainer.fit``.
-
-The networks are data-parallel only: GSPMD's automatic spatial
-partitioning of convolutions (the JAX dry run's 'space' axis on (a) and
-(d)) has no counterpart in the port yet, so along 'space' those two
-workloads are replicated until the conv nets are ported: each space rank
-of a data row takes the same step on the same rows.
+      ``Trainer.fit``, the depth planes split over 'space' as (a)'s rows
+      (``P("data", "space", None, None, None)``).
 
 The backend follows the device: NCCL with one card a rank where there are
 cards enough, gloo otherwise (CPU tensors, or several ranks sharing a card
@@ -71,11 +69,13 @@ class _Arrays:
 
 
 def _one_adam_step(module, inputs, forcing, mesh, dev) -> float:
+    """One Adam step on the global batch, its rows along 'data' and its
+    axis 1 along 'space' split over `mesh`."""
     from ..data.loader import NumpyLoader
     from ..train.trainer import Trainer
 
     loader = NumpyLoader(_Arrays(inputs, forcing), batch_size=len(inputs),
-                         device=dev, mesh=mesh)
+                         device=dev, mesh=mesh, space_axis=1)
     tr = Trainer(max_epochs=1, optimizer="adam", learning_rate=1e-3,
                  device=dev)
     tr.fit(module, loader)
@@ -101,9 +101,9 @@ def _dryrun_rank(rank: int, world: int, device: str) -> dict:
 
     # (a) the IBN UNet step
     n, bs = 32, 2 * data
-    net = UNet(3, 1, base_filters=4)
+    net = UNet(3, 1, base_filters=4, mesh=mesh)
     module = IBNPoisson2D(net, source_from="inputs", domain_size=n,
-                          batch_size=bs)
+                          batch_size=bs, mesh=mesh)
     inputs = rng.random((bs, n, n, 3)).astype(np.float32)
     forcing = rng.random((bs, n, n, 1)).astype(np.float32)
     loss = _one_adam_step(module, inputs, forcing, mesh, dev)
@@ -157,8 +157,8 @@ def _dryrun_rank(rank: int, world: int, device: str) -> dict:
 
     # (d) the 3D IBN step, 8 samples a data rank
     n3, bs3 = 32, 8 * data
-    net3 = UNet3D(3, 1, base_filters=2)
-    m3 = IBNPoisson3D(net3, domain_size=n3, batch_size=bs3)
+    net3 = UNet3D(3, 1, base_filters=2, mesh=mesh)
+    m3 = IBNPoisson3D(net3, domain_size=n3, batch_size=bs3, mesh=mesh)
     in3 = rng.random((bs3, n3, n3, n3, 3)).astype(np.float32)
     f3 = rng.random((bs3, n3, n3, n3, 1)).astype(np.float32)
     l3 = _one_adam_step(m3, in3, f3, mesh, dev)
@@ -194,6 +194,5 @@ def dryrun_multigpu(world: int, backend: str | None = None,
           f"{r['data']}, space={r['space']}) loss={r['loss']:.6f} "
           f"ns_loss={r['ns_loss']:.6f} cg_rel_res={r['cg_rel_res']:.2e} "
           f"ibn3d_loss={r['ibn3d_loss']:.6f} (bs={r['ibn3d_batch']} @ "
-          "32^3; (b) split over data and space, the networks "
-          "data-parallel only) OK", flush=True)
+          "32^3; (a), (b), (d) split over data and space) OK", flush=True)
     return r

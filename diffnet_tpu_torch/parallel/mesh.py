@@ -14,7 +14,8 @@ JAX's names and their counterparts:
 * ``data_sharding`` / ``spatial_sharding`` (placing a global array) ->
   :func:`local_block` (a rank's block of a global array along one axis)
   and :func:`gather_block` (the global array back from the blocks), both
-  by the one partition rule :func:`block_bounds`;
+  by the one partition rule :func:`block_bounds` and both differentiable
+  (the scatter and gather that GSPMD inserts where a split stops);
 * ``replicated`` -> :func:`replicate` (the first rank's values on every
   rank);
 * ``shard_batch`` -> :func:`shard_batch`;
@@ -43,9 +44,9 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["Mesh", "make_mesh", "shard_batch", "block_bounds",
-           "block_lengths", "local_block", "gather_block", "replicate",
-           "all_reduce_sum", "halo_exchange", "halo_exchange_transpose",
-           "halo_exchange_y", "halo_exchange_z"]
+           "block_lengths", "local_block", "gather_block", "spatial_mesh",
+           "replicate", "all_reduce_sum", "halo_exchange",
+           "halo_exchange_transpose", "halo_exchange_y", "halo_exchange_z"]
 
 
 @dataclass(frozen=True, eq=False)
@@ -222,18 +223,65 @@ def local_block(x, mesh: Mesh, axis: int = 0, mesh_axis: str = "data"):
     return np.take(x, np.arange(lo, lo + m), axis=axis)
 
 
+def _gather(x, mesh: Mesh, axis: int, mesh_axis: str, sizes: list[int]
+            ) -> torch.Tensor:
+    """The blocks of `sizes` slices along `axis`, concatenated."""
+    m = max(sizes)
+    buf = mesh.to_comm(x.contiguous())
+    if buf.shape[axis] < m:   # all_gather takes blocks of one shape
+        pad = list(buf.shape)
+        pad[axis] = m - buf.shape[axis]
+        buf = torch.cat([buf, buf.new_zeros(pad)], dim=axis)
+    parts = [torch.empty_like(buf) for _ in range(len(sizes))]
+    dist.all_gather(parts, buf, group=mesh.axis_group(mesh_axis))
+    return torch.cat([p.narrow(axis, 0, s) for p, s in zip(parts, sizes)],
+                     dim=axis).to(x.device)
+
+
+class _GatherBlock(torch.autograd.Function):
+    """The global tensor from the ranks' blocks, differentiable: each rank
+    backpropagates its share of the global tensor's cotangent (the
+    convention of :func:`all_reduce_sum`), so a block's cotangent is the
+    sum of the ranks' shares of its slices."""
+
+    @staticmethod
+    def forward(x, mesh, axis, mesh_axis, sizes):
+        return _gather(x, mesh, axis, mesh_axis, sizes)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        _, ctx.mesh, ctx.axis, ctx.mesh_axis, ctx.sizes = inputs
+
+    @staticmethod
+    def backward(ctx, g):
+        i = ctx.mesh.index(ctx.mesh_axis)
+        g = ctx.mesh.all_reduce(g.contiguous(), ctx.mesh_axis)
+        return (g.narrow(ctx.axis, sum(ctx.sizes[:i]), ctx.sizes[i]),
+                None, None, None, None)
+
+    @staticmethod
+    def jvp(ctx, gx, *_):
+        return _gather(gx, ctx.mesh, ctx.axis, ctx.mesh_axis, ctx.sizes)
+
+
 def gather_block(x: torch.Tensor, mesh: Mesh, axis: int = 0,
                  mesh_axis: str = "space", n: int | None = None
                  ) -> torch.Tensor:
     """The global tensor from the blocks of the ranks along `mesh_axis`
     (the inverse of :func:`local_block`), on every one of them. n: the
     global length along `axis`, whose :func:`block_bounds` give the blocks'
-    lengths; None gathers the lengths first (one more collective)."""
+    lengths; None gathers the lengths first (one more collective).
+
+    Differentiable in both modes. Its backward sums the ranks' cotangents
+    of the global tensor over `mesh_axis` and returns each rank those of
+    its own block: every rank backpropagates its share, as through
+    :func:`all_reduce_sum`. Its transpose, the scatter of a tensor that
+    every rank holds in full, is :func:`local_block` (a ``narrow``, whose
+    backward keeps this rank's slices' cotangents and zeros the rest)."""
     k = mesh.size(mesh_axis)
     if k == 1:
         return x
     axis = axis % x.dim()
-    group = mesh.axis_group(mesh_axis)
     if n is None:
         sizes = block_lengths(x.shape[axis], mesh, mesh_axis, x.device)
     else:
@@ -243,16 +291,14 @@ def gather_block(x: torch.Tensor, mesh: Mesh, axis: int = 0,
         raise ValueError(f"gather_block: this rank's block has "
                          f"{x.shape[axis]} slices along axis {axis}, the "
                          f"partition {sizes[mesh.index(mesh_axis)]}")
-    m = max(sizes)
-    buf = mesh.to_comm(x.contiguous())
-    if buf.shape[axis] < m:   # all_gather takes blocks of one shape
-        pad = list(buf.shape)
-        pad[axis] = m - buf.shape[axis]
-        buf = torch.cat([buf, buf.new_zeros(pad)], dim=axis)
-    parts = [torch.empty_like(buf) for _ in range(k)]
-    dist.all_gather(parts, buf, group=group)
-    return torch.cat([p.narrow(axis, 0, s) for p, s in zip(parts, sizes)],
-                     dim=axis).to(x.device)
+    return _GatherBlock.apply(x, mesh, axis, mesh_axis, sizes)
+
+
+def spatial_mesh(mesh: Mesh | None) -> Mesh | None:
+    """`mesh` where its 'space' axis has more than one rank, else None: the
+    test by which a module takes its split path or the one it takes
+    without a mesh."""
+    return mesh if mesh is not None and mesh.space > 1 else None
 
 
 @torch.no_grad()

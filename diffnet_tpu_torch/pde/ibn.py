@@ -9,6 +9,19 @@ Galerkin residual or, for ``'mask'``, the regression of the raw winding
 field. Image ensembles, whose chi is a dataset channel, are the same module
 with ``source_from='inputs'``. 3D: voxel topologies, chi a dataset channel,
 the same energy.
+
+``mesh=`` splits the fields over the 'space' axis of a process mesh, as
+the JAX dry run shards them (``P("data", "space", ...)``): the batch's
+rows (2D) or depth planes (3D), NHWC axis 1, are this rank's block of
+:func:`~diffnet_tpu_torch.parallel.block_bounds` (a
+``NumpyLoader(mesh=, space_axis=1)`` yields them), the network takes and
+gives the same block (a ``UNet`` or ``UNet3D`` built on the same mesh), the
+Dirichlet substitution runs on the block, and the Ritz energy is the
+global one on every rank (:func:`~.poisson.poisson_energy_loss_split`).
+Only the energy splits: under a 'space' axis of more than one rank the
+resmin and mask losses and the winding-number source raise
+NotImplementedError. With no mesh, or one 'space' rank, the modules run
+the code they run without one.
 """
 
 from __future__ import annotations
@@ -16,9 +29,10 @@ from __future__ import annotations
 import torch
 
 from ..core.geometry import occupancy_from_cloud, winding_grid
+from ..parallel.mesh import spatial_mesh
 from .base import FEM2DModule, FEM3DModule
 from .poisson import (_squeeze_field, poisson_energy_loss,
-                      poisson_resmin_residual)
+                      poisson_energy_loss_split, poisson_resmin_residual)
 
 __all__ = ["IBNPoisson2D", "IBNPoisson3D"]
 
@@ -45,16 +59,28 @@ class IBNPoisson2D(FEM2DModule):
       ``[B, Np, 2]``: ``DGCNN2D``, ``ImmDiff``) or ``'cloud_normals'``
       (points and normals, two arguments: ``ImmDiffLargeNormals``). chi
       still sets the immersed Dirichlet set.
+    mesh: a process mesh whose 'space' axis splits the fields' rows (see
+      the module's docstring; ``source_from='inputs'`` and the energy
+      only).
     """
 
     def __init__(self, network=None, dataset=None, source_from="winding",
                  winding_threshold=0.5, neumann=False,
-                 ibn_loss_type="energy", network_input="chi", **kwargs):
+                 ibn_loss_type="energy", network_input="chi", mesh=None,
+                 **kwargs):
         super().__init__(network, dataset, **kwargs)
         if network_input not in ("chi", "cloud", "cloud_normals"):
             raise ValueError(f"unknown network_input {network_input!r}")
         if ibn_loss_type not in ("energy", "resmin", "mask"):
             raise ValueError(f"unknown ibn_loss_type {ibn_loss_type!r}")
+        if spatial_mesh(mesh) is not None and (
+                source_from == "winding" or ibn_loss_type != "energy"):
+            raise NotImplementedError(
+                "IBNPoisson2D over a 'space' axis splits the energy of "
+                "fields given as inputs (source_from='inputs', "
+                f"ibn_loss_type='energy'), not source_from={source_from!r} "
+                f"with ibn_loss_type={ibn_loss_type!r}")
+        self.mesh = _checked_mesh(self, mesh)
         self.source_from = source_from
         self.winding_threshold = winding_threshold
         self.neumann = neumann
@@ -186,7 +212,11 @@ class IBNPoisson2D(FEM2DModule):
         Dirichlet data substituted, rows of the constrained set zeroed.
         Affine in u; its solution is the direct single-geometry solve the
         trained network is scored against. Inputs are (nu, bc1, bc2[,
-        bc3]), the stack :meth:`forward` builds."""
+        bc3]), the stack :meth:`forward` builds. Whole fields only."""
+        if spatial_mesh(self.mesh) is not None:
+            raise NotImplementedError("residual_for_field takes whole "
+                                      "fields, not blocks split over "
+                                      "'space'")
         nu, dirichlet = self._nu_and_dirichlet(inputs_tensor)
         f = _squeeze_field(forcing_tensor)
         u = self.apply_bcs(_squeeze_field(u), inputs_tensor)
@@ -207,14 +237,40 @@ class IBNPoisson2D(FEM2DModule):
                 self.gauss_pt_evaluation(f), dirichlet)
             return torch.sum(R**2)
         # the reference IBN weights its energy by the Gauss weights alone
-        return poisson_energy_loss(self, u, nu, f, self.basis.gpw(u.dtype))
+        return _energy(self, u, nu, f)
+
+
+def _checked_mesh(module, mesh):
+    """`mesh`, once the module's network is known to take and give the
+    same row blocks (built on the same mesh) where 'space' splits."""
+    if spatial_mesh(mesh) is not None and \
+            getattr(module.network, "mesh", None) is not mesh:
+        raise ValueError(f"{type(module).__name__} over a 'space' axis needs "
+                         "a network built on the same mesh (UNet(mesh=), "
+                         "UNet3D(mesh=))")
+    return mesh
+
+
+def _energy(module, u, nu, f):
+    """The Ritz energy weighted by the Gauss weights alone, the global one
+    on every rank over the module's 'space' axis."""
+    mesh = spatial_mesh(module.mesh)
+    w = module.basis.gpw(u.dtype)
+    if mesh is None:
+        return poisson_energy_loss(module, u, nu, f, w)
+    return poisson_energy_loss_split(module, u, nu, f, w, mesh)
 
 
 class IBNPoisson3D(FEM3DModule):
     """3D parametric IBN on voxel topology ensembles. Batch = (inputs[B, D,
     H, W, C], forcing); the network takes the inputs (domain, chi, bc2);
     u = 1 on chi, 0 on bc2; the energy is weighted by the Gauss weights
-    alone, as in 2D."""
+    alone, as in 2D. mesh: a process mesh whose 'space' axis splits the
+    fields' depth planes (see the module's docstring)."""
+
+    def __init__(self, network=None, dataset=None, mesh=None, **kwargs):
+        super().__init__(network, dataset, **kwargs)
+        self.mesh = _checked_mesh(self, mesh)
 
     def apply_bcs(self, u, inputs_tensor):
         """The Dirichlet substitution :meth:`loss` applies; [B, D, H, W]."""
@@ -227,5 +283,4 @@ class IBNPoisson3D(FEM3DModule):
         u = self.apply_bcs(u, inputs_tensor)
         f = forcing_tensor[..., 0] if forcing_tensor.ndim == u.ndim + 1 \
             else forcing_tensor
-        return poisson_energy_loss(self, u, inputs_tensor[..., 0], f,
-                                   self.basis.gpw(u.dtype))
+        return _energy(self, u, inputs_tensor[..., 0], f)

@@ -25,6 +25,8 @@ channels-last masks ``[..., (nu, bc1, bc2)]``: bc1 nodes take
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
@@ -33,10 +35,12 @@ from ..ops.poisson_energy import poisson_energy_fused
 from ..ops.poisson_loss_grad import poisson_resmin_loss_fused
 from ..ops.poisson_residual import poisson_residual_fused
 from ..ops.poisson_residual_3d import poisson_residual_fused_3d
+from ..parallel.mesh import all_reduce_sum, block_bounds, halo_exchange
 from .base import FDMModule, FEM2DModule, FEM3DModule
 
 __all__ = [
     "poisson_energy_loss",
+    "poisson_energy_loss_split",
     "poisson_resmin_residual",
     "poisson_resmin_residual_et",
     "poisson_strong_form_loss",
@@ -75,6 +79,41 @@ def poisson_energy_loss(module, u, nu, f, w):
     grad2 = sum(gp[q] ** 2 for q in grads)
     res = w * (0.5 * nu_gp * grad2 - gp["N"] * f_gp)
     return torch.mean(torch.sum(res, dim=-1))
+
+
+def poisson_energy_loss_split(module, u, nu, f, w, mesh):
+    """:func:`poisson_energy_loss` of fields split over the 'space' axis of
+    `mesh` by :func:`~diffnet_tpu_torch.parallel.block_bounds` along their
+    rows (2D, axis -2) or planes (3D, axis -3): u, nu, f this rank's
+    blocks ``[B, n_loc, ...]``. Each rank takes one row (plane) of each
+    from its next neighbour and sums the terms of the element rows it owns
+    (element row e spans node rows e and e + 1: a rank owns those that
+    start in its block), so no element counts twice; the sum, all-reduced
+    over 'space' (:func:`~diffnet_tpu_torch.parallel.all_reduce_sum`) and
+    divided by the global element count times B, is the global mean on
+    every rank. Degree-1 elements."""
+    if module.basis.deg != 1:
+        raise NotImplementedError("the split energy takes degree-1 "
+                                  f"elements, not degree {module.basis.deg}")
+    axis = u.dim() - module.nsd
+    b = block_bounds(module.node_shape[0], mesh.space)
+    i = mesh.space_index
+    if u.shape[axis] != b[i + 1] - b[i]:
+        raise ValueError(f"this rank's block has {u.shape[axis]} of the "
+                         f"{module.node_shape[0]} rows; block_bounds gives "
+                         f"it {b[i + 1] - b[i]}")
+    grown = halo_exchange(torch.stack([u, nu, f]), mesh, 1, axis + 1,
+                          zero_edges=False)
+    if mesh.space_neighbour(-1) is not None:   # the row before is not ours
+        grown = grown.narrow(axis + 1, 1, grown.shape[axis + 1] - 1)
+    ub, nub, fb = grown.unbind(0)
+    grads = _grads(module.nsd)
+    gp = module.gp_all(ub, ("N",) + grads)
+    grad2 = sum(gp[q] ** 2 for q in grads)
+    res = w * (0.5 * module.gauss_pt_evaluation(nub) * grad2
+               - gp["N"] * module.gauss_pt_evaluation(fb))
+    n_elements = u.shape[0] * math.prod(s - 1 for s in module.node_shape)
+    return all_reduce_sum(res.sum(), mesh) / n_elements
 
 
 def poisson_resmin_residual(module, u, nu_gp, f_gp, bc_mask):

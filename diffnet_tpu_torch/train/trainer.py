@@ -56,7 +56,13 @@ optimizer steps on ``module.training_loss``:
     LBFGS's line search and curvature pairs included,
     and ``nan_guard``, the switch and the callbacks see the same losses on
     every rank. Only the mesh's first rank writes logs and checkpoints
-    (give every rank the same ``run_dir``).
+    (give every rank the same ``run_dir``). A loader that also splits its
+    batches over the mesh's 'space' axis (``NumpyLoader(mesh=,
+    space_axis=)``) needs a module built on the same mesh, whose loss is
+    then the global one on every space rank (the IBN energies over a
+    split ``UNet``); the Trainer averages the gradients over 'space'
+    first, so that every rank's loss and gradients are one process's on
+    the global batch.
 """
 
 from __future__ import annotations
@@ -71,7 +77,7 @@ import numpy as np
 import torch
 
 from ..data.loader import NumpyLoader
-from ..parallel.mesh import all_reduce_sum, replicate
+from ..parallel.mesh import all_reduce_sum, replicate, spatial_mesh
 from ..utils.device import resolve_device
 from .lbfgs import LBFGS
 
@@ -286,17 +292,26 @@ def _spec_key(spec):
 
 
 def _data_mesh(loader, module):
-    """``(mesh, module.batch_reduction)`` for a loader on a mesh whose
-    'data' axis has more than one rank, else ``(None, None)``."""
+    """``(mesh, module.batch_reduction, split)`` for a loader on a mesh
+    whose 'data' axis has more than one rank or that splits its batches
+    over a 'space' axis of more than one rank (`split`), else ``(None,
+    None, False)``."""
     mesh = getattr(loader, "mesh", None)
-    if mesh is None or mesh.data == 1:
-        return None, None
+    split = (spatial_mesh(mesh) is not None
+             and getattr(loader, "space_axis", None) is not None)
+    if split and getattr(module, "mesh", None) is not mesh:
+        raise ValueError(
+            f"the loader splits its batches over 'space'; "
+            f"{type(module).__name__} must be built on the same mesh "
+            "(mesh=) to take the split fields")
+    if mesh is None or (mesh.data == 1 and not split):
+        return None, None, False
     reduction = getattr(module, "batch_reduction", "mean")
     if reduction not in ("mean", "sum", "global"):
         raise ValueError(
             f"{type(module).__name__}'s loss does not split over the batch "
             f"(batch_reduction={reduction!r}); it cannot train data-parallel")
-    return mesh, reduction
+    return mesh, reduction, split
 
 
 def _loss_fn(module, mesh, reduction):
@@ -311,6 +326,19 @@ def _loss_fn(module, mesh, reduction):
         parts = all_reduce_sum(module.training_parts(batch), mesh, "data")
         return module.loss_from_parts(parts.unbind(0))
     return loss_fn
+
+
+def _reduce_into(grads: list, mesh, axis: str, op: str) -> None:
+    """Replace `grads` by their sum or mean over `axis`, in one
+    all-reduce."""
+    if not grads:
+        return
+    flat = mesh.all_reduce(torch.cat([g.reshape(-1) for g in grads]), axis,
+                           op)
+    i = 0
+    for g in grads:
+        g.copy_(flat[i:i + g.numel()].view_as(g))
+        i += g.numel()
 
 
 class _Objective(NamedTuple):
@@ -389,6 +417,7 @@ class Trainer:
         self._last_obj_loss: list = []
         self._mesh = None           # fit's data mesh, None without one
         self._reduction = None      # its module's batch_reduction
+        self._split = False         # whether its batches split over 'space'
 
     # -- optimizers and steps --------------------------------------------
     def request_optimizer_switch(self, optimizer, learning_rate=None,
@@ -408,7 +437,11 @@ class Trainer:
         mean of the gradients, the loss already global); returns the global
         loss, detached. A parameter that this rank's rows left without a
         gradient gets a zero one, so that every rank reduces the same
-        layout. Without a mesh, `loss` as it is."""
+        layout. Batches split over 'space' first average the gradients
+        over 'space': each rank's backward of the loss, which every space
+        rank computes in full, carries ``size('space')`` times its share
+        (see ``parallel.all_reduce_sum``). Without a mesh, `loss` as it
+        is."""
         if self._mesh is None:
             return loss
         grads = []
@@ -416,6 +449,10 @@ class Trainer:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
             grads.append(p.grad)
+        if self._split:
+            _reduce_into(grads, self._mesh, "space", "mean")
+            if self._mesh.data == 1:
+                return loss.detach()
         dtype = grads[0].dtype if grads else loss.dtype
         own_loss = self._reduction == "global"
         flat = torch.cat([g.reshape(-1) for g in grads]
@@ -596,7 +633,8 @@ class Trainer:
                 "NumpyLoader(..., drop_last=False)")
         if params is not None:
             module.network.load_state_dict(params)
-        self._mesh, self._reduction = _data_mesh(dataloader, module)
+        self._mesh, self._reduction, self._split = _data_mesh(dataloader,
+                                                              module)
         if self._reduction == "global" and self.round_robin:
             raise ValueError(
                 "round_robin over a data mesh needs objectives that split "
@@ -663,7 +701,7 @@ class Trainer:
                     if v is not None:
                         metrics[f"loss_obj{i}"] = float(v)
                 if val_dataloader is not None:
-                    vmesh, vred = _data_mesh(val_dataloader, module)
+                    vmesh, vred, _ = _data_mesh(val_dataloader, module)
                     vfn = _loss_fn(module, vmesh, vred)
                     with torch.no_grad():
                         vlosses = [vfn(tuple(t.to(self.device) for t in b))

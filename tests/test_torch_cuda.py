@@ -1047,3 +1047,41 @@ def test_a_host_read_in_a_graphed_operator_raises(dev):
     x, _ = gmres(lambda v: A @ v, b, restart=4, maxiter=5)
     want = torch.linalg.solve(A, b)
     assert float((x - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+def test_split_unet_ibn_fit_on_the_card_matches_one_process(dev, tmp_path):
+    """chip_smoke's slice Q1 at 64^2 over 2 ranks sharing the card (gloo):
+    2 Adam steps of IBNPoisson2D(source_from="inputs") with UNet(16) from
+    seeded_params, the rows split over 'space' (the halo'd convolutions,
+    the all-reduced norms and energy), against one process on the card:
+    the losses within 1e-4 relative, the parameters after the first step
+    within 1e-6 but for at most 1e-4 of them (chip_smoke's Q_PARAM_*: a
+    gradient entry at rounding level next to Adam's eps moves its
+    parameter by up to ~lr; after the second step those few entries have
+    moved the whole net's gradient, 2 x 2 maps deep in the 64^2 U-Net
+    normalised over 4 nodes)."""
+    from diffnet_tpu_torch.interop import flax_shapes, seeded_params
+    from diffnet_tpu_torch.interop import params_from_jax
+    from diffnet_tpu_torch.models import UNet
+    from diffnet_tpu_torch.parallel import run_ranks
+    from tests import torch_spatial_net_ranks as ranks
+
+    rng = np.random.default_rng(4)
+    n, bs = 64, 2
+    chi = (rng.random((2 * bs, n, n)) > 0.7).astype(np.float32)
+    walls = np.zeros((n, n), np.float32)
+    walls[[0, -1]] = walls[:, [0, -1]] = 1.0
+    p = {"inputs": np.stack([1 - chi, chi, np.broadcast_to(walls, chi.shape)],
+                            -1).astype(np.float32),
+         "forcing": np.ones((2 * bs, n, n, 1), np.float32), "batch": bs,
+         "state": {k: v.numpy() for k, v in params_from_jax(seeded_params(
+             flax_shapes(UNet(3, 1, base_filters=16)), 0)).items()}}
+    want = ranks.q1_fit(p, "cuda")
+    out = run_ranks(ranks.q1_cuda_rank, 2, (p,),
+                    init_method="file://" + str(tmp_path / "rendezvous"),
+                    timeout=300.0, threads=2)
+    for r in out:
+        np.testing.assert_allclose(r["losses"], want["losses"], rtol=1e-4)
+        off = sum(int((np.abs(r["params"][k] - v) > 1e-6).sum())
+                  for k, v in want["params"].items())
+        assert off <= 1e-4 * sum(v.size for v in want["params"].values())
