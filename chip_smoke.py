@@ -281,6 +281,28 @@ exits non-zero (it also does so, printing no result, without CUDA):
         writes its artifacts, its seconds recorded (helmholtz, allen-cahn
         and the 2D eikonal at their training argvs only, and no 17^2
         ldc_validation: slices L and P4 run those solvers).
+     R. the study scripts as entry points (``convergence_study``,
+        ``precision_study``, ``fps_validation`` of
+        ``diffnet_tpu_torch.examples``), in-process through ``main(argv)``
+        (the ``studies`` path: K1 must launch), each held to the JAX
+        package's figures (scripts/torch_port_reference_studies.py): R1
+        the convergence study's --quick Poisson resmin rows, deg 1 at 17^2
+        and 33^2 through K1 (``--fused-kernels``), deg 2 at 9^2 and 17^2
+        and deg 3 at 7^2 and 13^2 plain (they refuse the flag): each error
+        at most 1.3x JAX's at its grid, each rate at least JAX's less
+        0.25, the seconds and K1 launches of each solve; R2 the precision
+        study with ``--fused-kernels``: section 1 (bf16 against float32
+        residuals at 128^2 and 512^2, the library policy's at most 1.3x
+        JAX's, K1's route beside it), section 2 (the 64^2 MMS by 300 LBFGS
+        steps under f32, bf16-residual and bf16-accum; f32 at most 1.3x
+        JAX's, the bf16 rows beside JAX's), 2b (32^2, 6,000 Adam steps in
+        float32 and bf16) and section 3 (elem/s of the library policy and
+        K1 in float32 and bf16 at 512^2 x 8, the card's name and power
+        limit beside them); then, off the path, K1's bf16 residual against
+        its float32 one within 8e-3 x max(1, max |float32|); R3 the
+        flow-past-square ns10 channel at h = 1/4 (49 x 25): the u, v and p
+        midline cuts within 1e-4 x max |u| of JAX's solution, the Newton
+        iterations at most JAX's + 2, |F| and the seconds.
   16. resident steps: steps/s of the 512^2 x 32 training steps with the
      batch on the card (fused and unfused) and of G3's NS step; 10 steps
      of each fused 512^2 x 32 loss (K2's, K3's) under ``torch.profiler``:
@@ -712,10 +734,14 @@ def phase_build() -> None:
 # K1 and K3 (float32 and bf16) at each shape; K2 and K3 (float32) at those
 # of K2_K3_SHAPES. 1 x 513^2 is slice D2's fine level; 1 x 2^2,
 # 3 x 129 x 257, 1 x 100 x 77 and 1 x 40 x 65 hit the tile edges (widths
-# that are no multiple of K1's and K3's 64 columns or K2's 61).
+# that are no multiple of K1's and K3's 64 columns or K2's 61). Slice R
+# runs K1 at 1 x 17^2 and 1 x 33^2 (R1), 2 x 128^2, 2 x 512^2 and
+# 8 x 512^2 (R2).
 K1_SHAPES = ((2, 33, 33, True), (2, 40, 40, False), (2, 24, 49, False),
              (1, 2, 2, False), (3, 129, 257, False), (1, 100, 77, False),
-             (1, 40, 65, False), (1, 513, 513, False), (32, 512, 512, False))
+             (1, 40, 65, False), (1, 513, 513, False), (32, 512, 512, False),
+             (1, 17, 17, False), (1, 33, 33, False), (2, 128, 128, False),
+             (2, 512, 512, False), (8, 512, 512, False))
 K2_K3_SHAPES = ((2, 33, 33), (2, 40, 40), (1, 40, 65), (1, 100, 77),
                 (3, 129, 257), (1, 2, 2), (1, 513, 513), (32, 512, 512))
 # K2 and K3 (both types) also at every tile height the kernels take
@@ -4538,6 +4564,321 @@ def slice_p(dev, smi: str) -> dict:
     return out
 
 
+# -- slice R: the study scripts as entry points ---------------------------
+# Each case as scripts/torch_port_reference_studies.py runs it from
+# scripts/torch_port_reference_studies_cases.py; JAX_R holds the figures
+# that script prints (JAX_PLATFORMS=cpu python
+# scripts/torch_port_reference_studies.py).
+from torch_port_reference_studies_cases import (  # noqa: E402
+    R1_ROWS, R2_ACC_GRIDS, R2_TP_BATCH, R2_TP_GRID, R3_CASE, R3_H,
+    R3_NEWTON_CAP, midline_cuts)
+R1_ERR_FACTOR = 1.3     # each error at most 1.3x JAX's at the same grid
+R1_RATE_SLACK = 0.25    # each rate at least JAX's less 0.25
+R2_F32_FACTOR = 1.3     # section 2's f32 solve at most 1.3x JAX's
+R2_ACC_FACTOR = 1.3     # section 1's library route at most 1.3x JAX's
+R2_MOVED = 0.95         # a section 2 bf16 row below it where JAX's is:
+                        # its field left the zero start (rel L2 1)
+# the open difference (ROADMAP.md Queue 3): the port's bf16-residual solve
+# at 64^2 stays at its zero start, where optax's L-BFGS moves to 0.637
+R2_OPEN_FAULTS = ("bf16-residual",)
+R3_CUT_ATOL = 1e-4      # the midline cuts, times max |u| of JAX's solution
+R3_ITERS_SLACK = 2      # Newton iterations: JAX's + 2 (JAX below its cap)
+JAX_R = {   # scripts/torch_port_reference_studies.py, on a CPU
+    "r1_errs": {
+        "poisson-resmin-deg1": [0.0032090572640299797, 0.0008017112268134952],
+        "poisson-resmin-deg2": [0.0032191467471420765, 0.0004097116179764271],
+        "poisson-resmin-deg3": [0.0037288705352693796, 0.00024552023387514055],
+    },
+    "r1_rates": {
+        "poisson-resmin-deg1": [2.0009949516656285],
+        "poisson-resmin-deg2": [2.973997636361858],
+        "poisson-resmin-deg3": [3.924824877951393],
+    },
+    "r2_accuracy": {
+        "128": 0.005811598798782653,
+        "512": 0.004236866356330107,
+    },
+    "r2_solve": {
+        "f32": 0.0002045467699645087,
+        "bf16-residual": 0.6374367475509644,
+        "bf16-accum": 0.6815817356109619,
+    },
+    "r2_adam": {
+        "float32": 0.002110250759869814,
+        "bfloat16": 0.035361483693122864,
+    },
+    "r3_newton_iters": 5,
+    "r3_final_F": 9.661664535087766e-07,
+    "r3_u_max": 1.224822998046875,
+    "r3_grid": [49, 25],
+    "r3_cuts": {
+        "uX": [
+            1.0, 0.9900338053703308, 0.9569130539894104, 0.8984875082969666,
+            0.8064752817153931, 0.6668428182601929, 0.45015233755111694,
+            0.19014954566955566, 0.0, 0.0, 0.0, 0.0, 0.0,
+            -0.0030498052947223186, 0.001579680247232318,
+            0.046037688851356506, 0.10479899495840073, 0.1693103313446045,
+            0.23462055623531342, 0.2983630299568176, 0.3592732846736908,
+            0.41667747497558594, 0.4702262580394745, 0.5197715759277344,
+            0.5653008818626404, 0.6068977117538452, 0.6447154879570007,
+            0.6789564490318298, 0.7098554372787476, 0.7376658320426941,
+            0.7626480460166931, 0.7850608825683594, 0.8051545023918152,
+            0.8231661319732666, 0.8393160700798035, 0.8538072109222412,
+            0.866823136806488, 0.8785296082496643, 0.8890742063522339,
+            0.8985881805419922, 0.9071876406669617, 0.9149746298789978,
+            0.9220386743545532, 0.9284574389457703, 0.9342979192733765,
+            0.939616322517395, 0.944457471370697, 0.9488582611083984,
+            0.9526558518409729],
+        "pX": [
+            1.0108532905578613, 1.0030218362808228, 1.0237226486206055,
+            1.0673656463623047, 1.1372275352478027, 1.2394599914550781,
+            1.3373663425445557, 1.4364768266677856, 1.3681694269180298,
+            0.7626838684082031, 0.36120957136154175, 0.14059747755527496,
+            0.03319673240184784, -0.00822337158024311, 0.046373043209314346,
+            0.08493789285421371, 0.12521623075008392, 0.1577530801296234,
+            0.1826629787683487, 0.20011459290981293, 0.21102678775787354,
+            0.2164195477962494, 0.21731704473495483, 0.21466585993766785,
+            0.2093050628900528, 0.2019527703523636, 0.1932050883769989,
+            0.1835421472787857, 0.1733391433954239, 0.1628798246383667,
+            0.15237131714820862, 0.14195843040943146, 0.13173699378967285,
+            0.12176544964313507, 0.11207467317581177, 0.10267584770917892,
+            0.09356683492660522, 0.0847366601228714, 0.0761692076921463,
+            0.06784561276435852, 0.05974608659744263, 0.051851071417331696,
+            0.044142190366983414, 0.03660300001502037, 0.029219746589660645,
+            0.021982461214065552, 0.014885183423757553, 0.007984739728271961,
+            0.0],
+        "uY": [
+            0.0, 0.364624947309494, 0.6390312314033508, 0.8488430976867676,
+            1.0156445503234863, 1.146264672279358, 1.2222578525543213,
+            1.1918056011199951, 0.9711106419563293, 0.5302475094795227, 0.0,
+            0.0, 0.0, 0.0, 0.0, 0.5302474498748779, 0.9711105823516846,
+            1.1918054819107056, 1.2222578525543213, 1.146264672279358,
+            1.0156444311141968, 0.8488430380821228, 0.6390312910079956,
+            0.3646250069141388, 0.0],
+        "vY": [
+            0.0, -0.009507632814347744, -0.039170585572719574,
+            -0.0817614272236824, -0.13124004006385803, -0.17895138263702393,
+            -0.21006068587303162, -0.20199653506278992, -0.13474227488040924,
+            -0.051867563277482986, 0.0, 0.0, 0.0, 0.0, 0.0,
+            0.051867567002773285, 0.13474228978157043, 0.20199652016162872,
+            0.21006068587303162, 0.17895138263702393, 0.13124004006385803,
+            0.08176141232252121, 0.03917057439684868, 0.009507648646831512,
+            0.0],
+    },
+}
+
+
+def _counting(mod, name: str, log: list):
+    """Wrap ``mod.name`` so that each call appends its kernel launches and
+    seconds to `log`; returns the restore."""
+    fn = getattr(mod, name)
+
+    def counted(*args, **kw):
+        before = counts()
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        log.append({"n": args[0], "seconds": time.perf_counter() - t0,
+                    "launches": since(before)})
+        return out
+
+    setattr(mod, name, counted)
+    return lambda: setattr(mod, name, fn)
+
+
+def slice_r1(dev, smi: str, tmp: str) -> dict:
+    """The convergence study's --quick Poisson resmin rows: deg 1 through
+    K1 (--fused-kernels), deg 2 and 3 plain (they refuse the flag)."""
+    from diffnet_tpu_torch.examples import convergence_study as cs
+
+    fused = [k for k, (_, _, k1) in R1_ROWS.items() if k1]
+    plain = [k for k, (_, _, k1) in R1_ROWS.items() if not k1]
+    refused = False
+    try:
+        with contextlib.redirect_stderr(io.StringIO()):
+            cs.main(["--quick", "--rows", *plain, "--fused-kernels",
+                     "--out", os.path.join(tmp, "refused.md")])
+    except SystemExit:
+        refused = True
+    if not refused:
+        fail("slice R1: the deg-2/3 rows took --fused-kernels")
+    solves, launches = [], {name: 0 for name in KERNELS}
+    restore = _counting(cs, "solve_poisson", solves)
+    try:
+        rows = []
+        for keys, flag in ((fused, ["--fused-kernels"]), (plain, [])):
+            r, line = _p_cli("convergence_study", [
+                "--quick", "--rows", *keys, *flag, "--out",
+                os.path.join(tmp, "CONVERGENCE.md")])
+            rows += r["rows"]
+            launches = {k: v + line["launches"][k]
+                        for k, v in launches.items()}
+    finally:
+        restore()
+    out = []
+    for row in rows:   # the solves ran row by row, grid by grid
+        key = row["key"]
+        deg, grids, k1 = R1_ROWS[key]
+        jerr, jrate = JAX_R["r1_errs"][key], JAX_R["r1_rates"][key]
+        mine, solves = solves[:len(grids)], solves[len(grids):]
+        entry = {"row": key, "deg": deg, "grids": row["grids"],
+                 "errs": row["errs"], "rates": row["rates"],
+                 "jax_errs": jerr, "jax_rates": jrate,
+                 "seconds": row["seconds"], "through_k1": k1,
+                 "k1_launches": [s["launches"]["poisson_stiffness_action"]
+                                 for s in mine]}
+        out.append(entry)
+        if list(row["grids"]) != list(grids):
+            fail(f"slice R1: {key} grids {row['grids']}")
+        for n, e, je in zip(grids, row["errs"], jerr):
+            if not (math.isfinite(e) and e <= R1_ERR_FACTOR * je):
+                fail(f"slice R1: {key} at {n}: error {e} > "
+                     f"{R1_ERR_FACTOR} x JAX's {je}")
+        for r, jr in zip(row["rates"], jrate):
+            if not r >= jr - R1_RATE_SLACK:
+                fail(f"slice R1: {key}: rate {r} < JAX's {jr} - "
+                     f"{R1_RATE_SLACK}")
+        if k1 != all(x > 0 for x in entry["k1_launches"]) or (
+                not k1 and any(entry["k1_launches"])):
+            fail(f"slice R1: {key}: K1 launches {entry['k1_launches']}")
+    emit({"phase": "slice_R1", "nvidia_smi": smi, "rows": out,
+          "err_factor": R1_ERR_FACTOR, "rate_slack": R1_RATE_SLACK,
+          "launches": launches})
+    return launches
+
+
+def slice_r2(dev, smi: str, tmp: str) -> dict:
+    """The precision study (every section, K1's route beside the library
+    policy's in sections 1 and 3)."""
+    r, line = _p_cli("precision_study", [
+        "--fused-kernels", "--out", os.path.join(tmp, "MIXED_PRECISION.md")])
+    jax = {"accuracy": JAX_R["r2_accuracy"], "solve": JAX_R["r2_solve"],
+           "adam": JAX_R["r2_adam"]}
+    line.update(phase="slice_R2", nvidia_smi=smi, accuracy=r["accuracy"],
+                solve=r["solve"], adam=r["adam"],
+                throughput_elem_per_s=r["throughput"],
+                throughput_shape=[R2_TP_BATCH, R2_TP_GRID, R2_TP_GRID],
+                section_seconds=r["seconds"],
+                jax=jax, f32_factor=R2_F32_FACTOR,
+                accuracy_factor=R2_ACC_FACTOR, moved_below=R2_MOVED,
+                open_faults=list(R2_OPEN_FAULTS))
+    emit(line)
+    for policy in ("bf16-residual", "bf16-accum"):
+        got, ref = r["solve"][policy], JAX_R["r2_solve"][policy]
+        if (policy not in R2_OPEN_FAULTS and ref < R2_MOVED
+                and not got < R2_MOVED):
+            fail(f"slice R2: the {policy} solve stayed at its start: rel "
+                 f"L2 {got}, JAX's {ref}")
+    if not r["solve"]["f32"] <= R2_F32_FACTOR * JAX_R["r2_solve"]["f32"]:
+        fail(f"slice R2: the f32 solve's rel L2 {r['solve']['f32']} > "
+             f"{R2_F32_FACTOR} x JAX's {JAX_R['r2_solve']['f32']}")
+    for n in R2_ACC_GRIDS:
+        got, ref = r["accuracy"][f"library_{n}"], JAX_R["r2_accuracy"][str(n)]
+        if not got <= R2_ACC_FACTOR * ref:
+            fail(f"slice R2: section 1 at {n}^2: {got} > {R2_ACC_FACTOR} "
+                 f"x JAX's {ref}")
+    if not all(math.isfinite(v) and v > 0
+               for v in [*r["accuracy"].values(), *r["solve"].values(),
+                         *r["adam"].values(), *r["throughput"].values()]):
+        fail(f"slice R2: a figure is not finite: {line}")
+    if line["launches"]["poisson_stiffness_action"] <= 0:
+        fail("slice R2: K1 never launched")
+    return line["launches"]
+
+
+def r2_k1_bf16_check(dev, smi: str) -> dict:
+    """The precision study's K1 route (``residual_k1``) at the shapes R2
+    runs it at, section 1's and section 3's, against the plain library
+    route (``residual``) on the same fields: float32 within FIELD_ATOL x
+    max(1, max |plain|); bf16 within BF16_ATOL x max(1, max |plain|) of
+    the plain route on the bf16 fields widened to float32 (K1's one
+    rounding on the store) and of K1's own float32 result. Not on the
+    path: the launch counts are restored."""
+    from diffnet_tpu_torch.examples import precision_study as ps
+
+    before = counts()
+    out = {}
+    shapes = [(2, n) for n in R2_ACC_GRIDS] + [(R2_TP_BATCH, R2_TP_GRID)]
+    for bs, n in shapes:
+        basis = ps._basis(n, dev)
+        u, nu, f = ps._fields(n, bs, dev)
+        ub, nub, fb = u.bfloat16(), nu.bfloat16(), f.bfloat16()
+        bc = torch.zeros((n, n), device=dev)
+        bc[0, :] = 1.0
+        with torch.no_grad():
+            r32 = ps.residual_k1(u, nu, f, basis, n, bc)
+            p32 = ps.residual(u, nu, f, basis, n, bc)
+            r16 = ps.residual_k1(ub, nub, fb, basis, n, bc)
+            p16 = ps.residual(ub.float(), nub.float(), fb.float(), basis, n,
+                              bc)
+        e32 = float((r32 - p32).abs().max())
+        l32 = FIELD_ATOL * max(1.0, float(p32.abs().max()))
+        e16 = float((r16.float() - p16).abs().max())
+        l16 = BF16_ATOL * max(1.0, float(p16.abs().max()))
+        e16_32 = float((r16.float() - r32).abs().max())
+        l16_32 = BF16_ATOL * max(1.0, float(r32.abs().max()))
+        key = f"{bs}x{n}^2"
+        out[key] = {"f32_vs_plain": e32, "f32_limit": l32,
+                    "bf16_vs_plain": e16, "bf16_limit": l16,
+                    "bf16_vs_f32": e16_32, "bf16_vs_f32_limit": l16_32}
+        if not e32 <= l32:
+            fail(f"slice R2: K1's residual at {key} {e32} off the plain "
+                 f"route's > {l32}")
+        if r16.dtype != torch.bfloat16 or not (e16 <= l16
+                                               and e16_32 <= l16_32):
+            fail(f"slice R2: K1's bf16 residual at {key}: {out[key]}")
+    for name, (mod, attr, _, _) in KERNELS.items():
+        setattr(mod, attr, before[name])
+    emit({"phase": "slice_R2_k1_bf16", "nvidia_smi": smi, **out})
+    return out
+
+
+def slice_r3(dev, smi: str, tmp: str) -> dict:
+    """One channel solve of the flow-past-square validation, against the
+    JAX package's solution of the same case."""
+    r, line = _p_cli("fps_validation", ["--cases", R3_CASE, "--h", R3_H,
+                                        "--out", tmp])
+    s = r["solved"][R3_CASE]
+    info = s["info"]
+    cuts = midline_cuts(s["u"], s["v"], s["p"], R3_H)
+    scale = JAX_R["r3_u_max"]   # max |u| of JAX's solution
+    errs = {k: float(np.abs(cuts[k] - np.asarray(JAX_R["r3_cuts"][k])).max()
+                     / scale) for k in cuts}
+    line.update(phase="slice_R3", nvidia_smi=smi, case=R3_CASE, h=R3_H,
+                grid=list(s["u"].shape[::-1]),
+                newton_iters=info["newton_iters"],
+                jax_newton_iters=JAX_R["r3_newton_iters"],
+                final_F=info["residual_history"][-1],
+                jax_final_F=JAX_R["r3_final_F"],
+                residual_history=info["residual_history"],
+                cut_errs_rel_max_u=errs, cut_atol=R3_CUT_ATOL)
+    emit(line)
+    if not all(e <= R3_CUT_ATOL for e in errs.values()):
+        fail(f"slice R3: midline cuts off JAX's: {errs}")
+    if (JAX_R["r3_newton_iters"] < R3_NEWTON_CAP and info["newton_iters"]
+            > JAX_R["r3_newton_iters"] + R3_ITERS_SLACK):
+        fail(f"slice R3: {info['newton_iters']} Newton iterations, JAX "
+             f"{JAX_R['r3_newton_iters']}")
+    if not os.path.exists(os.path.join(tmp, f"{R3_CASE}.png")):
+        fail("slice R3: no plot")
+    return line["launches"]
+
+
+def slice_r(dev, smi: str) -> dict:
+    """The study entry points (R1-R3): the launches of each."""
+    with tempfile.TemporaryDirectory(
+            dir=os.path.dirname(os.path.abspath(__file__))) as tmp:
+        t0 = time.perf_counter()
+        r1 = slice_r1(dev, smi, tmp)
+        t1 = time.perf_counter()
+        r2 = slice_r2(dev, smi, tmp)
+        t2 = time.perf_counter()
+        r3 = slice_r3(dev, smi, tmp)
+        t3 = time.perf_counter()
+    return {"R1": r1, "R2": r2, "R3": r3,
+            "seconds": {"R1": t1 - t0, "R2": t2 - t1, "R3": t3 - t2}}
+
+
 FUSED_2D_STEPS = (   # the resident 512^2 x 32 steps on the fused losses
     ("resmin_fused_loss_grad", "resmin",
      {"fused_kernels": True, "fused_loss_grad": True}),
@@ -4623,7 +4964,8 @@ def resident_step_profiles(dev) -> dict:
 # outer Krylov matvec on top of the V-cycle's visits that every level takes.
 # J runs K1 at 32 x 64^2 in the energy's VJP and at 1 x 64^2 in the direct
 # solves, which take most of its launches. M2 runs K3 and K1 (its VJP) at
-# 1 x 64^2, M3 K1 at 1 x 32^2 in its CG solves. O runs K4 on the split
+# 1 x 64^2, M3 K1 at 1 x 32^2 in its CG solves, R1 at 1 x 17^2 and
+# 1 x 33^2 (the finer grid stands for it). O runs K4 on the split
 # V-cycle's halo'd blocks (a middle fine block, 1 x 130 x 513, stands for
 # them) and K6 on 129^2's halo'd row blocks (34 rows but the first's 33)
 # and on O4's 2 x 256^2 rows a rank.
@@ -4632,7 +4974,8 @@ SLICE_SHAPES = {
                                  "C": (32, 512, 512), "D2": (1, 513, 513),
                                  "J": (1, 64, 64), "M2": (1, 64, 64),
                                  "M3": (1, 32, 32), "P1": (1, 64, 64),
-                                 "P2": (1, 513, 513), "P5": (32, 64, 64)},
+                                 "P2": (1, 513, 513), "P5": (32, 64, 64),
+                                 "R1": (1, 33, 33)},
     "poisson_resmin_loss_grad": {"B": (32, 512, 512)},
     "poisson_energy": {"C": (32, 512, 512), "J": (32, 64, 64),
                        "M2": (1, 64, 64), "P5": (32, 64, 64)},
@@ -4778,13 +5121,17 @@ def main() -> int:
     reset_counts()           # the entry points: the example CLIs
     lp = slice_p(dev, smi)
     paths["entry_points"] = counts()
+    reset_counts()           # the study entry points: K1 in R1 and R2
+    lr = slice_r(dev, smi)
+    paths["studies"] = counts()
+    r2_k1_bf16_check(dev, smi)
     total = {name: sum(p[name] for p in paths.values()) for name in KERNELS}
     emit({"phase": "main_path_launches", "total": total, **paths,
           "slice_A": la, "slice_B": lb, "slice_C": lc, "slice_E1": le1,
           "slice_E2": le2, "slice_G1": lg1, "slice_G2": lg2,
           "slice_G3": lg3, "slice_H": lh, "slice_I": li, "slice_J": lj,
           "slice_K": lk, "slice_L": ll, "slice_M": lm, "slice_N": ln,
-          "slice_O": lo, "slice_Q": lq, "slice_P": lp})
+          "slice_O": lo, "slice_Q": lq, "slice_P": lp, "slice_R": lr})
     for path, names in (("training_2d", ("poisson_stiffness_action",
                                          "poisson_resmin_loss_grad",
                                          "poisson_energy")),
@@ -4807,7 +5154,8 @@ def main() -> int:
                         ("entry_points", ("poisson_stiffness_action",
                                           "poisson_energy",
                                           "poisson_stiffness_action_3d",
-                                          "ns_vms_residual"))):
+                                          "ns_vms_residual")),
+                        ("studies", ("poisson_stiffness_action",))):
         for name in names:
             if paths[path][name] <= 0:
                 fail(f"{name} was never launched on the {path} path")
@@ -4817,7 +5165,8 @@ def main() -> int:
     emit({"phase": "resident_step_profiles", **resident_step_profiles(dev)})
     by_slice = {"A": la, "B": lb, "C": lc, **ld, "E1": le1, "E2": le2, **lf,
                 "G1": lg1, "G2": lg2, "G3": lg3, "I": li, "J": lj,
-                "K": lk, "M2": lm["M2"], "M3": lm["M3"], "O": lo, **lp}
+                "K": lk, "M2": lm["M2"], "M3": lm["M3"], "O": lo, **lp,
+                "R1": lr["R1"]}
     path = phase_path_shapes(dev, by_slice)
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": source,

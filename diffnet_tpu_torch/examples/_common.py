@@ -8,7 +8,9 @@ from __future__ import annotations
 import argparse
 import importlib.util
 import os
+import shutil
 import struct
+import subprocess
 import zlib
 
 import numpy as np
@@ -17,7 +19,7 @@ import torch
 from ..utils.device import resolve_device
 
 __all__ = ["add_port_flags", "device_of", "no_kernel", "host",
-           "save_contours", "save_lines"]
+           "device_label", "save_contours", "save_lines"]
 
 def add_port_flags(p: argparse.ArgumentParser) -> None:
     """``--device`` and ``--fused-kernels``."""
@@ -37,6 +39,23 @@ def no_kernel(p: argparse.ArgumentParser, args, what: str) -> None:
     """Refuse ``--fused-kernels`` for a module that has no fused path."""
     if args.fused_kernels:
         p.error(f"--fused-kernels: {what} has no fused kernel")
+
+
+def device_label(dev: torch.device) -> str:
+    """Where a figure was measured: the card's name and power limit as
+    ``nvidia-smi --query-gpu=name,power.limit`` gives them, or "the
+    CPU"."""
+    if dev.type != "cuda":
+        return "the CPU"
+    index = torch.device(dev).index or 0
+    if shutil.which("nvidia-smi"):
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader", "-i", str(index)],
+            capture_output=True, text=True, timeout=30)
+        if out.returncode == 0 and out.stdout.strip():
+            return out.stdout.strip()
+    return f"{torch.cuda.get_device_name(index)}, power limit not read"
 
 
 def host(a) -> np.ndarray:

@@ -35,7 +35,11 @@ optimisation through K1 against the CPU route, its first compliance at
 K3 and K1 at 1e-5 of the plain loss and of the largest field gradient;
 the CUDA-graph replays of the V-cycle (at the fields' tolerance) and of
 GMRES on the NS Jacobian (at its tol, 1e-4 of max |dx|) against their
-eager runs, each with the eager run's kernel counts.
+eager runs, each with the eager run's kernel counts; the convergence
+study's 17^2 deg-1 solve through K1 at 1e-3 of the CPU route's error; the
+precision study's K1 bf16 residual at 8e-3 times max(1, max |float32|)
+of its float32 result, its graphed Adam solve at 5e-2 of the CPU's and
+its graphed LBFGS solve at 1e-3.
 """
 
 import numpy as np
@@ -1085,3 +1089,76 @@ def test_split_unet_ibn_fit_on_the_card_matches_one_process(dev, tmp_path):
         off = sum(int((np.abs(r["params"][k] - v) > 1e-6).sum())
                   for k, v in want["params"].items())
         assert off <= 1e-4 * sum(v.size for v in want["params"].values())
+
+
+def test_convergence_study_solve_through_k1(dev):
+    """The convergence study's deg-1 resmin solve at 17^2 (slice R1's
+    first grid) with --fused-kernels' route: every residual through K1 on
+    the card, the error within 1e-3 relative of the CPU route's (K1's
+    plain version; both at the grid's discretisation error, 3.21e-3) and
+    within 1.3x of the JAX package's 3.209e-3 (slice R1's limit)."""
+    from diffnet_tpu_torch.examples import convergence_study as cs
+
+    before = k1.launches
+    got = cs.solve_poisson(17, 1, "resmin", device="cuda",
+                           fused_kernels=True)
+    assert k1.launches - before > 0
+    ref = cs.solve_poisson(17, 1, "resmin", epochs=120, device="cpu",
+                           fused_kernels=True)
+    assert abs(got / ref - 1) <= 1e-3, (got, ref)
+    assert got <= 1.3 * 0.0032090572640299797
+
+
+@pytest.mark.parametrize("n", [128, 512])
+def test_precision_study_k1_bf16_residual_against_float32(dev, n):
+    """The precision study's K1 route (bf16 loads, float32 arithmetic, one
+    rounding on the store) against its float32 result on the same fields,
+    at section 1's sizes: within 8e-3 x max(1, max |float32|), and the
+    float32 route within 2e-6 x max(1, max |ref|) of the library-policy
+    residual."""
+    from diffnet_tpu_torch.examples import precision_study as ps
+
+    basis = ps._basis(n, dev)
+    u, nu, f = ps._fields(n, 2, dev)
+    bc = torch.zeros((n, n), device=dev)
+    bc[0, :] = 1.0
+    before = k1.launches
+    with torch.no_grad():
+        r32 = ps.residual_k1(u, nu, f, basis, n, bc)
+        r16 = ps.residual_k1(u.bfloat16(), nu.bfloat16(), f.bfloat16(),
+                             basis, n, bc)
+        lib = ps.residual(u, nu, f, basis, n, bc)
+    assert k1.launches - before == 2
+    assert r16.dtype == torch.bfloat16
+    scale = max(1.0, float(r32.abs().max()))
+    assert float((r16.float() - r32).abs().max()) <= 8e-3 * scale
+    assert float((r32 - lib).abs().max()) <= 2e-6 * max(
+        1.0, float(lib.abs().max()))
+
+
+def test_precision_study_graphed_adam_matches_the_cpu(dev):
+    """Section 2b's Adam solve on the card, its steps after the first one
+    CUDA graph replayed, against the CPU's eager steps: 200 steps at
+    17^2 within 5e-2 relative (the CPU tests' tolerance against JAX: Adam
+    from zeros amplifies float32 rounding), and the graph's steps are
+    all taken (the error is far below the zero field's 1)."""
+    from diffnet_tpu_torch.examples import precision_study as ps
+
+    for dt in (torch.float32, torch.bfloat16):
+        got = ps.solve_mms_adam(17, dt, steps=200, device="cuda")
+        ref = ps.solve_mms_adam(17, dt, steps=200, device="cpu")
+        assert abs(got / ref - 1) <= 5e-2, (dt, got, ref)
+        assert got < 0.5
+
+
+def test_precision_study_graphed_lbfgs_matches_the_cpu(dev):
+    """Section 2's LBFGS solve on the card, each loss-and-gradient
+    evaluation one CUDA graph replay, against the CPU's eager
+    evaluations: f32, 20 steps at 17^2, within 1e-3 relative (the CPU
+    tests' tolerance against JAX; both at the grid's discretisation
+    error, 3.22e-3)."""
+    from diffnet_tpu_torch.examples import precision_study as ps
+
+    got = ps.solve_mms(17, "f32", steps=20, device="cuda")
+    ref = ps.solve_mms(17, "f32", steps=20, device="cpu")
+    assert abs(got / ref - 1) <= 1e-3, (got, ref)
