@@ -293,9 +293,10 @@ exits non-zero (it also does so, printing no result, without CUDA):
         0.25, the seconds and K1 launches of each solve; R2 the precision
         study with ``--fused-kernels``: section 1 (bf16 against float32
         residuals at 128^2 and 512^2, the library policy's at most 1.3x
-        JAX's, K1's route beside it), section 2 (the 64^2 MMS by 300 LBFGS
-        steps under f32, bf16-residual and bf16-accum; f32 at most 1.3x
-        JAX's, the bf16 rows beside JAX's), 2b (32^2, 6,000 Adam steps in
+        JAX's, K1's route beside it), section 2 (the 64^2 MMS by 300
+        updates of the port of optax's L-BFGS under f32, bf16-residual and
+        bf16-accum; each at most 1.3x JAX's, the bf16 rows also below 0.95,
+        off their zero start), 2b (32^2, 6,000 Adam steps in
         float32 and bf16) and section 3 (elem/s of the library policy and
         K1 in float32 and bf16 at 512^2 x 8, the card's name and power
         limit beside them); then, off the path, K1's bf16 residual against
@@ -303,6 +304,17 @@ exits non-zero (it also does so, printing no result, without CUDA):
         flow-past-square ns10 channel at h = 1/4 (49 x 25): the u, v and p
         midline cuts within 1e-4 x max |u| of JAX's solution, the Newton
         iterations at most JAX's + 2, |F| and the seconds.
+     S. ``Trainer(steps_per_call=10)``, each chunk of 10 Adam steps one
+        CUDA graph (the ``training_2d_graphed`` path), on slice B's and
+        C's modules (512^2 x 32 through K2 and K3, 10 batches an epoch)
+        from the same start as ``steps_per_call=1``: 3 epochs each (the
+        first chunk runs eagerly and captures, the later ones replay),
+        every step's loss within ``S_LOSS_RTOL`` and the final field
+        within ``S_FIELD_ATOL`` x max |u| of the single steps', K2 and K3
+        launched 10 times each epoch (a replay counts the graph's
+        kernels); steps/s through ``fit`` (the module's loader) and
+        resident (``fit`` on 10 batches already on the card) at K = 1 and
+        K = 10, epochs 2-3, beside the card's name and power limit.
   16. resident steps: steps/s of the 512^2 x 32 training steps with the
      batch on the card (fused and unfused) and of G3's NS step; 10 steps
      of each fused 512^2 x 32 loss (K2's, K3's) under ``torch.profiler``:
@@ -4578,9 +4590,7 @@ R2_F32_FACTOR = 1.3     # section 2's f32 solve at most 1.3x JAX's
 R2_ACC_FACTOR = 1.3     # section 1's library route at most 1.3x JAX's
 R2_MOVED = 0.95         # a section 2 bf16 row below it where JAX's is:
                         # its field left the zero start (rel L2 1)
-# the open difference (ROADMAP.md Queue 3): the port's bf16-residual solve
-# at 64^2 stays at its zero start, where optax's L-BFGS moves to 0.637
-R2_OPEN_FAULTS = ("bf16-residual",)
+R2_BF16_FACTOR = 1.3    # and at most 1.3x JAX's, as the f32 row is held
 R3_CUT_ATOL = 1e-4      # the midline cuts, times max |u| of JAX's solution
 R3_ITERS_SLACK = 2      # Newton iterations: JAX's + 2 (JAX below its cap)
 JAX_R = {   # scripts/torch_port_reference_studies.py, on a CPU
@@ -4761,14 +4771,16 @@ def slice_r2(dev, smi: str, tmp: str) -> dict:
                 section_seconds=r["seconds"],
                 jax=jax, f32_factor=R2_F32_FACTOR,
                 accuracy_factor=R2_ACC_FACTOR, moved_below=R2_MOVED,
-                open_faults=list(R2_OPEN_FAULTS))
+                bf16_factor=R2_BF16_FACTOR)
     emit(line)
     for policy in ("bf16-residual", "bf16-accum"):
         got, ref = r["solve"][policy], JAX_R["r2_solve"][policy]
-        if (policy not in R2_OPEN_FAULTS and ref < R2_MOVED
-                and not got < R2_MOVED):
+        if ref < R2_MOVED and not got < R2_MOVED:
             fail(f"slice R2: the {policy} solve stayed at its start: rel "
                  f"L2 {got}, JAX's {ref}")
+        if not got <= R2_BF16_FACTOR * ref:
+            fail(f"slice R2: the {policy} solve's rel L2 {got} > "
+                 f"{R2_BF16_FACTOR} x JAX's {ref}")
     if not r["solve"]["f32"] <= R2_F32_FACTOR * JAX_R["r2_solve"]["f32"]:
         fail(f"slice R2: the f32 solve's rel L2 {r['solve']['f32']} > "
              f"{R2_F32_FACTOR} x JAX's {JAX_R['r2_solve']['f32']}")
@@ -4879,6 +4891,97 @@ def slice_r(dev, smi: str) -> dict:
             "seconds": {"R1": t1 - t0, "R2": t2 - t1, "R3": t3 - t2}}
 
 
+S_K = 10                 # slice S: steps a chunk, one CUDA graph
+S_EPOCHS = 3             # the first chunk runs eagerly and captures, the
+                         # later chunks replay
+S_LOSS_RTOL = 1e-5       # each step's loss at K = 10 against K = 1:
+S_FIELD_ATOL = 1e-5      # and the final field, x max |u|. Capturable Adam
+                         # (bias corrections and rate as float32 device
+                         # tensors) rounds other than eager Adam (host
+                         # scalars): ~1e-7 relative a step in the update,
+                         # which moves a field of O(1) by ~1e-10 a step
+
+
+class _EpochLog(Callback):
+    """Every epoch's step losses and kernel launches."""
+
+    def on_train_start(self, trainer, module, state):
+        self.losses, self.launches, self.prev = [], [], counts()
+
+    def on_epoch_end(self, trainer, module, state, epoch, metrics):
+        self.losses += trainer.step_losses
+        self.launches.append(since(self.prev))
+        self.prev = counts()
+
+
+def _s_fit(m, k: int, dev, loader=None) -> tuple[_EpochLog, float]:
+    """S_EPOCHS epochs of Adam at ``steps_per_call=k``: the log and the
+    steps/s of epochs 2 on."""
+    log = _EpochLog()
+    tr = Trainer(max_epochs=S_EPOCHS, optimizer="adam", learning_rate=1e-3,
+                 steps_per_call=k, device=dev, callbacks=[log])
+    tr.fit(m, loader)
+    torch.cuda.synchronize()
+    return log, 10 * (S_EPOCHS - 1) / sum(tr.epoch_times[1:])
+
+
+def slice_s(dev, smi: str) -> dict:
+    """``steps_per_call=S_K`` (a CUDA graph a chunk) against single steps
+    on slice B's (K2) and C's (K3) modules, from the same start."""
+    out = {"phase": "slice_S", "nvidia_smi": smi, "grid": [512, 512],
+           "batch": 32, "batches_per_epoch": 10, "epochs": S_EPOCHS,
+           "steps_per_call": S_K, "loss_rtol": S_LOSS_RTOL,
+           "field_atol": S_FIELD_ATOL}
+    before = counts()
+    for (name, loss_type, kw), kernel in zip(
+            FUSED_2D_STEPS, ("poisson_resmin_loss_grad", "poisson_energy")):
+        runs, fields = {}, {}
+        for k in (1, S_K):
+            m = _field_module(512, 32, loss_type, **kw)
+            log, fit_rate = _s_fit(m, k, dev)
+            fields[k] = m.network.field.detach()
+            resident = _field_module(512, 32, loss_type, **kw).to(dev)
+            rlog, res_rate = _s_fit(resident, k, dev, loader=[
+                _resident_batch(resident, 32, dev)] * 10)
+            runs[k] = {"losses": log.losses, "fit_steps_per_s": fit_rate,
+                       "resident_steps_per_s": res_rate,
+                       "launches_per_epoch": [e[kernel] for e in log.launches],
+                       "resident_launches_per_epoch": [
+                           e[kernel] for e in rlog.launches]}
+        l1, lk = (np.asarray(runs[k]["losses"]) for k in (1, S_K))
+        rel = (float(np.max(np.abs(lk - l1) / np.abs(l1)))
+               if len(l1) == len(lk) else math.inf)
+        scale = float(fields[1].abs().max())
+        field_err = float((fields[S_K] - fields[1]).abs().max()) / scale
+        out[name] = {"kernel": kernel, "max_loss_rel": rel,
+                     "field_err_rel_max": field_err,
+                     "first_last_loss": {k: [r["losses"][0], r["losses"][-1]]
+                                         for k, r in runs.items()},
+                     **{f"k{k}": {key: v for key, v in r.items()
+                                  if key != "losses"}
+                        for k, r in runs.items()}}
+    out["launches"] = launches = since(before)
+    emit(out)
+    for name, _, _ in FUSED_2D_STEPS:
+        res = out[name]
+        for k in (1, S_K):
+            r = res[f"k{k}"]
+            if any(n != 10 for n in r["launches_per_epoch"]
+                   + r["resident_launches_per_epoch"]):
+                fail(f"slice S {name} K={k}: {res['kernel']} launched "
+                     f"{r['launches_per_epoch']} and "
+                     f"{r['resident_launches_per_epoch']} times an epoch, "
+                     "not 10")
+        if not res["max_loss_rel"] <= S_LOSS_RTOL:
+            fail(f"slice S {name}: the losses at K={S_K} are "
+                 f"{res['max_loss_rel']} off K=1's (limit {S_LOSS_RTOL})")
+        if not res["field_err_rel_max"] <= S_FIELD_ATOL:
+            fail(f"slice S {name}: the field at K={S_K} is "
+                 f"{res['field_err_rel_max']} x max |u| off K=1's "
+                 f"(limit {S_FIELD_ATOL})")
+    return launches
+
+
 FUSED_2D_STEPS = (   # the resident 512^2 x 32 steps on the fused losses
     ("resmin_fused_loss_grad", "resmin",
      {"fused_kernels": True, "fused_loss_grad": True}),
@@ -4971,13 +5074,15 @@ def resident_step_profiles(dev) -> dict:
 # and on O4's 2 x 256^2 rows a rank.
 SLICE_SHAPES = {
     "poisson_stiffness_action": {"A": (1, 64, 64), "B": (32, 512, 512),
+                                 "S": (32, 512, 512),
                                  "C": (32, 512, 512), "D2": (1, 513, 513),
                                  "J": (1, 64, 64), "M2": (1, 64, 64),
                                  "M3": (1, 32, 32), "P1": (1, 64, 64),
                                  "P2": (1, 513, 513), "P5": (32, 64, 64),
                                  "R1": (1, 33, 33)},
-    "poisson_resmin_loss_grad": {"B": (32, 512, 512)},
-    "poisson_energy": {"C": (32, 512, 512), "J": (32, 64, 64),
+    "poisson_resmin_loss_grad": {"B": (32, 512, 512), "S": (32, 512, 512)},
+    "poisson_energy": {"C": (32, 512, 512), "S": (32, 512, 512),
+                       "J": (32, 64, 64),
                        "M2": (1, 64, 64), "P5": (32, 64, 64)},
     "stencil_apply_2d": {"D3": (1, 513, 513), "O": (1, 130, 513)},
     "poisson_stiffness_action_3d": {"E1": (1, 17, 17, 17),
@@ -5125,13 +5230,17 @@ def main() -> int:
     lr = slice_r(dev, smi)
     paths["studies"] = counts()
     r2_k1_bf16_check(dev, smi)
+    reset_counts()           # steps_per_call: K2, K3 (K1 in K3's VJP)
+    ls = slice_s(dev, smi)   # inside CUDA graphs
+    paths["training_2d_graphed"] = counts()
     total = {name: sum(p[name] for p in paths.values()) for name in KERNELS}
     emit({"phase": "main_path_launches", "total": total, **paths,
           "slice_A": la, "slice_B": lb, "slice_C": lc, "slice_E1": le1,
           "slice_E2": le2, "slice_G1": lg1, "slice_G2": lg2,
           "slice_G3": lg3, "slice_H": lh, "slice_I": li, "slice_J": lj,
           "slice_K": lk, "slice_L": ll, "slice_M": lm, "slice_N": ln,
-          "slice_O": lo, "slice_Q": lq, "slice_P": lp, "slice_R": lr})
+          "slice_O": lo, "slice_Q": lq, "slice_P": lp, "slice_R": lr,
+          "slice_S": ls})
     for path, names in (("training_2d", ("poisson_stiffness_action",
                                          "poisson_resmin_loss_grad",
                                          "poisson_energy")),
@@ -5155,7 +5264,9 @@ def main() -> int:
                                           "poisson_energy",
                                           "poisson_stiffness_action_3d",
                                           "ns_vms_residual")),
-                        ("studies", ("poisson_stiffness_action",))):
+                        ("studies", ("poisson_stiffness_action",)),
+                        ("training_2d_graphed", ("poisson_resmin_loss_grad",
+                                                 "poisson_energy"))):
         for name in names:
             if paths[path][name] <= 0:
                 fail(f"{name} was never launched on the {path} path")
@@ -5166,7 +5277,7 @@ def main() -> int:
     by_slice = {"A": la, "B": lb, "C": lc, **ld, "E1": le1, "E2": le2, **lf,
                 "G1": lg1, "G2": lg2, "G3": lg3, "I": li, "J": lj,
                 "K": lk, "M2": lm["M2"], "M3": lm["M3"], "O": lo, **lp,
-                "R1": lr["R1"]}
+                "R1": lr["R1"], "S": ls}
     path = phase_path_shapes(dev, by_slice)
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": source,

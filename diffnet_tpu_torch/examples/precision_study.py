@@ -43,12 +43,6 @@ import torch
 from ._common import add_port_flags, device_label, device_of
 
 ROUTES = ("library", "k1")   # the contraction residual, K1's route
-# a section 2 row whose field never left its zero start (rel L2 1): the
-# port's strong-Wolfe search ends where it began when no trial lowers the
-# loss, where optax's zoom search, which the JAX study runs, takes its last
-# trial step and so moves (an open difference, ROADMAP.md Queue 3)
-STAYED = (" (no step: the line search found no lower loss; optax's "
-          "L-BFGS moves on, ROADMAP.md Queue 3)")
 
 
 def _basis(n, dev):
@@ -137,17 +131,17 @@ def _rel_l2_exact(u, exact, bc, basis):
 
 def solve_mms(n, policy, steps=300, device="cuda"):
     """Poisson MMS resmin solved with LBFGS (the production direct-solve
-    optimizer; float32 master params). Each of the `steps` steps is one
-    iteration of the port's LBFGS (``train/lbfgs.py``: memory 10, the
-    strong-Wolfe search), whose memory persists across them, as an optax
-    L-BFGS update is one iteration with its state carried.
+    optimizer; float32 master params): `steps` updates of
+    :class:`~diffnet_tpu_torch.train.lbfgs.ZoomLBFGS`, the port of the
+    ``optax.lbfgs()`` that the JAX study runs (memory 10, the zoom line
+    search, which takes its last trial where none lowers the bf16 loss).
     policy:
       f32           — everything float32
       bf16-residual — bf16 fields/assembly, float32 contraction
                       accumulation (the library policy) and float32 loss
       bf16-accum    — as above but the loss reduction also in bf16"""
     from ..train.krylov import CudaGraphed
-    from ..train.lbfgs import LBFGS
+    from ..train.lbfgs import ZoomLBFGS
 
     dev = torch.device(device)
     basis, exact, f32_gp, bc = _mms_problem(n, dev)
@@ -169,14 +163,12 @@ def solve_mms(n, policy, steps=300, device="cuda"):
             g, = torch.autograd.grad(v, x)
         return torch.cat([v.reshape(1), g.reshape(-1)])
 
-    # on the card an evaluation (a few hundred small kernels, up to 25 a
-    # step where the line search finds no lower loss) is one CUDA graph
+    # on the card an evaluation (a few hundred small kernels, up to 20 an
+    # update where the line search finds no lower loss) is one CUDA graph
     # replay
     evaluate = CudaGraphed(value_and_grad)
     u = torch.zeros((1, n, n), device=dev, requires_grad=True)
-    opt = LBFGS([u], lr=1.0, max_iter=1, max_eval=25, tolerance_grad=0.0,
-                tolerance_change=0.0, history_size=10,
-                line_search_fn="strong_wolfe")
+    opt = ZoomLBFGS([u])
 
     def closure():
         vg = evaluate(u.detach())
@@ -368,7 +360,7 @@ def _study(args, dev) -> dict:
     for policy in ("f32", "bf16-residual", "bf16-accum"):
         e = solve_mms(64, policy, device=dev)
         out["solve"][policy] = e
-        lines.append(f"| {policy} | {e:.2e}{STAYED if e > 0.999 else ''} |")
+        lines.append(f"| {policy} | {e:.2e} |")
         print(f"solve {policy}: {e:.3e}", flush=True)
 
     out["seconds"]["2"] = time.perf_counter() - t0

@@ -44,7 +44,8 @@ from typing import Callable
 
 import torch
 
-__all__ = ["cg", "bicgstab", "gmres", "CudaGraphed"]
+__all__ = ["cg", "bicgstab", "gmres", "CudaGraphed", "capture_graph",
+           "replay_graph"]
 
 
 def _launch_counters() -> list:
@@ -56,6 +57,49 @@ def _launch_counters() -> list:
                                 poisson_energy, stencil_apply,
                                 poisson_residual_3d, ns_residual)
             for name in vars(m) if name.startswith("launches")]
+
+
+def capture_graph(fn: Callable, *args: torch.Tensor, what: str) -> tuple:
+    """``fn(*args)`` run eagerly on a side stream (the warm-up a capture
+    needs), then captured as a CUDA graph on the same tensors: returns
+    ``(the eager result, the graph, the graph's result, its counts)``. A
+    kernel the graph holds adds to its op's launch count at each
+    :func:`replay_graph` (`counts`), as its wrapper does at an eager call:
+    the capture launches nothing, so what it counted is taken back. A
+    capture that fails (a host read: ``.item()``, ``float()``, a branch on
+    a tensor's value) raises RuntimeError naming `what`."""
+    dev = args[0].device
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        eager = fn(*args)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    counters = _launch_counters()
+    before = [getattr(m, name) for m, name in counters]
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph):
+            out = fn(*args)
+    except RuntimeError as e:
+        raise RuntimeError(
+            f"{what} could not be captured as a CUDA graph; it must launch "
+            "kernels only, on the current stream, and read nothing back to "
+            "the host (no .item(), float() or branch on a tensor's value): "
+            f"{e}") from e
+    counts = []
+    for (m, name), b in zip(counters, before):
+        if getattr(m, name) != b:
+            counts.append(((m, name), getattr(m, name) - b))
+            setattr(m, name, b)
+    return eager, graph, out, counts
+
+
+def replay_graph(graph, counts: list) -> None:
+    """Replay a graph of :func:`capture_graph`, adding its kernels to their
+    launch counts."""
+    graph.replay()
+    for (mod, name), n in counts:
+        setattr(mod, name, getattr(mod, name) + n)
 
 
 class CudaGraphed:
@@ -90,34 +134,11 @@ class CudaGraphed:
                                  f"{tuple(self.x.shape)} {self.x.dtype}, "
                                  f"called with {tuple(x.shape)} {x.dtype}")
             self.x.copy_(x)
-            self.graph.replay()
-            for (mod, name), n in self.counts:
-                setattr(mod, name, getattr(mod, name) + n)
+            replay_graph(self.graph, self.counts)
             return self.y.clone()
-        counters = _launch_counters()
-        side = torch.cuda.Stream(x.device)
-        side.wait_stream(torch.cuda.current_stream(x.device))
-        with torch.cuda.stream(side):
-            out = self.fn(x)
-            self.x = x.clone()
-        torch.cuda.current_stream(x.device).wait_stream(side)
-        before = [getattr(m, name) for m, name in counters]
-        self.graph = torch.cuda.CUDAGraph()
-        try:
-            with torch.cuda.graph(self.graph):
-                self.y = self.fn(self.x)
-        except RuntimeError as e:
-            self.graph = None
-            raise RuntimeError(
-                "CudaGraphed: the operator could not be captured as a CUDA "
-                "graph; it must launch kernels only, on the current stream, "
-                "and read nothing back to the host (no .item(), float() or "
-                f"branch on a tensor's value): {e}") from e
-        self.counts = []
-        for (m, name), b in zip(counters, before):
-            if getattr(m, name) != b:
-                self.counts.append(((m, name), getattr(m, name) - b))
-                setattr(m, name, b)
+        self.x = x.clone()
+        out, self.graph, self.y, self.counts = capture_graph(
+            self.fn, self.x, what="CudaGraphed: the operator")
         return out
 
 

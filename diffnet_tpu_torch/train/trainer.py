@@ -30,6 +30,18 @@ optimizer steps on ``module.training_loss``:
     restores only); abort after three restores;
   * ``profile_dir``: the fit under ``torch.profiler`` (CPU and CUDA
     activities), written there as a Chrome trace;
+  * ``steps_per_call=K``: Adam's and SGD's steps in chunks of K batches
+    (JAX's ``lax.scan`` of K steps): a batch of another shape flushes the
+    pending chunk first, and the end of an epoch flushes the remainder;
+    one loss a step. On the card, without a process mesh, each chunk
+    shape is one CUDA graph of K forward, backward and optimizer steps
+    (:class:`_GraphedChunks`: the batches copied into static ``[K, ...]``
+    buffers, Adam built ``capturable`` and SGD ``fused``, their learning
+    rate a device tensor that the nan_guard scale and the milestones set
+    between replays). On the CPU, and over a process mesh (gloo's
+    all-reduce is a host operation and cannot be captured), the K steps
+    run eagerly as K single steps. LBFGS, ``round_robin`` and
+    ``fast_dev_run`` take single steps whatever K is, as in JAX;
   * versioned run directories ``save_dir/name/version_N``
     (:func:`make_run_dir`), CSV metrics per epoch (:class:`CSVLogger`;
     :class:`TensorBoardLogger` when ``tensorboard`` is installed);
@@ -71,6 +83,7 @@ import csv
 import math
 import os
 import time
+import warnings
 from typing import Any, Callable, NamedTuple, Sequence
 
 import numpy as np
@@ -79,6 +92,7 @@ import torch
 from ..data.loader import NumpyLoader
 from ..parallel.mesh import all_reduce_sum, replicate, spatial_mesh
 from ..utils.device import resolve_device
+from .krylov import capture_graph, replay_graph
 from .lbfgs import LBFGS
 
 __all__ = ["TrainState", "Trainer", "Callback", "CSVLogger",
@@ -253,7 +267,12 @@ class TensorBoardLogger:
 
 
 def _make_optimizer(spec, params: list, learning_rate: float,
-                    lbfgs_max_iter: int) -> torch.optim.Optimizer:
+                    lbfgs_max_iter: int,
+                    graphed: bool = False) -> torch.optim.Optimizer:
+    """The optimizer of `spec`. `graphed`: Adam and SGD for a CUDA graph,
+    their learning rate a device tensor (Adam ``capturable``, SGD
+    ``fused``: the updates that read a tensor learning rate on the
+    card)."""
     if callable(spec):
         opt = spec(params)
         if not isinstance(opt, torch.optim.Optimizer):
@@ -261,6 +280,11 @@ def _make_optimizer(spec, params: list, learning_rate: float,
                             f"torch.optim.Optimizer, got {type(opt)}")
         return opt
     name = str(spec).lower()
+    if graphed and name in ("adam", "sgd"):
+        lr = torch.tensor(learning_rate, device=params[0].device)
+        if name == "adam":
+            return torch.optim.Adam(params, lr=lr, capturable=True)
+        return torch.optim.SGD(params, lr=lr, fused=True)
     if name == "adam":
         return torch.optim.Adam(params, lr=learning_rate)
     if name == "sgd":
@@ -342,10 +366,91 @@ def _reduce_into(grads: list, mesh, axis: str, op: str) -> None:
 
 
 class _Objective(NamedTuple):
-    """One optimizer, its scheduler, and its step function."""
+    """One optimizer, its scheduler, its step function, and its chunk
+    function (a list of batches to their losses; None for single
+    steps)."""
     optimizer: torch.optim.Optimizer
     scheduler: Any
     step: Callable
+    chunk: Callable | None = None
+
+
+class _GraphedChunks:
+    """Chunks of optimizer steps of ``loss_fn`` on the card, one CUDA graph
+    a chunk shape (the number of batches and their shapes and types).
+
+    A shape's first chunk runs its steps eagerly on a side stream (the
+    warm-up a capture needs; the optimizer's state exists after it), then
+    captures them: the batches are stacked into static ``[K, ...]``
+    buffers, each step takes its batch as a view of them, and the K losses
+    go to a static vector. Every later chunk of that shape copies its
+    batches into the buffers and replays. The learning rate of every
+    parameter group is a device tensor (made so here): before a chunk it
+    is scaled by nan_guard's ``0.5 ** restores`` and after it the
+    scheduler steps K times, on the tensor, between replays. Milestones
+    fall between epochs, and chunks never span one, so the rate is
+    constant within a chunk. A kernel the graph holds adds to its op's
+    launch count at each replay (``krylov.capture_graph``).
+
+    The loss must launch kernels only, on the current stream, and read
+    nothing back to the host: a host read raises at the capture, as does
+    an optimizer that cannot be captured. :meth:`reset` drops the graphs
+    (after the optimizer's state is loaded anew, its tensors are new)."""
+
+    def __init__(self, loss_fn, opt, sched, trainer):
+        self.loss_fn, self.opt, self.sched = loss_fn, opt, sched
+        self.trainer = trainer
+        self.reset()
+
+    def reset(self) -> None:
+        self.graphs = {}
+        for g in self.opt.param_groups:
+            if not torch.is_tensor(g["lr"]):
+                g["lr"] = torch.tensor(g["lr"],
+                                       device=g["params"][0].device)
+
+    def _steps(self, xs: list, n: int) -> torch.Tensor:
+        losses = []
+        for k in range(n):
+            self.opt.zero_grad(set_to_none=True)
+            loss = self.loss_fn(tuple(x[k] for x in xs))
+            loss.backward()
+            self.opt.step()
+            losses.append(loss.detach())
+        return torch.stack(losses)
+
+    def __call__(self, batches: list) -> torch.Tensor:
+        n = len(batches)
+        key = (n,) + tuple((t.shape, t.dtype) for t in batches[0])
+        scale = 0.5 ** self.trainer._nan_restores
+        lrs = [g["lr"] for g in self.opt.param_groups]
+        for lr in lrs:
+            lr.mul_(scale)
+        try:
+            if key not in self.graphs:
+                xs = [torch.stack(parts) for parts in zip(*batches)]
+                with warnings.catch_warnings():
+                    # capturable Adam warns when it steps uncaptured
+                    warnings.filterwarnings("ignore",
+                                            message=".*capturable=True")
+                    losses, *graph = capture_graph(
+                        lambda *xs: self._steps(xs, n), *xs,
+                        what="Trainer(steps_per_call): the chunk of "
+                             "optimizer steps")
+                self.graphs[key] = (xs, *graph)
+            else:
+                xs, graph, out, counts = self.graphs[key]
+                for x, parts in zip(xs, zip(*batches)):
+                    torch.stack(parts, out=x)
+                replay_graph(graph, counts)
+                losses = out.clone()
+        finally:
+            for lr in lrs:
+                lr.div_(scale)
+        if self.sched is not None:
+            for _ in range(n):
+                self.sched.step()
+        return losses
 
 
 class Trainer:
@@ -372,6 +477,9 @@ class Trainer:
         (needs `checkpoint`), halving adam's and sgd's learning rate
     device : where the module and the batches go (the card by default);
         'cuda' raises when no GPU is available
+    steps_per_call : adam's and sgd's steps in chunks of this many batches,
+        each chunk one CUDA graph on the card (see the module docstring);
+        the same losses and parameters as single steps
     """
 
     def __init__(self, max_epochs: int = 1, optimizer: Any = "adam",
@@ -382,7 +490,8 @@ class Trainer:
                  seed: int = 42, device: str | torch.device = "cuda",
                  lr_milestones: Sequence[int] | None = None,
                  lr_gamma: float = 0.1, round_robin: bool = False,
-                 profile_dir: str | None = None, nan_guard: bool = False):
+                 profile_dir: str | None = None, nan_guard: bool = False,
+                 steps_per_call: int = 1):
         self.max_epochs = 1 if fast_dev_run else max_epochs
         self.optimizer_spec = optimizer
         if lr_milestones and _spec_key(optimizer) == "lbfgs":
@@ -397,6 +506,7 @@ class Trainer:
         self.round_robin = round_robin
         self.profile_dir = profile_dir
         self.nan_guard = nan_guard
+        self.steps_per_call = max(1, int(steps_per_call))
         self.callbacks = list(callbacks)
         self.run_dir = run_dir
         self.logger = CSVLogger(run_dir) if run_dir else None
@@ -418,6 +528,7 @@ class Trainer:
         self._mesh = None           # fit's data mesh, None without one
         self._reduction = None      # its module's batch_reduction
         self._split = False         # whether its batches split over 'space'
+        self._graphed = False       # whether chunks run as CUDA graphs
 
     # -- optimizers and steps --------------------------------------------
     def request_optimizer_switch(self, optimizer, learning_rate=None,
@@ -517,14 +628,24 @@ class Trainer:
         return step
 
     def _objective(self, spec, loss_fn, params, lr, spe, scoped):
-        opt = _make_optimizer(spec, params, lr, self.lbfgs_max_iter)
+        opt = _make_optimizer(spec, params, lr, self.lbfgs_max_iter,
+                              graphed=self._graphed)
         sched = None
-        if self.lr_milestones and not isinstance(opt, torch.optim.LBFGS):
+        lbfgs = isinstance(opt, torch.optim.LBFGS)
+        if self.lr_milestones and not lbfgs:
             sched = torch.optim.lr_scheduler.MultiStepLR(
                 opt, [int(m) * spe for m in self.lr_milestones],
                 gamma=self.lr_gamma)
-        return _Objective(opt, sched, self._step_fn(
-            loss_fn, opt, sched, params if scoped else None))
+        step = self._step_fn(loss_fn, opt, sched, params if scoped else None)
+        chunk = None
+        if self.steps_per_call > 1 and not (lbfgs or scoped
+                                            or self.fast_dev_run):
+            if self._graphed:
+                chunk = _GraphedChunks(loss_fn, opt, sched, self)
+            else:
+                def chunk(batches):
+                    return torch.stack([step(b).detach() for b in batches])
+        return _Objective(opt, sched, step, chunk)
 
     def _build_objectives(self, module, lr: float, spe: int) -> None:
         """Every optimizer, scheduler and step function from
@@ -594,6 +715,8 @@ class Trainer:
             obj.optimizer.load_state_dict(o)
             if obj.scheduler is not None and s is not None:
                 obj.scheduler.load_state_dict(s)
+            if isinstance(obj.chunk, _GraphedChunks):
+                obj.chunk.reset()   # the loaded state's tensors are new
         self._rr_counter = int(ck.get("rr_counter", ck["step"]))
         return int(ck["step"])
 
@@ -642,6 +765,9 @@ class Trainer:
                 "(batch_reduction='global')")
         lr = self.learning_rate or getattr(module, "learning_rate", 3e-4)
         spe = len(dataloader)
+        self._graphed = (self.device.type == "cuda" and self._mesh is None
+                         and self.steps_per_call > 1
+                         and not (self.round_robin or self.fast_dev_run))
         self._rr_counter = 0
         self._build_objectives(module, lr, spe)
         n_steps, first_epoch = 0, 0
@@ -672,8 +798,26 @@ class Trainer:
                 t0 = time.perf_counter()
                 losses = []
                 module.train()
+                chunk = self._objectives[0].chunk
+                pending = []
+
+                def flush():
+                    losses.extend(chunk(pending).detach().unbind(0))
+                    pending.clear()
+
                 for batch in dataloader:
                     batch = tuple(t.to(self.device) for t in batch)
+                    if chunk is not None:
+                        # a batch of another shape (a ragged last one)
+                        # cannot join the pending chunk: flush it first
+                        if pending and [(t.shape, t.dtype) for t in batch] \
+                                != [(t.shape, t.dtype) for t in pending[0]]:
+                            flush()
+                        pending.append(batch)
+                        n_steps += 1
+                        if len(pending) == self.steps_per_call:
+                            flush()
+                        continue
                     if self.round_robin:
                         i = self._rr_counter % len(self._objectives)
                         self._rr_counter += 1
@@ -685,6 +829,8 @@ class Trainer:
                     n_steps += 1
                     if self.fast_dev_run:
                         break
+                if pending:
+                    flush()   # the epoch's remainder: a chunk of its own
                 losses = torch.stack(losses)
                 self.step_losses = losses.tolist()
                 epoch_loss = float(losses.mean())
@@ -748,6 +894,16 @@ class Trainer:
         for cb in self.callbacks:
             cb.on_train_end(self, module, self.state)
         return self.state
+
+    def invalidate_step_cache(self) -> None:
+        """Drop the CUDA graphs of ``steps_per_call`` chunks: the next chunk
+        of each shape runs eagerly and is captured again, so a change to a
+        tensor the graphs hold (a module attribute reassigned between
+        epochs) is seen. A graph lives within one ``fit``; JAX's call, which
+        drops its cached jitted step, runs here too."""
+        for obj in self._objectives:
+            if isinstance(obj.chunk, _GraphedChunks):
+                obj.chunk.reset()
 
     @property
     def _writes(self) -> bool:

@@ -39,7 +39,11 @@ eager runs, each with the eager run's kernel counts; the convergence
 study's 17^2 deg-1 solve through K1 at 1e-3 of the CPU route's error; the
 precision study's K1 bf16 residual at 8e-3 times max(1, max |float32|)
 of its float32 result, its graphed Adam solve at 5e-2 of the CPU's and
-its graphed LBFGS solve at 1e-3.
+its graphed LBFGS solve at 1e-3; ``Trainer(steps_per_call=4)``, a CUDA
+graph a chunk, against single eager steps through K2 and K3, each loss
+at 1e-5 relative and the field at 1e-5 of its largest value (capturable
+Adam rounds its float32 device scalars other than eager Adam its host
+ones).
 """
 
 import numpy as np
@@ -58,7 +62,8 @@ from diffnet_tpu_torch.ops import poisson_residual as k1
 from diffnet_tpu_torch.ops import poisson_residual_3d as k5
 from diffnet_tpu_torch.ops import stencil_apply as k4
 from diffnet_tpu_torch.pde import NavierStokes, Poisson2D, Poisson3D, ldc_bcs
-from diffnet_tpu_torch.train import (Trainer, cg, multigrid_preconditioner,
+from diffnet_tpu_torch.train import (Callback, Trainer, cg,
+                                     multigrid_preconditioner,
                                      ns_newton_solve)
 
 pytestmark = pytest.mark.cuda
@@ -1162,3 +1167,85 @@ def test_precision_study_graphed_lbfgs_matches_the_cpu(dev):
     got = ps.solve_mms(17, "f32", steps=20, device="cuda")
     ref = ps.solve_mms(17, "f32", steps=20, device="cpu")
     assert abs(got / ref - 1) <= 1e-3, (got, ref)
+
+
+def _graphed_fit(k, loss_type, dev, trainer_kw, restores=0, **kw):
+    """A 65^2 x 4 field fit (5 batches an epoch, 3 epochs) at
+    ``steps_per_call=k`` from a seeded start, nan_guard's back-off as
+    after `restores` restores: its step losses, its field and its
+    kernels' launches."""
+    n, bs = 65, 4
+    ds = RectangleManufactured(n)
+    ds.n_samples = 5 * bs
+    init = np.random.default_rng(0).random((n, n)).astype(np.float32)
+    m = Poisson2D(DirectField((n, n), init=init), ds, domain_size=n,
+                  batch_size=bs, loss_type=loss_type,
+                  exact_solution=RectangleManufactured.exact,
+                  forcing=lambda x, y: 2 * np.pi**2
+                  * RectangleManufactured.exact(x, y),
+                  mms_dirichlet=True, fused_kernels=True, **kw)
+    losses = []
+
+    class Log(Callback):
+        def on_epoch_end(self, trainer, module, state, epoch, metrics):
+            losses.extend(trainer.step_losses)
+
+    before = (k2.launches, k3.launches)
+    tr = Trainer(max_epochs=3, learning_rate=1e-3, steps_per_call=k,
+                 device=dev, callbacks=[Log()], **trainer_kw)
+    tr._nan_restores = restores
+    tr.fit(m)
+    return (np.asarray(losses), m.network.field.detach(),
+            (k2.launches - before[0], k3.launches - before[1]))
+
+
+@pytest.mark.parametrize("loss_type,kw,trainer_kw,restores,kernel", [
+    ("resmin", {"fused_loss_grad": True}, {"optimizer": "adam"}, 0, 0),
+    ("energy", {}, {"optimizer": "adam"}, 0, 1),
+    ("resmin", {"fused_loss_grad": True},
+     {"optimizer": "sgd", "lr_milestones": [1, 2], "lr_gamma": 0.5}, 1, 0),
+], ids=["resmin_adam", "energy_adam", "resmin_sgd_milestones_backoff"])
+def test_steps_per_call_graph_matches_eager_steps(dev, loss_type, kw,
+                                                  trainer_kw, restores,
+                                                  kernel):
+    """``Trainer(steps_per_call=4)`` on the card (a CUDA graph a chunk: 5
+    batches an epoch make a chunk of 4 and a remainder chunk of 1, each
+    captured in epoch 1 and replayed in epochs 2 and 3) against single
+    eager steps through K2 (resmin) and K3 (energy), with Adam, and with
+    SGD under milestones and nan_guard's halved rate (the device-tensor
+    rate set between replays): every loss within 1e-5 relative and the
+    field within 1e-5 x max |u| (capturable Adam's and fused SGD's float32
+    device scalars against eager host ones), and the kernel counted once
+    a step under replay."""
+    l1, u1, n1 = _graphed_fit(1, loss_type, dev, trainer_kw, restores, **kw)
+    l4, u4, n4 = _graphed_fit(4, loss_type, dev, trainer_kw, restores, **kw)
+    assert len(l1) == len(l4) == 15 and np.all(np.isfinite(l4))
+    np.testing.assert_allclose(l4, l1, rtol=1e-5)
+    assert float((u4 - u1).abs().max()) <= 1e-5 * float(u1.abs().max())
+    assert n1[kernel] == n4[kernel] == 15
+
+
+def test_steps_per_call_capture_raises_on_a_host_read(dev):
+    """A loss that reads a value back to the host cannot be captured: the
+    first chunk runs eagerly, and its capture raises, naming the rule,
+    rather than falling back to eager steps."""
+    n = 17
+
+    class ReadsBack(Poisson2D):
+        def training_loss(self, batch):
+            loss = super().training_loss(batch)
+            return loss if float(loss.detach()) > 0 else 2 * loss
+
+    ds = RectangleManufactured(n)
+    ds.n_samples = 4
+    m = ReadsBack(DirectField((n, n), init=np.zeros((n, n))), ds,
+                  domain_size=n, batch_size=1, loss_type="resmin",
+                  exact_solution=RectangleManufactured.exact,
+                  forcing=lambda x, y: 2 * np.pi**2
+                  * RectangleManufactured.exact(x, y), mms_dirichlet=True)
+    tr = Trainer(max_epochs=1, optimizer="adam", learning_rate=1e-3,
+                 steps_per_call=2, device=dev)
+    with pytest.raises(RuntimeError, match="read nothing back to the host"):
+        tr.fit(m)
+    x = torch.ones(8, device=dev)
+    assert float((x * 2).sum()) == 16.0

@@ -1,7 +1,7 @@
 """The port's example CLIs (``diffnet_tpu_torch.examples``) on the CPU:
 one case for each of tests/test_examples_smoke.py's, at the same argv plus
 ``--device cpu``, asserting the same artifacts. Four of those argvs are
-also the parity cases of tests/test_torch_examples_parity.py (stokes_mms
+also the parity cases of tests/test_torch_examples_parity*.py (stokes_mms
 --solver gmres, ns_ldc --solver newton, more_physics helmholtz --solver
 direct at 17^2, ldc_validation --re 1000 at 17^2), which run the port's
 CLI once and assert its artifacts beside the JAX figures; they are not run

@@ -10,7 +10,14 @@ case also asserts the port's run-dir artifacts (four of these argvs are
 tests/test_examples_smoke.py's, see tests/test_torch_examples.py). Also:
 ibn_3d --data-devices 2 on two gloo ranks against one process, and the
 U-Nets at 16 nodes a side (a one-node map reaches the fifth Down)
-against flax."""
+against flax. The flow solvers' two cases (Stokes GMRES, the NS cavity
+by Newton) are in tests/test_torch_examples_parity_flow.py, which takes
+this file's helpers.
+
+The cases run longest first: xdist's ``--dist loadfile`` hands out the
+files with the most tests first, so this file (9 tests) starts early and
+its long solves (the 17^2 Re-1000 check, the Helmholtz GMRES) do not
+run last."""
 
 import contextlib
 import importlib.util
@@ -26,7 +33,7 @@ import torch
 
 from diffnet_tpu_torch.examples import (eikonal_reconstruction, ibn_3d,
                                         ldc_validation, more_physics,
-                                        ns_ldc, poisson_mms_2d, stokes_mms)
+                                        poisson_mms_2d)
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 REL = 1e-3          # headline figures, relative
@@ -89,16 +96,37 @@ def field_close(port, ref, what):
     assert np.abs(np.asarray(port) - ref).max() <= tol, what
 
 
-def test_poisson_cg(tmp_path):
-    argv = ["--domain-size", 17, "--optimizer", "cg"]
-    lines = run_jax("examples/poisson_mms_2d.py",
+def test_ldc_validation_re1000(tmp_path):
+    """The Ghia Re-1000 check at 17^2 (the one level, 17 <= 49). The port
+    runs it with --fused-kernels: on the CPU that is K6's plain version
+    with its written-out tangent, where torch.func.jvp through the plain
+    residual runs forward-mode AD operation by operation at about twice
+    the time."""
+    argv = ["--re", 1000, "--solver", "newton", "--domain-size", 17]
+    lines = run_jax("scripts/ldc_validation.py",
+                    argv + ["--out", tmp_path / "jax.png"])
+    (n, iters, F), _ = figure(
+        lines, r"n=(\d+): newton iters=(\d+) \|F\|=(\S+)")
+    (eu, ev), decs = figure(
+        lines, r"Ghia u-midline max err (\S+), v-midline max err (\S+)")
+    out = run_port(ldc_validation, argv + ["--out", tmp_path / "port.png",
+                                           "--fused-kernels"])
+    assert (tmp_path / "port.png").exists()
+    (level,) = out["levels"]
+    assert level["n"] == n and level["newton_iters"] <= iters + ITERS_SLACK
+    assert level["final_F"] < 1e-6
+    close(out["ghia_err_u"], eu, decs[0], "Ghia u error")
+    close(out["ghia_err_v"], ev, decs[1], "Ghia v error")
+
+
+def test_helmholtz_direct(tmp_path):
+    argv = ["helmholtz", "--domain-size", 17, "--solver", "direct"]
+    lines = run_jax("examples/more_physics.py",
                     argv + ["--out-dir", tmp_path / "jax"])
-    (rel,), (dec,) = figure(lines, r"rel_L2: (\S+)")
-    out = run_port(poisson_mms_2d, argv + ["--out-dir", tmp_path / "port"])
-    close(out["rel_l2"], rel, 3, "rel L2")
-    run = "poisson-mms-resmin/version_0"
-    field_close(out["u"], read_vti(tmp_path / "jax" / run / "u.vti"), "u")
-    assert (tmp_path / "port" / run / "contours.png").exists()
+    (rel,), (dec,) = figure(lines, r"helmholtz rel_L2: (\S+)")
+    out = run_port(more_physics, argv + ["--out-dir", tmp_path / "port"])
+    close(out["rel_l2"], rel, dec, "rel L2")
+    assert (tmp_path / "port" / "helmholtz" / "version_0").is_dir()
 
 
 def _reference_cli():
@@ -135,96 +163,6 @@ def test_poisson_mg_cg(tmp_path, kernel):
     assert out["solve_s"] is not None
 
 
-def test_stokes_gmres(tmp_path):
-    argv = ["--domain-size", 17, "--solver", "gmres"]
-    lines = run_jax("examples/stokes_mms.py",
-                    argv + ["--out-dir", tmp_path / "jax"])
-    (rel,), (dec,) = figure(lines, r"u rel_L2: (\S+)")
-    out = run_port(stokes_mms, argv + ["--out-dir", tmp_path / "port"])
-    close(out["u_rel_l2"], rel, dec, "u rel L2")
-    assert (tmp_path / "port" / "stokes-mms/version_0/uvp.png").exists()
-
-
-def test_ns_ldc_newton(tmp_path):
-    argv = ["--domain-size", 17, "--solver", "newton"]
-    lines = run_jax("examples/ns_ldc.py",
-                    argv + ["--out-dir", tmp_path / "jax"])
-    (iters, F), _ = figure(lines, r"newton iters: (\d+)\s+\|F\|: (\S+)")
-    out = run_port(ns_ldc, argv + ["--out-dir", tmp_path / "port"])
-    assert out["newton_iters"] <= iters + ITERS_SLACK
-    # |F| after the last step sits on float32's floor
-    assert out["final_F"] <= FLOOR * F, (out["final_F"], F)
-    run = "ns-ldc-re100/version_0/midline_cuts.csv"
-    ref = np.loadtxt(tmp_path / "jax" / run, delimiter=",", skiprows=1)
-    got = np.loadtxt(tmp_path / "port" / run, delimiter=",", skiprows=1)
-    for col, name in ((1, "u"), (2, "v"), (3, "p")):
-        field_close(got[:, col], ref[:, col], name)
-
-
-def test_helmholtz_direct(tmp_path):
-    argv = ["helmholtz", "--domain-size", 17, "--solver", "direct"]
-    lines = run_jax("examples/more_physics.py",
-                    argv + ["--out-dir", tmp_path / "jax"])
-    (rel,), (dec,) = figure(lines, r"helmholtz rel_L2: (\S+)")
-    out = run_port(more_physics, argv + ["--out-dir", tmp_path / "port"])
-    close(out["rel_l2"], rel, dec, "rel L2")
-    assert (tmp_path / "port" / "helmholtz" / "version_0").is_dir()
-
-
-def test_eikonal_gauss_newton(tmp_path):
-    argv = ["--domain-size", 16, "--solver", "gn"]
-    lines = run_jax("examples/eikonal_reconstruction.py",
-                    argv + ["--out-dir", tmp_path / "jax"])
-    (iters, loss), (_, dec) = figure(
-        lines, r"gauss-newton iters: (\d+)\s+loss: (\S+)")
-    out = run_port(eikonal_reconstruction,
-                   argv + ["--out-dir", tmp_path / "port"])
-    assert out["gn_iters"] <= iters + ITERS_SLACK
-    close(out["final_loss"], loss, dec, "final loss")
-    assert (tmp_path / "port" / "eikonal2d/version_0/sdf.png").exists()
-
-
-def test_ldc_validation_re1000(tmp_path):
-    """The Ghia Re-1000 check at 17^2 (the one level, 17 <= 49). The port
-    runs it with --fused-kernels: on the CPU that is K6's plain version
-    with its written-out tangent, where torch.func.jvp through the plain
-    residual runs forward-mode AD operation by operation at about twice
-    the time."""
-    argv = ["--re", 1000, "--solver", "newton", "--domain-size", 17]
-    lines = run_jax("scripts/ldc_validation.py",
-                    argv + ["--out", tmp_path / "jax.png"])
-    (n, iters, F), _ = figure(
-        lines, r"n=(\d+): newton iters=(\d+) \|F\|=(\S+)")
-    (eu, ev), decs = figure(
-        lines, r"Ghia u-midline max err (\S+), v-midline max err (\S+)")
-    out = run_port(ldc_validation, argv + ["--out", tmp_path / "port.png",
-                                           "--fused-kernels"])
-    assert (tmp_path / "port.png").exists()
-    (level,) = out["levels"]
-    assert level["n"] == n and level["newton_iters"] <= iters + ITERS_SLACK
-    assert level["final_F"] < 1e-6
-    close(out["ghia_err_u"], eu, decs[0], "Ghia u error")
-    close(out["ghia_err_v"], ev, decs[1], "Ghia v error")
-
-
-def test_ibn_3d_data_parallel(tmp_path):
-    """--data-devices 2: two gloo ranks, each on its row of every batch of
-    2, against one process on the whole batches."""
-    argv = ["--domain-size", 16, "--batch-size", 2, "--n-samples", 4,
-            "--max-epochs", 1]
-    one = run_port(ibn_3d, argv + ["--out-dir", tmp_path / "one"])
-    two = run_port(ibn_3d, argv + ["--data-devices", 2,
-                                   "--out-dir", tmp_path / "two"])
-    assert two["world"] == 2
-    np.testing.assert_allclose(two["losses"], one["losses"], rtol=1e-5)
-    for k, v in one["params"].items():
-        # Adam's first steps move an entry by ~lr whatever its gradient's
-        # size: a rounding-level gradient may swing one
-        diff = np.abs(two["params"][k] - v)
-        assert float((diff > 1e-5).mean()) <= 1e-3, k
-    assert (tmp_path / "two" / "ibn-3d/version_0/u.vti").exists()
-
-
 @pytest.mark.parametrize("shape", [(1, 16, 16, 16, 3), (1, 16, 32, 3)],
                          ids=["unet3d-16", "unet-16x32"])
 def test_unet_one_node_bottleneck(shape):
@@ -246,3 +184,46 @@ def test_unet_one_node_bottleneck(shape):
         got = tnet(torch.from_numpy(x)).numpy()
     np.testing.assert_allclose(got, np.asarray(jnet.apply(params, x)),
                                atol=1e-5)
+
+
+def test_ibn_3d_data_parallel(tmp_path):
+    """--data-devices 2: two gloo ranks, each on its row of every batch of
+    2, against one process on the whole batches."""
+    argv = ["--domain-size", 16, "--batch-size", 2, "--n-samples", 4,
+            "--max-epochs", 1]
+    one = run_port(ibn_3d, argv + ["--out-dir", tmp_path / "one"])
+    two = run_port(ibn_3d, argv + ["--data-devices", 2,
+                                   "--out-dir", tmp_path / "two"])
+    assert two["world"] == 2
+    np.testing.assert_allclose(two["losses"], one["losses"], rtol=1e-5)
+    for k, v in one["params"].items():
+        # Adam's first steps move an entry by ~lr whatever its gradient's
+        # size: a rounding-level gradient may swing one
+        diff = np.abs(two["params"][k] - v)
+        assert float((diff > 1e-5).mean()) <= 1e-3, k
+    assert (tmp_path / "two" / "ibn-3d/version_0/u.vti").exists()
+
+
+def test_eikonal_gauss_newton(tmp_path):
+    argv = ["--domain-size", 16, "--solver", "gn"]
+    lines = run_jax("examples/eikonal_reconstruction.py",
+                    argv + ["--out-dir", tmp_path / "jax"])
+    (iters, loss), (_, dec) = figure(
+        lines, r"gauss-newton iters: (\d+)\s+loss: (\S+)")
+    out = run_port(eikonal_reconstruction,
+                   argv + ["--out-dir", tmp_path / "port"])
+    assert out["gn_iters"] <= iters + ITERS_SLACK
+    close(out["final_loss"], loss, dec, "final loss")
+    assert (tmp_path / "port" / "eikonal2d/version_0/sdf.png").exists()
+
+
+def test_poisson_cg(tmp_path):
+    argv = ["--domain-size", 17, "--optimizer", "cg"]
+    lines = run_jax("examples/poisson_mms_2d.py",
+                    argv + ["--out-dir", tmp_path / "jax"])
+    (rel,), (dec,) = figure(lines, r"rel_L2: (\S+)")
+    out = run_port(poisson_mms_2d, argv + ["--out-dir", tmp_path / "port"])
+    close(out["rel_l2"], rel, 3, "rel L2")
+    run = "poisson-mms-resmin/version_0"
+    field_close(out["u"], read_vti(tmp_path / "jax" / run / "u.vti"), "u")
+    assert (tmp_path / "port" / run / "contours.png").exists()

@@ -6,12 +6,14 @@ Tolerances, each against JAX's figure on the same inputs:
 - section 1 (bf16 against float32 residual, library policy) at 32^2:
   within 1e-2 relative (XLA's and torch's bf16 contractions round in
   another order: 1.7e-3 apart at 32^2, equal to 1e-7 at 128^2);
-- section 2 (LBFGS, 20 steps at 17^2): f32 within 1e-3 relative; the bf16
-  policies within 2x either way (bf16's rounding steers the curvature
-  pairs, and the two LBFGS implementations part: up to 1.4x on this CPU),
-  and below 0.95 where JAX's is: a field that never left its zero start
-  (rel L2 1) fails (at 64^2 the port's bf16-residual solve does, an open
-  difference from optax's L-BFGS: ROADMAP.md Queue 3);
+- section 2 (L-BFGS, 20 updates at 17^2; the port's ``ZoomLBFGS`` is
+  optax's ``lbfgs()``, held update by update in
+  tests/test_torch_lbfgs_zoom.py): f32 within 1e-3 relative (1.6e-4 on
+  this CPU); the bf16 policies within 2x either way (bf16's rounding,
+  summed in another order by XLA and torch, steers the curvature pairs:
+  bf16-residual 0.98x and bf16-accum 1.46x of JAX's on this CPU), and
+  below 0.95 where JAX's is: a field that never left its zero start (rel
+  L2 1) fails;
 - section 2b (Adam, 200 steps at 17^2): within 5e-2 relative (Adam from
   zeros amplifies float32 rounding where a gradient entry crosses zero:
   1.3% apart).
