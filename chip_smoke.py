@@ -160,7 +160,10 @@ exits non-zero (it also does so, printing no result, without CUDA):
         three-field DirectField from zeros, one optimizer per field
         residual scoped to its field, Adam 3e-2 (x0.1 after 40 updates
         each), ``OptimizerSwitch`` at epoch 300 to [LBFGS(u), LBFGS(v),
-        Adam(p)], 308 epochs; each objective's loss and the midline
+        Adam(p)], 308 epochs (each LBFGS objective, as JAX's, runs optax's
+        L-BFGS over all three fields, its turn's first update evaluated
+        anew, the other two fields pinned after each update); each
+        objective's loss and the midline
         figures at the switch and at the end against the JAX package's
         (scripts/torch_port_reference_rr.py); the run split in two halves
         through ``resume_from`` lands on the unbroken run's fields; three
@@ -660,6 +663,15 @@ def bound(name: str, tensors, shape) -> dict:
 
 def since(before: dict[str, int]) -> dict[str, int]:
     return {k: v - before[k] for k, v in counts().items()}
+
+
+def lbfgs_info(opt) -> dict:
+    """A line's note of the Trainer's ``"lbfgs"``: optax's L-BFGS with its
+    zoom line search (``train/lbfgs.py::ZoomLBFGS``), its updates and its
+    evaluations of the loss."""
+    st = opt.state[opt.param_groups[0]["params"][0]]
+    return {"optimizer": "zoom", "updates": st["count"],
+            "evaluations": st["evaluations"]}
 
 
 def basis_for(ny: int, nx: int, aniso: bool, dev) -> fem.BasisTables:
@@ -1272,8 +1284,8 @@ def slice_a(dev) -> dict:
                   fused_kernels=True)
     before = counts()
     t0 = time.perf_counter()
-    Trainer(max_epochs=80, optimizer="lbfgs", lbfgs_max_iter=10,
-            device=dev).fit(m)
+    opt = Trainer(max_epochs=80, optimizer="lbfgs", lbfgs_max_iter=10,
+                  device=dev).fit(m).optimizer
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     with torch.no_grad():
@@ -1283,7 +1295,7 @@ def slice_a(dev) -> dict:
     launches = since(before)
     out = {"phase": "slice_A", "grid": [n, n], "final_rel_l2": rel,
            "limit": L2_LIMIT, "jax_reference": 2.046e-4, "seconds": dt,
-           "launches": launches}
+           **lbfgs_info(opt), "launches": launches}
     emit(out)
     if not (tuple(u.shape) == (n, n) and bool(torch.isfinite(u).all())):
         fail("slice A: the solution is not a finite 64x64 field")
@@ -1563,8 +1575,8 @@ def slice_e1(dev) -> dict:
                   mms_dirichlet=True, fused_kernels=True)
     before = counts()
     t0 = time.perf_counter()
-    Trainer(max_epochs=60, optimizer="lbfgs", lbfgs_max_iter=10,
-            device=dev).fit(m)
+    opt = Trainer(max_epochs=60, optimizer="lbfgs", lbfgs_max_iter=10,
+                  device=dev).fit(m).optimizer
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     with torch.no_grad():
@@ -1574,7 +1586,7 @@ def slice_e1(dev) -> dict:
     launches = since(before)
     emit({"phase": "slice_E1", "grid": [n] * 3, "final_rel_l2": rel,
           "limit": E1_LIMIT, "jax_reference": JAX_E1_REL_L2, "seconds": dt,
-          "launches": launches})
+          **lbfgs_info(opt), "launches": launches})
     if not (tuple(u.shape) == (n,) * 3 and bool(torch.isfinite(u).all())):
         fail("slice E1: the solution is not a finite 17^3 field")
     if not rel <= E1_LIMIT:
@@ -1894,8 +1906,8 @@ def slice_g2(dev) -> dict:
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = since(before)
-    # LBFGS's own count of its closure's evaluations, over all epochs
-    evaluations = opt.state[opt.param_groups[0]["params"][0]]["func_evals"]
+    # ZoomLBFGS's own count of its closure's evaluations, over all epochs
+    evaluations = lbfgs_info(opt)["evaluations"]
     with torch.no_grad():
         final = float(m.training_loss(batch))
         u, v, p = (a[0].cpu().numpy() for a in m.apply_bcs(
@@ -1903,7 +1915,7 @@ def slice_g2(dev) -> dict:
     row = {"phase": "slice_G2", "grid": [n, n], "epochs": G2_EPOCHS,
            "first_loss": first, "first_loss_unfused": first_ref,
            "final_loss": final, "drop": final / first, "limit": G2_DROP,
-           "evaluations": evaluations, "seconds": dt,
+           **lbfgs_info(opt), "seconds": dt,
            "lid_max_err": _lid_err(u), "launches": launches,
            **midline_figures(u, v, p)}
     emit(row)
@@ -2535,7 +2547,9 @@ def slice_k(dev, smi: str) -> dict:
     e1_ns_ldc_resmin setup): the Re-100 lid-driven cavity at 64^2, a
     three-field DirectField from zeros, one optimizer per field residual
     (each scoped to its field), Adam with a milestone, then at K_SWITCH
-    [LBFGS(u), LBFGS(v), Adam(p)] through OptimizerSwitch, checkpoints on;
+    [LBFGS(u), LBFGS(v), Adam(p)] through OptimizerSwitch, checkpoints on
+    (the full-tree round robin: each LBFGS runs over all three fields, its
+    gradients its own field's, the others pinned after every update);
     the figures against JAX's at the switch and at the end. Then the exact
     resume: the same run split at K_EPOCHS / 2 (resume_from state.ckpt)
     lands on the unbroken run's fields. Last, K_PROFILED_EPOCHS more epochs
@@ -2601,6 +2615,7 @@ def slice_k(dev, smi: str) -> dict:
     out = {"phase": "slice_K", "nvidia_smi": smi, "grid": [n, n],
            "Re": G1_RE, "epochs": K_EPOCHS, "switch": K_SWITCH,
            "switch_to": K_SWITCH_TO, "lr": K_LR, "milestone": K_MILESTONE,
+           "lbfgs": [lbfgs_info(o) for o in tr.state.optimizer[:2]],
            "fit_s": fit_s,
            "adam_epoch_ms": 1e3 * statistics.median(adam_s),
            "lbfgs_epoch_ms": 1e3 * statistics.median(lbfgs_s),
@@ -2740,7 +2755,7 @@ def _l_steps(what: str, got: int, ref: int, cap: int) -> None:
 def _l_emit(line: dict, checks) -> None:
     for args in checks:
         _l_check(line, *args)
-    emit(line)
+    emit({**line, "optimizer": "zoom"})
 
 
 def slice_l1(dev, smi: str) -> None:
@@ -4452,6 +4467,7 @@ def slice_p(dev, smi: str) -> dict:
             "lbfgs", "--max-epochs", 80, "--fused-kernels", "--out-dir",
             tmp])
         line.update(phase="slice_P1", nvidia_smi=smi, rel_l2=r["rel_l2"],
+                    optimizer="zoom",
                     limit=P1_LIMIT, jax_reference=2.046e-4,
                     lbfgs_max_iter="the Trainer's default, 5 (slice A: 10)")
         emit(line)
@@ -4485,6 +4501,7 @@ def slice_p(dev, smi: str) -> dict:
                                         60, "--fused-kernels", "--out-dir",
                                         tmp])
         line.update(phase="slice_P3", nvidia_smi=smi, rel_l2=r["rel_l2"],
+                    optimizer="zoom",
                     limit=P3_LIMIT, jax_reference=JAX_E1_REL_L2)
         emit(line)
         if not (np.isfinite(r["u"]).all() and r["rel_l2"] <= P3_LIMIT):
@@ -4570,6 +4587,7 @@ def slice_p(dev, smi: str) -> dict:
             if missing or not r["run_dir"].startswith(os.path.join(tmp, run)):
                 fail(f"slice P6: {name} {argv}: missing {missing}")
         emit({"phase": "slice_P6", "nvidia_smi": smi, "runs": rows,
+              "optimizer": "zoom",
               "seconds": sum(row["seconds"] for row in rows)})
         out["P6"] = {k: sum(row["launches"][k] for row in rows)
                      for k in KERNELS}
@@ -4752,6 +4770,7 @@ def slice_r1(dev, smi: str, tmp: str) -> dict:
                 not k1 and any(entry["k1_launches"])):
             fail(f"slice R1: {key}: K1 launches {entry['k1_launches']}")
     emit({"phase": "slice_R1", "nvidia_smi": smi, "rows": out,
+          "optimizer": "zoom",
           "err_factor": R1_ERR_FACTOR, "rate_slack": R1_RATE_SLACK,
           "launches": launches})
     return launches

@@ -100,32 +100,33 @@ def stiffness_consts_3d(basis: FEMBasis) -> tuple[float, ...]:
             W / hx**2, W / hy**2, W / hz**2)
 
 
-def _part(D, S, cN, scale):
-    """One axis' part: ``D[a][b]``, ``S[a][b]`` over the two other axes'
-    corner offsets -> ``p[ab][bb]``, the projection onto their test
-    values."""
-    t = {}
-    for ga in (0, 1):
-        for gb in (0, 1):
-            du = A = None
-            for a in (0, 1):
-                for b in (0, 1):
-                    c = cN[ga][a] * cN[gb][b]
-                    du = c * D[a][b] if du is None else du + c * D[a][b]
-                    A = c * S[a][b] if A is None else A + c * S[a][b]
-            t[ga, gb] = du * A
-    return [[scale * sum(cN[ga][ab] * cN[gb][bb] * t[ga, gb]
-                         for ga in (0, 1) for gb in (0, 1))
-             for bb in (0, 1)] for ab in (0, 1)]
+def _contract(M, X):
+    """``sum_j M[i, j] X[j]`` of a ``[4, 4]`` matrix and four tensors:
+    ``[4, ...]``, in four broadcast products (no matmul: BLAS threads
+    crawl in a test worker beside others)."""
+    Mb = M.view(4, 4, *[1] * X[0].dim())
+    return Mb[:, 0] * X[0] + Mb[:, 1] * X[1] + Mb[:, 2] * X[2] + Mb[:, 3] * X[3]
+
+
+def _part(K, D, S, scale):
+    """One axis' part: the differences `D` and sums `S` (four each, over
+    the two other axes' corner offsets (a, b)) -> ``p[(ab, bb), ...]``:
+    per Gauss pair (ga, gb) of those axes the interpolated derivative
+    times the interpolated nu, projected onto their test values (K[(ga,
+    gb), (a, b)] the products of the 1D shape values)."""
+    t = _contract(K, D) * _contract(K, S)
+    return scale * _contract(K.T.contiguous(), t)
 
 
 def element_contributions_3d(u: torch.Tensor, nu: torch.Tensor,
-                             k: tuple[float, ...]) -> list[torch.Tensor]:
-    """Per-element contributions to the eight corners, ordered by the local
-    dof id ``(kb * 2 + jb) * 2 + ib`` (x fastest), each ``[B, nz-1, ny-1,
-    nx-1]``: the plain torch form of the kernel's element body."""
+                             k: tuple[float, ...]) -> torch.Tensor:
+    """Per-element contributions to the eight corners, ``[kb, jb, ib, B,
+    nz-1, ny-1, nx-1]`` (the corner's z, y, x offsets): the plain torch
+    form of the kernel's element body, each axis' part a few batched
+    products over the corner views (dozens of operations, not one for
+    each product)."""
     c00, c01, c10, c11, wx2, wy2, wz2 = k
-    cN = ((c00, c01), (c10, c11))
+    K = torch.kron(*[u.new_tensor([[c00, c01], [c10, c11]])] * 2)
 
     def view(x, kk, j, i):
         return x[..., kk:x.shape[-3] - 1 + kk, j:x.shape[-2] - 1 + j,
@@ -135,31 +136,33 @@ def element_contributions_3d(u: torch.Tensor, nu: torch.Tensor,
           for kk in (0, 1)]
     nc = [[[view(nu, kk, j, i) for i in (0, 1)] for j in (0, 1)]
           for kk in (0, 1)]
-    px = _part([[uc[kk][j][1] - uc[kk][j][0] for j in (0, 1)]
-                for kk in (0, 1)],
-               [[nc[kk][j][0] + nc[kk][j][1] for j in (0, 1)]
-                for kk in (0, 1)], cN, wx2)           # px[kb][jb]
-    py = _part([[uc[kk][1][i] - uc[kk][0][i] for i in (0, 1)]
-                for kk in (0, 1)],
-               [[nc[kk][0][i] + nc[kk][1][i] for i in (0, 1)]
-                for kk in (0, 1)], cN, wy2)           # py[kb][ib]
-    pz = _part([[uc[1][j][i] - uc[0][j][i] for i in (0, 1)]
-                for j in (0, 1)],
-               [[nc[0][j][i] + nc[1][j][i] for i in (0, 1)]
-                for j in (0, 1)], cN, wz2)            # pz[jb][ib]
-    sgn = (-1.0, 1.0)
-    return [sgn[ib] * px[kb][jb] + sgn[jb] * py[kb][ib] + sgn[kb] * pz[jb][ib]
-            for kb in (0, 1) for jb in (0, 1) for ib in (0, 1)]
+    ab = [(0, 0), (0, 1), (1, 0), (1, 1)]
+    px = _part(K, [uc[a][b][1] - uc[a][b][0] for a, b in ab],
+               [nc[a][b][0] + nc[a][b][1] for a, b in ab], wx2)  # (kb, jb)
+    py = _part(K, [uc[a][1][b] - uc[a][0][b] for a, b in ab],
+               [nc[a][0][b] + nc[a][1][b] for a, b in ab], wy2)  # (kb, ib)
+    pz = _part(K, [uc[1][a][b] - uc[0][a][b] for a, b in ab],
+               [nc[0][a][b] + nc[1][a][b] for a, b in ab], wz2)  # (jb, ib)
+    rest = px.shape[1:]
+    px, py, pz = (p.view(2, 2, *rest) for p in (px, py, pz))
+    sgn = u.new_tensor([-1.0, 1.0]).view(2, *[1] * len(rest))
+    # corner (kb, jb, ib): sgn[ib] px[kb, jb] + sgn[jb] py[kb, ib]
+    # + sgn[kb] pz[jb, ib]
+    return px[:, :, None] * sgn + py[:, None] * sgn[:, None] + pz * sgn[
+        :, None, None]
 
 
-def assemble_corners_3d(a: list[torch.Tensor]) -> torch.Tensor:
+def assemble_corners_3d(a: torch.Tensor) -> torch.Tensor:
     """Trilinear node assembly of per-element corner contributions:
-    eight ``[..., nelz, nely, nelx]`` -> ``[..., nelz+1, nely+1, nelx+1]``."""
+    ``[2, 2, 2, ..., nelz, nely, nelx]`` (the corner's z, y, x offsets) ->
+    ``[..., nelz+1, nely+1, nelx+1]``."""
     out = None
-    for m, x in enumerate(a):
-        kb, jb, ib = m >> 2, (m >> 1) & 1, m & 1
-        piece = F.pad(x, (ib, 1 - ib, jb, 1 - jb, kb, 1 - kb))
-        out = piece if out is None else out + piece
+    for kb in (0, 1):
+        for jb in (0, 1):
+            for ib in (0, 1):
+                piece = F.pad(a[kb, jb, ib],
+                              (ib, 1 - ib, jb, 1 - jb, kb, 1 - kb))
+                out = piece if out is None else out + piece
     return out
 
 

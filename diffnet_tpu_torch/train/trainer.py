@@ -6,12 +6,16 @@ optimizer steps on ``module.training_loss``:
 
   * optimizers: ``"adam"``, ``"sgd"``, ``"lbfgs"``, or a callable
     ``params -> torch.optim.Optimizer`` (the counterpart of an optax
-    transform). LBFGS is :class:`~diffnet_tpu_torch.train.lbfgs.LBFGS`
-    (``torch.optim.LBFGS(lr=1, max_iter=lbfgs_max_iter, history_size=10,
-    line_search_fn="strong_wolfe")`` with a scale-free curvature test)
-    stepped once per batch; its line search is not optax's zoom search, so
-    it agrees with the JAX Trainer in the solution reached, not step by
-    step;
+    transform). ``"lbfgs"`` is ``optax.lbfgs()``, the JAX Trainer's:
+    :class:`~diffnet_tpu_torch.train.lbfgs.ZoomLBFGS`, ``lbfgs_max_iter``
+    of its updates a batch, the loss logged the value at the start of the
+    last one; the first update of a batch starts from the value and
+    gradient the previous batch's last update accepted (JAX's
+    ``value_and_grad_from_state``), so it follows the JAX Trainer step by
+    step. On the card, without a process mesh, each evaluation of the loss
+    and its gradients (up to 20 an update, in the line search) is a replay
+    of one CUDA graph a batch shape (:class:`_GraphedLoss`; a loss that
+    reads the host runs eagerly, with a warning);
   * ``lr_milestones``: the learning rate times ``lr_gamma`` at each
     milestone epoch (torch's ``MultiStepLR``, stepped once an optimizer step
     with the milestones in steps, as optax's ``piecewise_constant_schedule``
@@ -20,7 +24,12 @@ optimizer steps on ``module.training_loss``:
     ``num_objectives`` and ``objective_loss(idx, batch)``, each over the
     parameters ``objective_param_mask(idx)`` names (all when None), the
     objective rotating once a batch; ``optimizer`` may be a list with one
-    spec per objective, and the metrics carry ``loss_obj{i}``;
+    spec per objective, and the metrics carry ``loss_obj{i}``. An LBFGS
+    objective runs, as JAX's, over all of the module's parameters: only
+    its own get gradients, every turn's first update is evaluated anew,
+    and after every update the others are put back to their values at
+    the turn's start (its line search's trials move them, as JAX's do:
+    the memory's pairs hold the other objectives' moves);
   * :class:`OptimizerSwitch` / :meth:`Trainer.request_optimizer_switch`:
     a new optimizer between epochs, the parameters kept, its state fresh;
   * ``resume_from``: an exact resume from ``state.ckpt`` (parameters,
@@ -93,7 +102,7 @@ from ..data.loader import NumpyLoader
 from ..parallel.mesh import all_reduce_sum, replicate, spatial_mesh
 from ..utils.device import resolve_device
 from .krylov import capture_graph, replay_graph
-from .lbfgs import LBFGS
+from .lbfgs import ZoomLBFGS
 
 __all__ = ["TrainState", "Trainer", "Callback", "CSVLogger",
            "TensorBoardLogger", "EarlyStopping", "OptimizerSwitch",
@@ -267,7 +276,6 @@ class TensorBoardLogger:
 
 
 def _make_optimizer(spec, params: list, learning_rate: float,
-                    lbfgs_max_iter: int,
                     graphed: bool = False) -> torch.optim.Optimizer:
     """The optimizer of `spec`. `graphed`: Adam and SGD for a CUDA graph,
     their learning rate a device tensor (Adam ``capturable``, SGD
@@ -290,19 +298,9 @@ def _make_optimizer(spec, params: list, learning_rate: float,
     if name == "sgd":
         return torch.optim.SGD(params, lr=learning_rate)
     if name == "lbfgs":
-        # torch's default tolerances (1e-7 on the gradient, 1e-9 on the
-        # change) are absolute and end a step early once a residual loss
-        # falls below them, and its default max_eval (1.25 max_iter) ends
-        # it when line searches take a second evaluation; the JAX Trainer
-        # always runs max_iter iterations. 25 evaluations an iteration is
-        # the cap torch puts on one line search.
-        # LBFGS (train/lbfgs.py) keeps every curvature pair of positive
-        # s.y, where torch's drops those below 1e-10 and stalls near 1e-9;
-        # 10 pairs, optax.lbfgs's memory (torch's default is 100)
-        return LBFGS(params, lr=1.0, max_iter=lbfgs_max_iter,
-                     max_eval=25 * lbfgs_max_iter, tolerance_grad=0.0,
-                     tolerance_change=0.0, history_size=10,
-                     line_search_fn="strong_wolfe")
+        # optax.lbfgs(), the JAX Trainer's; a step runs lbfgs_max_iter of
+        # its updates (Trainer._step_fn)
+        return ZoomLBFGS(params)
     raise ValueError(f"unknown optimizer {spec!r}")
 
 
@@ -366,13 +364,14 @@ def _reduce_into(grads: list, mesh, axis: str, op: str) -> None:
 
 
 class _Objective(NamedTuple):
-    """One optimizer, its scheduler, its step function, and its chunk
-    function (a list of batches to their losses; None for single
-    steps)."""
+    """One optimizer, its scheduler, its step function, its chunk
+    function (a list of batches to their losses; None for single steps),
+    and the CUDA graphs of its L-BFGS evaluations (None without)."""
     optimizer: torch.optim.Optimizer
     scheduler: Any
     step: Callable
     chunk: Callable | None = None
+    graphs: Any = None
 
 
 class _GraphedChunks:
@@ -451,6 +450,60 @@ class _GraphedChunks:
             for _ in range(n):
                 self.sched.step()
         return losses
+
+
+class _GraphedLoss:
+    """``loss_fn(batch)`` and its gradients with respect to `params` on the
+    card, one CUDA graph a batch shape (the shapes and types of its
+    tensors): L-BFGS's evaluations, every line-search trial a replay. A
+    shape's first call runs eagerly on a side stream and captures
+    (``krylov.capture_graph``); a later call copies its batch into the
+    graph's tensors and replays. The parameters are read where they are,
+    so the optimizer's in-place moves of them need no copy. A loss that
+    cannot be captured (a host read) runs eagerly from then on, with a
+    warning. Returns the loss (a fresh tensor) and the gradients (zeros
+    for a parameter the loss does not reach; under a graph its own
+    tensors, which the next call overwrites). :meth:`reset` drops the
+    graphs."""
+
+    def __init__(self, loss_fn, params: list):
+        self.loss_fn, self.params = loss_fn, params
+        self.reset()
+
+    def reset(self) -> None:
+        self.graphs = {}   # shape key -> (batch, graph, outputs, counts)
+        self.last = None   # the batch the graphs' inputs hold
+
+    def _value_and_grads(self, *batch) -> tuple:
+        loss = self.loss_fn(batch)
+        grads = torch.autograd.grad(loss, self.params, allow_unused=True)
+        return (loss.detach(), *(torch.zeros_like(p) if g is None else g
+                                 for p, g in zip(self.params, grads)))
+
+    def __call__(self, batch: tuple) -> tuple:
+        key = tuple((t.shape, t.dtype) for t in batch)
+        if key not in self.graphs:
+            xs = [t.clone() for t in batch]
+            try:
+                out, *graph = capture_graph(
+                    self._value_and_grads, *xs,
+                    what="Trainer: an L-BFGS evaluation of the loss")
+                self.graphs[key], self.last = (xs, *graph), batch
+                return out[0], out[1:]
+            except RuntimeError as e:
+                warnings.warn(f"{e}; it runs eagerly", RuntimeWarning)
+                self.graphs[key] = None
+        entry = self.graphs[key]
+        if entry is None:
+            out = self._value_and_grads(*batch)
+            return out[0], out[1:]
+        xs, graph, static, counts = entry
+        if batch is not self.last:   # an update's trials share their batch
+            for x, t in zip(xs, batch):
+                x.copy_(t)
+            self.last = batch
+        replay_graph(graph, counts)
+        return static[0].clone(), static[1:]
 
 
 class Trainer:
@@ -577,9 +630,15 @@ class Trainer:
             i += g.numel()
         return loss.detach() if own_loss else flat[-1].to(loss.dtype)
 
-    def _step_fn(self, loss_fn, opt, sched, params=None):
+    def _step_fn(self, loss_fn, opt, sched, params=None, turns=False,
+                 graphed=None):
         """One optimizer step of ``loss_fn(batch)``. With `params` (a
-        round-robin objective's) only their gradients are taken."""
+        round-robin objective's) only their gradients are taken. An LBFGS
+        step is ``lbfgs_max_iter`` updates, each evaluation through
+        `graphed` (a :class:`_GraphedLoss`) where given; with `turns` (a
+        round-robin objective) its first update is evaluated anew and the
+        optimizer's parameters outside `params` are put back after every
+        update."""
         synced = params if params is not None else [
             p for g in opt.param_groups for p in g["params"]]
 
@@ -594,21 +653,31 @@ class Trainer:
                     p.grad = g
             return self._all_reduce(loss, synced)
 
-        if isinstance(opt, torch.optim.LBFGS):
-            def step(batch):
-                # opt.step returns the loss before its first update; the
-                # last evaluation is at the parameters the step leaves
-                # (torch's line search ends on its last point unless its
-                # bracket fails)
-                last = []
+        if isinstance(opt, ZoomLBFGS):
+            n_updates = self.lbfgs_max_iter
+            own = {id(p) for p in synced}
+            frozen = [p for g in opt.param_groups for p in g["params"]
+                      if id(p) not in own]
 
+            def step(batch):
                 def closure():
                     opt.zero_grad(set_to_none=True)
-                    loss = backward(loss_fn(batch))
-                    last[:] = [loss.detach()]
+                    if graphed is None:
+                        return backward(loss_fn(batch))
+                    loss, grads = graphed(batch)
+                    for p, g in zip(synced, grads):
+                        p.grad = g
                     return loss
-                opt.step(closure)
-                return last[0]
+                # JAX's turn (_build_objective_step): the cached pair was
+                # taken before the other objectives' moves, and the frozen
+                # subtrees are pinned to the turn's start after each update
+                start = [p.detach().clone() for p in frozen]
+                for k in range(n_updates):
+                    # the loss logged: the value at the last update's start
+                    loss = opt.step(closure, fresh=turns and k == 0)
+                    for p, s in zip(frozen, start):
+                        p.detach().copy_(s)
+                return loss
             return step
 
         def step(batch):
@@ -627,16 +696,28 @@ class Trainer:
             return loss
         return step
 
-    def _objective(self, spec, loss_fn, params, lr, spe, scoped):
-        opt = _make_optimizer(spec, params, lr, self.lbfgs_max_iter,
-                              graphed=self._graphed)
+    def _objective(self, spec, loss_fn, params, lr, spe, scoped,
+                   every=None):
+        """`params`: the objective's parameters; `every` (a round-robin
+        objective's): all of the module's, over which ``"lbfgs"`` runs, as
+        the JAX Trainer's optax.lbfgs runs over the whole tree."""
+        lbfgs = _spec_key(spec) == "lbfgs"
+        opt = _make_optimizer(spec, every if lbfgs and scoped else params,
+                              lr, graphed=self._graphed)
         sched = None
-        lbfgs = isinstance(opt, torch.optim.LBFGS)
+        lbfgs = isinstance(opt, ZoomLBFGS)
         if self.lr_milestones and not lbfgs:
             sched = torch.optim.lr_scheduler.MultiStepLR(
                 opt, [int(m) * spe for m in self.lr_milestones],
                 gamma=self.lr_gamma)
-        step = self._step_fn(loss_fn, opt, sched, params if scoped else None)
+        graphed = None
+        if lbfgs and self.device.type == "cuda" and self._mesh is None:
+            # an L-BFGS evaluation a graph replay: its line search takes up
+            # to 20 an update
+            graphed = _GraphedLoss(
+                loss_fn, params if scoped else opt.param_groups[0]["params"])
+        step = self._step_fn(loss_fn, opt, sched, params if scoped else None,
+                             turns=scoped, graphed=graphed)
         chunk = None
         if self.steps_per_call > 1 and not (lbfgs or scoped
                                             or self.fast_dev_run):
@@ -645,7 +726,7 @@ class Trainer:
             else:
                 def chunk(batches):
                     return torch.stack([step(b).detach() for b in batches])
-        return _Objective(opt, sched, step, chunk)
+        return _Objective(opt, sched, step, chunk, graphed)
 
     def _build_objectives(self, module, lr: float, spe: int) -> None:
         """Every optimizer, scheduler and step function from
@@ -665,12 +746,13 @@ class Trainer:
         else:
             specs = [spec] * n_obj
         named = dict(module.network.named_parameters())
+        every = list(module.parameters())
         mask_hook = getattr(module, "objective_param_mask", None)
         self._objectives = []
         for i in range(n_obj):
             names = mask_hook(i) if mask_hook is not None else None
             if names is None:
-                params = list(module.parameters())
+                params = every
             else:
                 unknown = set(names) - set(named)
                 if unknown:
@@ -679,7 +761,7 @@ class Trainer:
                 params = [named[n] for n in names]
             self._objectives.append(self._objective(
                 specs[i], lambda batch, i=i: module.objective_loss(i, batch),
-                params, lr, spe, scoped=True))
+                params, lr, spe, scoped=True, every=every))
         self._last_obj_loss = [None] * n_obj
 
     def _train_state(self, module, n_steps: int) -> TrainState:
@@ -896,14 +978,16 @@ class Trainer:
         return self.state
 
     def invalidate_step_cache(self) -> None:
-        """Drop the CUDA graphs of ``steps_per_call`` chunks: the next chunk
-        of each shape runs eagerly and is captured again, so a change to a
+        """Drop the CUDA graphs of ``steps_per_call`` chunks and of L-BFGS
+        evaluations: the next call of each shape runs eagerly and is
+        captured again, so a change to a
         tensor the graphs hold (a module attribute reassigned between
         epochs) is seen. A graph lives within one ``fit``; JAX's call, which
         drops its cached jitted step, runs here too."""
         for obj in self._objectives:
-            if isinstance(obj.chunk, _GraphedChunks):
-                obj.chunk.reset()
+            for graphs in (obj.chunk, obj.graphs):
+                if isinstance(graphs, (_GraphedChunks, _GraphedLoss)):
+                    graphs.reset()
 
     @property
     def _writes(self) -> bool:

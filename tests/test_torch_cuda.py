@@ -43,7 +43,10 @@ its graphed LBFGS solve at 1e-3; ``Trainer(steps_per_call=4)``, a CUDA
 graph a chunk, against single eager steps through K2 and K3, each loss
 at 1e-5 relative and the field at 1e-5 of its largest value (capturable
 Adam rounds its float32 device scalars other than eager Adam its host
-ones).
+ones); the Trainer's L-BFGS with each evaluation a CUDA graph replay
+against eager evaluations, its losses at 1e-6 relative and its field at
+1e-6 of its largest value (the same kernels on the same inputs), and
+bit for bit where a host read sends it back to eager ones.
 """
 
 import numpy as np
@@ -1249,3 +1252,68 @@ def test_steps_per_call_capture_raises_on_a_host_read(dev):
         tr.fit(m)
     x = torch.ones(8, device=dev)
     assert float((x * 2).sum()) == 16.0
+
+
+def _lbfgs_fit(dev, cls=Poisson2D, epochs=3):
+    """A 33^2 resmin field fit through K1 from zeros, LBFGS x 10 for
+    `epochs` epochs: its logged losses, its field, its evaluations and K1's
+    launches."""
+    n = 33
+    ds = RectangleManufactured(n)
+    ds.n_samples = 1
+    m = cls(DirectField((n, n), init=np.zeros((n, n))), ds, domain_size=n,
+            batch_size=1, loss_type="resmin",
+            exact_solution=RectangleManufactured.exact,
+            forcing=lambda x, y: 2 * np.pi**2
+            * RectangleManufactured.exact(x, y),
+            mms_dirichlet=True, fused_kernels=True)
+    losses = []
+
+    class Log(Callback):
+        def on_epoch_end(self, trainer, module, state, epoch, metrics):
+            losses.append(metrics["loss"])
+
+    before = k1.launches
+    st = Trainer(max_epochs=epochs, optimizer="lbfgs", lbfgs_max_iter=10,
+                 device=dev, callbacks=[Log()]).fit(m)
+    evals = st.optimizer.state[m.network.field]["evaluations"]
+    return (np.asarray(losses), m.network.field.detach(), evals,
+            k1.launches - before)
+
+
+def test_lbfgs_graphed_evaluations_equal_eager_ones(dev, monkeypatch):
+    """The Trainer's L-BFGS on the card, every evaluation of the loss and
+    its gradient a CUDA graph replay (the line search's trials included),
+    against the same fit with eager evaluations: the same kernels on the
+    same inputs, so every logged loss within 1e-6 relative and the field
+    within 1e-6 x max |u|, the same evaluations, and K1 counted at each
+    replay as at each eager call."""
+    from diffnet_tpu_torch.train import trainer as trainer_mod
+
+    graphed = _lbfgs_fit(dev)
+    monkeypatch.setattr(trainer_mod, "_GraphedLoss", lambda *a: None)
+    eager = _lbfgs_fit(dev)
+    np.testing.assert_allclose(graphed[0], eager[0], rtol=1e-6)
+    assert float((graphed[1] - eager[1]).abs().max()) <= 1e-6 * float(
+        eager[1].abs().max())
+    assert graphed[2] == eager[2] > 30
+    assert graphed[3] == eager[3] > 0
+
+
+def test_lbfgs_evaluations_run_eagerly_after_a_host_read(dev, monkeypatch):
+    """A loss that reads a value back to the host cannot be captured: the
+    Trainer's L-BFGS warns and evaluates it eagerly from then on, and the
+    fit equals the eager one; the card runs on after the failed capture."""
+    from diffnet_tpu_torch.train import trainer as trainer_mod
+
+    class ReadsBack(Poisson2D):
+        def training_loss(self, batch):
+            loss = super().training_loss(batch)
+            return loss if float(loss.detach()) >= 0 else 2 * loss
+
+    with pytest.warns(RuntimeWarning, match="runs eagerly"):
+        got = _lbfgs_fit(dev, ReadsBack, epochs=2)
+    monkeypatch.setattr(trainer_mod, "_GraphedLoss", lambda *a: None)
+    want = _lbfgs_fit(dev, ReadsBack, epochs=2)
+    np.testing.assert_array_equal(got[0], want[0])
+    assert torch.equal(got[1], want[1]) and got[2] == want[2]

@@ -8,8 +8,8 @@ module residuals and losses at 1e-5 (losses relative), as the JAX package
 holds its fused module path; solved fields at 1e-4 (float32 Krylov solves
 whose matvecs sum in another order; JAX measured 6e-8 between its own fused
 and XLA Newton solves); Adam losses at 1e-5 relative, as the Poisson
-trainer test; LBFGS by its final loss only (torch's line search is not
-optax's).
+trainer test; LBFGS by its final loss only (both run optax's L-BFGS,
+whose float32 runs part within a few updates).
 """
 
 from functools import partial

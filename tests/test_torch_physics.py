@@ -11,8 +11,8 @@ loss; the gradient of its largest entry); datasets bit-equal (the same
 numpy code); Krylov solutions within 1e-4 of the largest |JAX value|
 (float32 Krylov iterations whose matvecs sum in another order); Adam
 losses within 1e-5 relative, as the Poisson trainer test; LBFGS by its
-final rel L2 error, within 10% of the JAX Trainer's (torch's strong-Wolfe
-line search is not optax's zoom search).
+final rel L2 error, within 10% of the JAX Trainer's (both run optax's
+L-BFGS, whose float32 runs part within a few updates).
 """
 
 import math

@@ -10,7 +10,8 @@ tolerance); losses at rtol 1e-5 (float32 sums over ~1e4 terms); loss
 gradients, whose entries reach O(100), at 1e-5 of their largest entry;
 tables and coordinates, which both packages compute in float64 numpy, at
 1e-12. Trainer parity: Adam step by step at rtol 1e-5, LBFGS by the final
-L2 error within 10% (torch's line search is not optax's).
+L2 error within 10% (both run optax's L-BFGS, whose float32 runs part
+within a few updates).
 """
 
 from functools import partial

@@ -6,7 +6,7 @@ Tolerances: the 3D error within 5e-3 relative of JAX's after 3 epochs
 (both at the grid's discretisation error). Stokes converges slowly (the
 JAX script's 400 epochs reach 5.7e-3 at 17^2 in both): after 40 epochs
 both are mid-way and their LBFGS runs part, so the port's error lies
-within 1.15x of JAX's either way (5.5% apart on this CPU)."""
+within 1.15x of JAX's either way (3.7% apart on a CPU)."""
 
 import pytest
 

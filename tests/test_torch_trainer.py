@@ -2,10 +2,15 @@
 
 Adam is held to the JAX Trainer step by step (losses and field at
 rtol=1e-5: the two Adam updates are the same formula in float32, and the
-gradients agree to ~1e-6 relative). LBFGS is held by the final L2 error,
-within 10% of the JAX Trainer's, and the final loss, within 10x: torch's
-strong-Wolfe line search is not optax's zoom search, so the iterates differ
-while the solution they reach agrees.
+gradients agree to ~1e-6 relative). LBFGS, optax's in both Trainers, is
+held on the 33^2 resmin fit by the final L2 error, within 10% of the JAX
+Trainer's, and the final loss, within 10x: the loss's conditioning parts
+the two float32 runs within the first step's updates
+(``tests/test_torch_lbfgs_zoom.py``), and the two floors the losses reach
+differ with their rounding (the port's K1 route 1.3e-12, JAX's 5.4e-12 on
+a CPU), so they agree in the solution reached, not step by step; the
+float64 toy problems of ``tests/test_torch_trainer_lbfgs.py`` hold the
+Trainers step by step.
 """
 
 import csv
@@ -115,30 +120,43 @@ def _rel_l2(m, u):
 
 
 class _TEndLosses(_TLosses):
-    """Also records, at every epoch's end, the loss the parameters have,
-    the LBFGS iteration count and the last line search's step."""
+    """Also records, at every epoch's end, the loss the parameters have and
+    the loss at the start of the step's last update (the parameters that
+    update started from), the LBFGS update count, and the last line
+    search's stepsize and evaluations."""
 
     def __init__(self):
         super().__init__()
-        self.end_losses, self.n_iter, self.last_t = [], [], []
+        self.end_losses, self.last_start_losses = [], []
+        self.count, self.last_t, self.last_evals = [], [], []
 
     def on_epoch_end(self, trainer, module, state, epoch, metrics):
         super().on_epoch_end(trainer, module, state, epoch, metrics)
         batch = tuple(torch.as_tensor(np.asarray(a))[None]
                       for a in module.dataset[0])
+        p = next(iter(module.parameters()))
+        st = state.optimizer.state[p]
         with torch.no_grad():
             self.end_losses.append(float(module.training_loss(batch)))
-        p = next(iter(module.parameters()))
-        self.n_iter.append(state.optimizer.state[p]["n_iter"])
-        self.last_t.append(float(state.optimizer.state[p]["t"]))
+            end = p.detach().clone()
+            p.copy_(st["params"].view_as(p))
+            self.last_start_losses.append(float(module.training_loss(batch)))
+            p.copy_(end)
+        self.count.append(st["count"])
+        self.last_t.append(st["stepsize"])
+        self.last_evals.append(st["linesearch_steps"])
 
 
 @pytest.fixture(scope="module")
 def lbfgs_runs():
-    """One 33² resmin LBFGS fit from zeros, 40 epochs of one 10-iteration
-    step, by each Trainer."""
+    """One 33² resmin LBFGS fit from zeros, 40 epochs of one 10-update
+    step, by each Trainer; the port's through its kernel route (K1's plain
+    version on the CPU, a third of the element path's time: from the 7th
+    epoch on every update's line search runs its 20 evaluations)."""
     n = 33
     jm, tm = _modules(n, np.zeros((n, n)), loss_type="resmin")
+    tm = Poisson2D(DirectField((n, n), init=np.zeros((n, n))), tm.dataset,
+                   **dict(tm.kwargs, fused_kernels=True))
     jcb, tcb = _JLosses(), _TEndLosses()
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(pl, "pallas_call", partial(pl.pallas_call, interpret=True))
@@ -164,29 +182,38 @@ def test_lbfgs_final_loss_within_10x_of_jax_trainer(lbfgs_runs):
 
 
 def test_lbfgs_logs_the_loss_of_its_end_parameters(lbfgs_runs):
+    """The loss a step logs is the JAX Trainer's: the value at the start
+    of its last update (the loss of the parameters that update started
+    from), not the loss of those the step ends on."""
     tcb = lbfgs_runs[-1]
-    np.testing.assert_allclose(tcb.losses, tcb.end_losses, rtol=1e-5)
+    np.testing.assert_allclose(tcb.losses, tcb.last_start_losses, rtol=1e-6)
+    assert tcb.losses[0] != tcb.end_losses[0]
 
 
 def test_lbfgs_step_runs_max_iter_below_absolute_tolerances(lbfgs_runs):
     """torch's default tolerances would end a step at once below 1e-9;
-    the first epochs start there and still run all 10 iterations."""
+    the first epochs start there and still run all 10 updates."""
     tcb = lbfgs_runs[-1]
     assert max(tcb.losses[:2]) < 1e-9, tcb.losses[:2]
-    assert tcb.n_iter[:3] == [10, 20, 30], tcb.n_iter
+    assert tcb.count[:3] == [10, 20, 30], tcb.count
 
 
 def test_lbfgs_step_after_a_failed_line_search_repeats_it(lbfgs_runs):
-    """Where a step's line search finds no lower loss (t = 0, at the
-    float32 floor) the step counts its remaining iterations as run: each
-    would repeat that search exactly. The epochs after it, which run their
-    iterations, hold the parameters where they are, to the bit."""
+    """At float32's floor no stepsize meets both of the line search's
+    conditions: each search runs its 20 evaluations, fails, and takes its
+    safe step (optax's ``_try_safe_step``), a stepsize in (0, 1) of
+    sufficient decrease (approximate: within 1e-6 of the loss), where
+    torch's L-BFGS would end the step; the step still runs its 10 updates.
+    From some epoch on every epoch's last search fails so, for most of the
+    run, and the loss never rises above that approximate decrease."""
     tcb = lbfgs_runs[-1]
-    assert tcb.n_iter == [10 * (k + 1) for k in range(len(tcb.n_iter))]
-    k = tcb.last_t.index(0.0)
-    assert k < len(tcb.last_t) - 5, tcb.last_t
-    assert set(tcb.last_t[k:]) == {0.0}, tcb.last_t
-    assert set(tcb.end_losses[k:]) == {tcb.end_losses[k]}, tcb.end_losses
+    assert tcb.count == [10 * (k + 1) for k in range(len(tcb.count))]
+    k = max(i for i, n in enumerate(tcb.last_evals) if n < 20) + 1
+    assert k < len(tcb.last_evals) - 5, tcb.last_evals
+    assert all(0 < t < 1 for t in tcb.last_t[k:]), tcb.last_t
+    assert all(e <= (1 + 1e-6) * s
+               for e, s in zip(tcb.end_losses, tcb.losses)), (
+        tcb.end_losses, tcb.losses)
 
 
 def test_sgd_lowers_the_loss_and_logs(tmp_path):
@@ -335,58 +362,3 @@ def test_entry_points_default_to_the_card(name):
     else:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
-
-
-def _lbfgs_run(cls, scale, steps):
-    """`steps` 10-iteration steps of `cls` on scale * sum(d x^2 + x^4)
-    from ones (d from 1 to 100), float64."""
-    d = torch.linspace(1.0, 100.0, 50, dtype=torch.float64)
-    x = torch.ones(50, dtype=torch.float64, requires_grad=True)
-    opt = cls([x], lr=1.0, max_iter=10, max_eval=250, tolerance_grad=0.0,
-              tolerance_change=0.0, line_search_fn="strong_wolfe")
-
-    def closure():
-        opt.zero_grad()
-        f = scale * torch.sum(d * x * x + x**4)
-        f.backward()
-        return f
-
-    for _ in range(steps):
-        opt.step(closure)
-    x = x.detach()
-    return x.clone(), float(scale * torch.sum(d * x * x + x**4)), \
-        opt.state[opt.param_groups[0]["params"][0]]
-
-
-@pytest.mark.parametrize("scale", [1.0, 1e-12])
-def test_lbfgs_keeps_the_pairs_torch_drops(scale):
-    """Where every curvature pair has s.y > 1e-10 the port's LBFGS is
-    torch's (float64, within 1e-12: its two-loop multiplies by tensor
-    coefficients where torch's reads them as numbers); at a loss scale of
-    1e-12 torch drops the pairs and stalls, the port's keeps them and
-    converges."""
-    from diffnet_tpu_torch.train.lbfgs import LBFGS
-
-    steps = 2 if scale == 1.0 else 5   # 2 steps: before s.y nears 1e-10
-    xt, ft, st = _lbfgs_run(torch.optim.LBFGS, scale, steps)
-    xp, fp, sp = _lbfgs_run(LBFGS, scale, steps)
-    assert sp["n_iter"] == 10 * steps
-    if scale == 1.0:
-        torch.testing.assert_close(xp, xt, rtol=0, atol=1e-12)
-        assert st["n_iter"] == 10 * steps
-        assert sp["func_evals"] == st["func_evals"]
-    else:
-        assert len(st["old_dirs"]) < 5 < len(sp["old_dirs"])
-        assert fp < 1e-6 * ft, (fp, ft)
-
-
-def test_trainer_lbfgs_is_the_ports():
-    from diffnet_tpu_torch.train.lbfgs import LBFGS
-
-    n = 9
-    _, tm = _modules(n, np.zeros((n, n)), loss_type="resmin")
-    st = Trainer(max_epochs=1, optimizer="lbfgs", lbfgs_max_iter=2,
-                 device="cpu").fit(tm)
-    assert type(st.optimizer) is LBFGS
-    with pytest.raises(ValueError, match="strong_wolfe"):
-        LBFGS(tm.parameters(), line_search_fn=None)

@@ -8,9 +8,10 @@ Navier-Stokes objective protocol and ``pretrain_autoencoder``.
 
 Tolerances: the port's end parameters within 1e-4 of the JAX Trainer's
 where both run Adam or SGD on the same scalar losses (float32 updates in
-another order, up to 200 steps); LBFGS runs are held, as the JAX tests
-hold them, by the optimum they reach (torch's strong-Wolfe line search is
-not optax's zoom search); remat and resume bit-equal; the NS objectives
+another order, up to 200 steps); LBFGS runs are held here, as the JAX
+tests hold them, by the optimum they reach (both Trainers run optax's
+L-BFGS, held step by step in ``tests/test_torch_trainer_lbfgs.py``); remat
+and resume bit-equal; the NS objectives
 within 1e-5 relative of JAX's (gradients of their largest entry); the
 pretrained autoencoder's reconstructions within 1e-4 of their largest
 entry (not its raw parameters: a bias before a normalisation has a zero
@@ -61,6 +62,7 @@ from diffnet_tpu_torch.pde import (IBNPoisson2D, NavierStokes, Poisson2D,
 from diffnet_tpu_torch.train import (ArrayImageDataset, OptimizerSwitch,
                                      TensorBoardLogger, Trainer, load_state,
                                      pretrain_autoencoder)
+from diffnet_tpu_torch.train.lbfgs import ZoomLBFGS
 
 PARAM_ATOL = 1e-4
 NS_RTOL = 1e-5
@@ -68,10 +70,11 @@ NS_RTOL = 1e-5
 
 # -- toy modules: the JAX tests' scalar problems in both packages ------------
 
-def _jax_toy(init, loss=None, objectives=None, mask=None, lr=0.1):
+def _jax_toy(init, loss=None, objectives=None, mask=None, lr=0.1,
+             dtype=np.float32):
     class Net:
         def init(self, rng, x):
-            return {k: jnp.asarray(v, jnp.float32) for k, v in init.items()}
+            return {k: jnp.asarray(v, dtype) for k, v in init.items()}
 
         def apply(self, params, x):
             return params
@@ -101,10 +104,12 @@ def _jax_toy(init, loss=None, objectives=None, mask=None, lr=0.1):
 class _Toy(nn.Module):
     """The port's counterpart: the scalars are the network's parameters."""
 
-    def __init__(self, init, loss=None, objectives=None, mask=None, lr=0.1):
+    def __init__(self, init, loss=None, objectives=None, mask=None, lr=0.1,
+                 dtype=np.float32):
         super().__init__()
         self.network = nn.ParameterDict({
-            k: nn.Parameter(torch.tensor(float(v))) for k, v in init.items()})
+            k: nn.Parameter(torch.from_numpy(np.asarray(v, dtype)))
+            for k, v in init.items()})
         self.dataset, self.batch_size, self.learning_rate = None, 1, lr
         self._loss, self._objectives, self._mask = loss, objectives, mask
         if objectives is not None:
@@ -136,13 +141,15 @@ def _params(state_or_module):
 
 
 def _both(init, trainer_kw, loss=None, objectives=None, mask=None, lr=0.1,
-          n=1, callbacks=lambda jax_side: []):
-    """Fit the toy in both packages; returns (JAX's params, the port's
-    params, the port's trainer, the port's module)."""
+          n=1, callbacks=lambda jax_side: [], dtype=np.float32):
+    """Fit the toy in both packages, its parameters of `dtype` (float64:
+    JAX under ``enable_x64``); returns (JAX's params, the port's params,
+    the port's trainer, the port's module)."""
     jl, tl = _loaders(n)
-    jst = JTrainer(callbacks=callbacks(True), **trainer_kw).fit(
-        _jax_toy(init, loss, objectives, mask, lr), jl)
-    tm = _Toy(init, loss, objectives, mask, lr)
+    with jax.enable_x64(dtype == np.float64):
+        jst = JTrainer(callbacks=callbacks(True), **trainer_kw).fit(
+            _jax_toy(init, loss, objectives, mask, lr, dtype), jl)
+    tm = _Toy(init, loss, objectives, mask, lr, dtype)
     tr = Trainer(callbacks=callbacks(False), device="cpu", **trainer_kw)
     tr.fit(tm, tl)
     return _params(jst), _params(tm), tr, tm
@@ -203,7 +210,7 @@ def test_round_robin_optimizer_list():
         objectives=TWO, lr=0.2, n=2)
     assert abs(got["b"] + 2.0) < 1e-3 and abs(got["a"] - 3.0) < 0.5
     assert abs(got["a"] - want["a"]) <= PARAM_ATOL
-    assert isinstance(tr.state.optimizer[1], torch.optim.LBFGS)
+    assert isinstance(tr.state.optimizer[1], ZoomLBFGS)
     with pytest.raises(ValueError):
         Trainer(optimizer=["adam", "adam"], device="cpu").fit(
             _Toy({"a": 1.0}, objectives=TWO), _loaders()[1])
@@ -507,7 +514,7 @@ def test_optimizer_switch_adam_to_lbfgs(tmp_path):
     tr2 = Trainer(max_epochs=2, optimizer="adam", device="cpu")
     st = tr2.fit(_Toy({"w": 10.0}, loss), tl,
                  resume_from=str(tmp_path / "state.ckpt"))
-    assert isinstance(st.optimizer, torch.optim.LBFGS)
+    assert isinstance(st.optimizer, ZoomLBFGS)
     assert tr2.lbfgs_max_iter == 7 and st.step == 5
 
 
@@ -526,7 +533,7 @@ def test_optimizer_switch_round_robin_list():
     for p in (want, got):
         assert abs(p["a"] - 3.0) < 1e-3 and p["b"] < -0.2
     assert abs(got["b"] - want["b"]) <= PARAM_ATOL
-    assert isinstance(tr.state.optimizer[0], torch.optim.LBFGS)
+    assert isinstance(tr.state.optimizer[0], ZoomLBFGS)
     assert isinstance(tr.state.optimizer[1], torch.optim.Adam)
 
 
