@@ -40,6 +40,7 @@ code.
 
 from __future__ import annotations
 
+import gc
 from typing import Callable
 
 import torch
@@ -67,7 +68,13 @@ def capture_graph(fn: Callable, *args: torch.Tensor, what: str) -> tuple:
     :func:`replay_graph` (`counts`), as its wrapper does at an eager call:
     the capture launches nothing, so what it counted is taken back. A
     capture that fails (a host read: ``.item()``, ``float()``, a branch on
-    a tensor's value) raises RuntimeError naming `what`."""
+    a tensor's value) raises RuntimeError naming `what`, after freeing
+    the graph and taking back what its wrappers counted.
+
+    The garbage collector does not run during the capture: a graph that it
+    frees there (one in a reference cycle, as a Trainer's are) destroys
+    its executable, a call CUDA refuses while a stream captures, and the
+    capture in progress is lost."""
     dev = args[0].device
     side = torch.cuda.Stream(dev)
     side.wait_stream(torch.cuda.current_stream(dev))
@@ -77,20 +84,29 @@ def capture_graph(fn: Callable, *args: torch.Tensor, what: str) -> tuple:
     counters = _launch_counters()
     before = [getattr(m, name) for m, name in counters]
     graph = torch.cuda.CUDAGraph()
+    collecting = gc.isenabled()
+    gc.disable()
     try:
         with torch.cuda.graph(graph):
             out = fn(*args)
+        error = None
     except RuntimeError as e:
-        raise RuntimeError(
-            f"{what} could not be captured as a CUDA graph; it must launch "
-            "kernels only, on the current stream, and read nothing back to "
-            "the host (no .item(), float() or branch on a tensor's value): "
-            f"{e}") from e
+        error = e
+    finally:
+        if collecting:
+            gc.enable()
     counts = []
     for (m, name), b in zip(counters, before):
         if getattr(m, name) != b:
             counts.append(((m, name), getattr(m, name) - b))
             setattr(m, name, b)
+    if error is not None:
+        graph.reset()   # now, and not by the collector inside a capture
+        raise RuntimeError(
+            f"{what} could not be captured as a CUDA graph; it must launch "
+            "kernels only, on the current stream, and read nothing back to "
+            "the host (no .item(), float() or branch on a tensor's value): "
+            f"{error}") from error
     return eager, graph, out, counts
 
 

@@ -46,7 +46,9 @@ Adam rounds its float32 device scalars other than eager Adam its host
 ones); the Trainer's L-BFGS with each evaluation a CUDA graph replay
 against eager evaluations, its losses at 1e-6 relative and its field at
 1e-6 of its largest value (the same kernels on the same inputs), and
-bit for bit where a host read sends it back to eager ones.
+bit for bit where a host read sends it back to eager ones; a graph
+captured while the garbage collector would free another, and the launch
+count of a failed capture, exactly.
 """
 
 import numpy as np
@@ -1059,6 +1061,66 @@ def test_a_host_read_in_a_graphed_operator_raises(dev):
     x, _ = gmres(lambda v: A @ v, b, restart=4, maxiter=5)
     want = torch.linalg.solve(A, b)
     assert float((x - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+def test_a_graph_collected_during_a_capture_leaves_it_whole(dev):
+    """A captured graph that becomes garbage in a reference cycle (as a
+    Trainer's graphs do) is not collected while another graph is being
+    captured: its destruction there is a call CUDA refuses during a
+    capture, and the capture in progress would be lost. The collector runs
+    at nearly every allocation here, and the cycle turns to garbage inside
+    the capture; the second graph replays to the eager result exactly."""
+    import gc
+
+    from diffnet_tpu_torch.train.krylov import capture_graph, replay_graph
+
+    x = torch.arange(64.0, device=dev)
+    held = [capture_graph(lambda t: 2 * t, x, what="first")[1]]
+
+    class Cycle:
+        pass
+
+    def drops_the_cycle(t):
+        if torch.cuda.is_current_stream_capturing():
+            c = Cycle()           # young garbage that holds the first graph
+            c.self, c.graph = c, held.pop()
+            del c
+            junk = [[] for _ in range(1000)]   # allocations: collections
+            del junk
+        return t + 1
+
+    threshold = gc.get_threshold()
+    gc.set_threshold(1)
+    try:
+        eager, graph, out, counts = capture_graph(drops_the_cycle, x,
+                                                  what="second")
+    finally:
+        gc.set_threshold(*threshold)
+    x.mul_(3)
+    replay_graph(graph, counts)
+    assert torch.equal(eager, torch.arange(64.0, device=dev) + 1)
+    assert torch.equal(out, x + 1)
+
+
+def test_a_failed_capture_counts_no_launch(dev):
+    """A capture that fails on a host read launched nothing: the kernel's
+    count holds the eager warm-up's launch alone, and the card runs on."""
+    from diffnet_tpu_torch.train.krylov import capture_graph
+
+    tb = _basis(33, 33, dev, False)
+    u, nu, _, _ = _fields((1, 33, 33), dev)
+
+    def reads_back(v):
+        K = k1.stiffness_action(v, nu, tb)
+        return K if float(K.abs().max()) >= 0 else -K
+
+    before = k1.launches
+    with pytest.raises(RuntimeError, match="read nothing back to the host"):
+        capture_graph(reads_back, u, what="K1 with a host read")
+    assert k1.launches == before + 1
+    _field_close(k1.stiffness_action(u, nu, tb),
+                 k1.stiffness_action_plain(u, nu, tb))
+    assert k1.launches == before + 2
 
 
 def test_split_unet_ibn_fit_on_the_card_matches_one_process(dev, tmp_path):
